@@ -1,0 +1,37 @@
+"""repro_torch.spec — typed, declarative descriptions of configs and costs.
+
+* :mod:`~repro_torch.spec.axes` — :class:`Axis` / :class:`Predicate` /
+  :class:`ParamSpace`: declarative searchable axes; :func:`hadoop_space` is
+  the paper's full Tables-1-3 space.
+* :mod:`~repro_torch.spec.job` — :class:`JobSpec`: the three parameter
+  dataclasses as one frozen, hashable value, losslessly convertible to and
+  from the flat ``pack_config`` dict.
+* :mod:`~repro_torch.spec.report` — :class:`PhaseBreakdown` /
+  :class:`CostReport`: the model's flat outputs lifted into typed per-phase
+  costs with disaggregated validity.
+"""
+
+from .axes import Axis, ParamSpace, Predicate, hadoop_space
+from .job import JobSpec
+from .report import (
+    PHASES,
+    VALIDITY_CONSTRAINTS,
+    CostReport,
+    PhaseBreakdown,
+    invalid_reason_counts,
+    invalid_reasons,
+)
+
+__all__ = [
+    "Axis",
+    "Predicate",
+    "ParamSpace",
+    "hadoop_space",
+    "JobSpec",
+    "PhaseBreakdown",
+    "CostReport",
+    "PHASES",
+    "VALIDITY_CONSTRAINTS",
+    "invalid_reason_counts",
+    "invalid_reasons",
+]

@@ -1,0 +1,296 @@
+"""Structured per-phase cost reports: :class:`PhaseBreakdown` + :class:`CostReport`.
+
+The paper's output is not one number — it is a *decomposition*: per-phase
+costs on the map side (read+map, collect/spill, merge, write) and the
+reduce side (shuffle, sort/merge, reduce+write), plus the network transfer,
+composed into job-level totals (Eqs. 92-98).  The batched model
+(:func:`repro_torch.core.hadoop.model.job_model_torch`) emits all of it, but
+as a flat ``m_*``/``r_*``/``j_*``-prefixed dict; this module lifts that dict
+into typed dataclasses whose fields carry the paper equation numbers in
+their metadata:
+
+* :class:`PhaseBreakdown` — the eight job-level phase costs, in seconds.
+  They **sum to Eq. 98's total** (property-tested): each map phase is
+  scaled by ``pNumMappers / map slots`` (Eqs. 92-93), each reduce phase by
+  ``pNumReducers / reduce slots`` (Eqs. 94-95).
+* :class:`CostReport` — the phase breakdown plus the job-level aggregates
+  (Eqs. 96-98) and the *disaggregated* validity flags: where the flat path
+  collapses ``mergeValid * step2Valid * step3Valid`` into one ``valid``
+  float, a report says which closed-form constraint actually failed
+  (:meth:`CostReport.invalid_reasons`).
+
+Leaves are numpy arrays or torch tensors, whichever the outputs were; a
+batched report is a report whose leaves are ``(B,)`` columns.
+``total_cost`` is the model's ``j_totalCost`` *by reference* — the typed
+path is bit-for-bit the dict path.  The reference package's
+``ProvisioningReport``, ``DagReport`` and ``CalibrationReport`` come with
+their consumers.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, fields
+from typing import Mapping
+
+import numpy as np
+import torch
+
+__all__ = [
+    "PhaseBreakdown",
+    "CostReport",
+    "PHASES",
+    "VALIDITY_CONSTRAINTS",
+    "invalid_reason_counts",
+    "invalid_reasons",
+]
+
+
+class _TorchXp:
+    """The few array functions :meth:`CostReport.from_outputs` needs, on torch."""
+
+    @staticmethod
+    def asarray(x, like=None):
+        return torch.as_tensor(x, device=like.device if like is not None else None)
+
+    ones_like = staticmethod(torch.ones_like)
+    where = staticmethod(torch.where)
+
+
+def _xp(*arrays):
+    """numpy for numpy inputs, torch for tensors."""
+    return _TorchXp if any(isinstance(a, torch.Tensor) for a in arrays) else np
+
+
+def _np(x) -> np.ndarray:
+    """A host numpy view of an array or a (possibly CUDA) tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _phase(eq: str, side: str, doc: str):
+    return field(metadata={"eq": eq, "side": side, "doc": doc})
+
+
+@dataclass(frozen=True)
+class PhaseBreakdown:
+    """Job-level per-phase costs in seconds (fields sum to Eq. 98).
+
+    Field metadata carries the paper provenance:
+    ``PhaseBreakdown.eq("shuffle") -> "Eqs. 35-61"``.
+    """
+
+    map_read: object = _phase(
+        "Eqs. 2-4", "map", "read + decompress the split, run the map function")
+    map_spill: object = _phase(
+        "Eqs. 11-19", "map", "collect, serialize, sort, combine and spill")
+    map_merge: object = _phase(
+        "Eqs. 20-32", "map", "merge spill files into the final map output")
+    map_write: object = _phase(
+        "Eqs. 5-7", "map", "write map output to HDFS (map-only jobs)")
+    shuffle: object = _phase(
+        "Eqs. 35-61", "reduce", "fetch, buffer and shuffle-merge map segments")
+    reduce_merge: object = _phase(
+        "Eqs. 62-80", "reduce", "multi-step sort/merge of shuffled segments")
+    reduce_write: object = _phase(
+        "Eqs. 81-87", "reduce", "run the reduce function, write to HDFS")
+    network: object = _phase(
+        "Eqs. 90-91", "job", "cross-node shuffle transfer")
+
+    @classmethod
+    def names(cls) -> tuple[str, ...]:
+        return tuple(f.name for f in fields(cls))
+
+    @classmethod
+    def eq(cls, name: str) -> str:
+        return cls.__dataclass_fields__[name].metadata["eq"]
+
+    @classmethod
+    def describe(cls, name: str) -> str:
+        m = cls.__dataclass_fields__[name].metadata
+        return f"{m['doc']} ({m['eq']})"
+
+    def total(self):
+        """Sum of all phases == ``j_totalCost`` (Eqs. 96-98; tested)."""
+        vals = [getattr(self, f.name) for f in fields(self)]
+        out = vals[0]
+        for v in vals[1:]:
+            out = out + v
+        return out
+
+    def __getitem__(self, name: str):
+        if name not in self.__dataclass_fields__:
+            raise KeyError(
+                f"unknown phase: {name!r} (phases: {list(self.names())})")
+        return getattr(self, name)
+
+
+PHASES: tuple[str, ...] = PhaseBreakdown.names()
+
+#: constraint name -> (model output key, reduce-side?, human explanation).
+#: These are the three §2.3 closed-form merge domains that the flat path
+#: multiplies into a single ``valid`` float.
+VALIDITY_CONSTRAINTS: dict[str, tuple[str, bool, str]] = {
+    "mapMerge": (
+        "m_mergeValid", False,
+        "map-side spill merge out of the closed-form domain: "
+        "numSpills > pSortFactor**2 (§2.3, Eqs. 20-26)",
+    ),
+    "shuffleMerge": (
+        "r_step2Valid", True,
+        "reduce-side disk merge (step 2) out of the closed-form domain: "
+        "filesToMergeStep2 > pSortFactor**2 (Eq. 69)",
+    ),
+    "finalMerge": (
+        "r_step3Valid", True,
+        "reduce-side final merge (step 3) out of the closed-form domain: "
+        "filesToMergeStep3 > pSortFactor**2 (Eq. 74)",
+    ),
+}
+
+
+@dataclass(frozen=True)
+class CostReport:
+    """Typed view of one (or a batch of) job-model evaluation(s).
+
+    Every leaf is an array; a batched report has ``(B,)`` columns.  The
+    aggregate fields are the model's own outputs by reference (bit-for-bit
+    with the ``j_*`` dict keys); ``phases`` re-scales the per-task phase
+    costs to job level so they sum to ``total_cost``.
+    """
+
+    phases: PhaseBreakdown
+    io_cost: object                 # Eq. 96  (j_ioJobCost)
+    cpu_cost: object                # Eq. 97  (j_cpuJobCost)
+    net_cost: object                # Eq. 91  (j_netCost)
+    total_cost: object              # Eq. 98  (j_totalCost)
+    valid: object                   # product of the three constraints below
+    merge_valid: object             # §2.3 map-side domain (m_mergeValid)
+    shuffle_valid: object           # Eq. 69 domain (r_step2Valid; 1 if map-only)
+    sort_valid: object              # Eq. 74 domain (r_step3Valid; 1 if map-only)
+
+    @classmethod
+    def from_outputs(
+        cls, outputs: Mapping[str, object], cfg: Mapping[str, object]
+    ) -> "CostReport":
+        """Build a report from flat model outputs + the (merged) config.
+
+        ``outputs`` is a :func:`job_model_torch` output dict (scalar or
+        batched); ``cfg`` must resolve the five structural knobs the
+        job-level scaling needs (``pNumMappers``, ``pNumReducers``,
+        ``pNumNodes``, ``pMaxMapsPerNode``, ``pMaxRedPerNode``) — base
+        config values with any swept columns merged over them.
+        """
+        total = outputs["j_totalCost"]
+        xp = _xp(total)
+        like = {} if xp is np else {"like": total}
+        n_map = xp.asarray(cfg["pNumMappers"], **like)
+        n_red = xp.asarray(cfg["pNumReducers"], **like)
+        nodes = xp.asarray(cfg["pNumNodes"], **like)
+        m_scale = n_map / (nodes * xp.asarray(cfg["pMaxMapsPerNode"], **like))
+        r_scale = n_red / (nodes * xp.asarray(cfg["pMaxRedPerNode"], **like))
+        has_red = n_red > 0
+
+        def mphase(io_key, cpu_key):
+            return (outputs[io_key] + outputs[cpu_key]) * m_scale
+
+        def rphase(io_key, cpu_key):
+            return (outputs[io_key] + outputs[cpu_key]) * r_scale
+
+        phases = PhaseBreakdown(
+            map_read=mphase("m_ioReadCost", "m_cpuReadCost"),
+            map_spill=mphase("m_ioSpillCost", "m_cpuSpillCost"),
+            map_merge=mphase("m_ioMergeCost", "m_cpuMergeCost"),
+            map_write=mphase("m_ioMapWriteCost", "m_cpuMapWriteCost"),
+            shuffle=rphase("r_ioShuffleCost", "r_cpuShuffleCost"),
+            reduce_merge=rphase("r_ioSortCost", "r_cpuSortCost"),
+            reduce_write=rphase("r_ioWriteCost", "r_cpuWriteCost"),
+            network=outputs["j_netCost"],
+        )
+        one = xp.ones_like(outputs["valid"])
+        return cls(
+            phases=phases,
+            io_cost=outputs["j_ioJobCost"],
+            cpu_cost=outputs["j_cpuJobCost"],
+            net_cost=outputs["j_netCost"],
+            total_cost=outputs["j_totalCost"],
+            valid=outputs["valid"],
+            merge_valid=outputs["m_mergeValid"],
+            # the model zeroes ALL r_* outputs for map-only jobs, including
+            # the flags; a constraint that cannot apply did not fail
+            shuffle_valid=xp.where(has_red, outputs["r_step2Valid"], one),
+            sort_valid=xp.where(has_red, outputs["r_step3Valid"], one),
+        )
+
+    # ---------------- validity introspection ----------------
+
+    def invalid_reasons(self, i: int | None = None) -> list[str]:
+        """Which closed-form constraints failed (for row ``i`` if batched)."""
+        flags = {
+            "mapMerge": self.merge_valid,
+            "shuffleMerge": self.shuffle_valid,
+            "finalMerge": self.sort_valid,
+        }
+        out = []
+        for name, flag in flags.items():
+            v = _np(flag)
+            failed = (v[i] if i is not None else v) == 0
+            if np.any(failed):
+                out.append(f"{name}: {VALIDITY_CONSTRAINTS[name][2]}")
+        return out
+
+    def best(self) -> int:
+        """Index of the cheapest valid row (raises if none is valid)."""
+        from repro_torch.search.evaluator import InvalidGridError  # no import cycle at module load
+
+        cost = np.where(_np(self.valid) > 0, _np(self.total_cost), np.inf)
+        if cost.size == 0 or not np.isfinite(cost).any():
+            raise InvalidGridError(
+                "no valid configuration in this report; reasons: "
+                + "; ".join(self.invalid_reasons())
+            )
+        return int(np.argmin(cost))
+
+
+def invalid_reason_counts(
+    outputs: Mapping[str, np.ndarray],
+    cfg: Mapping[str, object] | None = None,
+) -> dict[str, int]:
+    """Per-constraint failure counts for a flat model-output batch.
+
+    Used by the ``valid == 0`` exact-fallback log lines.  When ``cfg`` is
+    given, reduce-side constraints are not counted for map-only rows
+    (the model zeroes their flags there).  Returns only constraints whose
+    output keys exist, so non-Hadoop evaluators yield ``{}``.
+    """
+    counts: dict[str, int] = {}
+    for name, (key, reduce_side, _) in VALIDITY_CONSTRAINTS.items():
+        if key not in outputs:
+            continue
+        failed = _np(outputs[key]) == 0
+        if reduce_side and cfg is not None and "pNumReducers" in cfg:
+            failed = failed & (_np(cfg["pNumReducers"]) > 0)
+        n = int(np.sum(failed))
+        if n:
+            counts[name] = n
+    return counts
+
+
+def invalid_reasons(
+    outputs: Mapping[str, np.ndarray],
+    i: int,
+    cfg: Mapping[str, object] | None = None,
+) -> list[str]:
+    """Human-readable failed constraints for row ``i`` of a flat batch."""
+    out = []
+    for name, (key, reduce_side, doc) in VALIDITY_CONSTRAINTS.items():
+        if key not in outputs:
+            continue
+        if _np(outputs[key]).ravel()[i] != 0:
+            continue
+        if reduce_side and cfg is not None and "pNumReducers" in cfg:
+            n_red = _np(cfg["pNumReducers"])
+            if float(n_red.ravel()[i] if n_red.ndim else n_red) <= 0:
+                continue
+        out.append(f"{name}: {doc}")
+    return out
