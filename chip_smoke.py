@@ -12,8 +12,9 @@ sizes (``dfs.block.size`` 128 MiB splits of 400-byte wordcount records,
   1. hold the kernel against its plain PyTorch version on the card, at the
      test shapes and at the engine's shape, and time the kernel, the plain
      version and one ``index_add_`` call (CUDA events, median of 50);
-  2. run the MapReduce engine (4 maps, 8 reducers, combiner on) with the
-     combiner's sums on the kernel, and against the numpy combiner;
+  2. run the MapReduce engine (4 maps, 8 reducers, combiner on) as a user
+     calls it, so the combiner's sums go to the kernel on the card, and
+     hold it against the numpy combiner;
   3. profile three probe runs and fit the Table-3 cost factors;
   4. search a >= 10^5-config grid with the chunked evaluator on the card
      (chunked == unchunked bit for bit; top-10 == the CPU run's), then
@@ -27,7 +28,8 @@ Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
 beside it.  The ``seg_combine`` launch count is zeroed just before the main
 path (phases 2-6) and read just after: it must be > 0.  Before the last
-line it prints one ``{"kernels": [...]}`` JSON line; the last line is
+line it prints one ``{"kernels": [...]}`` JSON line, which also repeats the
+build time and the ``torch.profiler`` device times; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -163,7 +165,8 @@ def main() -> int:
               f"python {sys.version.split()[0]}")
         t0 = time.perf_counter()
         lib = build()
-        print(f"built {lib.name} in {time.perf_counter() - t0:.2f} s")
+        build_s = time.perf_counter() - t0
+        print(f"built {lib.name} in {build_s:.2f} s")
 
     # ---------------------------------------------------------------- 1
     with _phase("1_kernel_vs_plain", timings):
@@ -215,10 +218,12 @@ def main() -> int:
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = n * d / FP32_OPS_PER_S * 1e3
         kernel.update(
-            max_abs_err=max_err, ms=kernel_ms, kernel_ms=kernel_ms,
+            max_abs_err=max_err, ms=kernel_ms,
             plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            device_ms=k_dev, device_kernels=k_n, plain_device_ms=p_dev,
+            plain_device_kernels=p_n, build_s=build_s)
         print(f"   main shape N={n} D={d} P={p}: kernel {kernel_ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, "
               f"bound {kernel['bound_ms']:.6f} ms ({n_bytes} B)")
@@ -234,12 +239,14 @@ def main() -> int:
     with _phase("2_engine", timings):
         keys, values = make_input(job, n_records, seed=0)
         t0 = time.perf_counter()
-        jc_k = MapReduceEngine(hp, job, use_kernel_combine=True,
-                               device=dev).run_job(keys, values)
+        engine = MapReduceEngine(hp, job)          # combines on the card
+        assert engine.device.type == "cuda"
+        jc_k = engine.run_job(keys, values)
         t_kernel = time.perf_counter() - t0
         launches_engine = seg_combine.launches
         t0 = time.perf_counter()
-        jc_np = MapReduceEngine(hp, job).run_job(keys, values)
+        jc_np = MapReduceEngine(hp, job, use_kernel_combine=False).run_job(
+            keys, values)
         t_numpy = time.perf_counter() - t0
         assert launches_engine > 0, "the engine did not launch seg_combine"
         np.testing.assert_array_equal(jc_k.output[0], jc_np.output[0])
@@ -254,8 +261,7 @@ def main() -> int:
     with _phase("3_profile_and_fit", timings):
         probes = [hp, hp.replace(pSortMB=50.0),
                   hp.replace(pNumReducers=8, pSortFactor=20)]
-        runs = [run_measured(job, h, n_records, seed=1, use_kernel_combine=True,
-                             device=dev) for h in probes]
+        runs = [run_measured(job, h, n_records, seed=1) for h in probes]
         costs = fit_cost_factors(runs)
         stats = runs[0].stats
         for f in ("cHdfsReadCost", "cMapCPUCost", "cSortCPUCost",
@@ -292,7 +298,11 @@ def main() -> int:
               f"{c_n} CUDA kernels, {c_dev:.3f} ms of device time "
               f"(device idle {100 * (1 - c_dev / c_wall):.1f} %)")
         search_topk(ev, space, k=10)                   # warm-up
-        top = search_topk(ev, space, k=10)
+        tops = [search_topk(ev, space, k=10) for _ in range(5)]
+        top = tops[0]
+        for t in tops[1:]:
+            assert [e.index for e in t.entries] == [e.index for e in top.entries]
+        rates = sorted(t.configs_per_sec for t in tops)
         top_cpu = search_topk(ev_cpu, space, k=10)
         assert [e.index for e in top.entries] == [e.index for e in top_cpu.entries]
         np.testing.assert_allclose([e.cost for e in top.entries],
@@ -301,8 +311,9 @@ def main() -> int:
         tuned = coordinate_descent_ev(ev, space)
         t_cd = time.perf_counter() - t0
         assert tuned.best_cost >= top.best().cost * (1 - 1e-12)
-        print(f"   grid {n_grid} configs: top-k {top.configs_per_sec:,.0f} "
-              f"configs/s on the card, {top_cpu.configs_per_sec:,.0f} on the "
+        print(f"   grid {n_grid} configs: top-k median {rates[2]:,.0f} "
+              f"configs/s on the card over 5 runs (min {rates[0]:,.0f}, max "
+              f"{rates[-1]:,.0f}), {top_cpu.configs_per_sec:,.0f} on the "
               f"host CPU; best {top.best().cost:.3f} s")
         print(f"   coordinate descent: {tuned.best_assignment} "
               f"{tuned.best_cost:.3f} s, {tuned.evaluations} evals in "
@@ -329,16 +340,14 @@ def main() -> int:
             assert np.isfinite(r.best()[1])
         s = svc.summary()
         print(f"   {s['queries']} queries -> {s['chunks']} chunks "
-              f"({s['shared_chunks']} shared); p50 "
-              f"{s['latency_p50_s'] * 1e3:.2f} ms, p99 "
-              f"{s['latency_p99_s'] * 1e3:.2f} ms")
+              f"({s['shared_chunks']} shared); median latency of the "
+              f"{s['queries']} queries {s['latency_p50_s'] * 1e3:.2f} ms "
+              f"(a smoke reading, not a distribution)")
 
     with _phase("6_verify_and_simulate", timings):
         hp_tuned = tuned.apply(hp)
-        before = run_measured(job, hp, n_records, seed=2,
-                              use_kernel_combine=True, device=dev)
-        after = run_measured(job, hp_tuned, n_records, seed=2,
-                             use_kernel_combine=True, device=dev)
+        before = run_measured(job, hp, n_records, seed=2)
+        after = run_measured(job, hp_tuned, n_records, seed=2)
         pred_before = predict(hp, stats, costs)
         pred_after = predict(hp_tuned, stats, costs)
         assert pred_after <= pred_before * (1 + 1e-12)

@@ -2,8 +2,8 @@
 
 * :mod:`engine`   — faithful Hadoop-semantics execution (buffers, spills,
   multi-pass merges, shuffle, reduce) with exact per-phase dataflow counters;
-  with ``use_kernel_combine`` the combiner runs on the hand-written CUDA
-  ``seg_combine`` kernel.
+  the combiner runs on the hand-written CUDA ``seg_combine`` kernel unless
+  ``use_kernel_combine=False`` asks for numpy.
 * :mod:`jobs`     — canonical benchmark jobs (wordcount, sort, filter,
   aggregate) with synthetic datasets.
 * :mod:`profiler` — Starfish-style profiler: measure ProfileStats + phase

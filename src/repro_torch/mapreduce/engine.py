@@ -14,8 +14,8 @@ validated against (benchmark E7 / tests): every quantity the paper derives —
 Orchestration is host-level Python/numpy — exactly as Hadoop's own task
 runtime is JVM code around the sort/merge buffers — while the combiner
 (the compute hot-spot) runs on the hand-written CUDA ``seg_combine`` kernel
-via :func:`repro_torch.kernels.seg_combine` when ``use_kernel_combine`` is
-set (the reference engine's ``use_pallas_combine``).
+via :func:`repro_torch.kernels.seg_combine` by default (``use_kernel_combine``,
+the reference engine's ``use_pallas_combine``).
 Byte sizes follow the paper's accounting: pair counts x pair widths, with
 compression modeled by the ratio statistics (Table 2).
 
@@ -113,14 +113,15 @@ class MapReduceEngine:
         hp: HadoopParams,
         job: JobSpec,
         *,
-        use_kernel_combine: bool = False,
+        use_kernel_combine: bool = True,
         device=None,
     ):
         """``use_kernel_combine`` (the reference engine's
         ``use_pallas_combine``) sends the combiner's segmented sums through
-        :func:`repro_torch.kernels.seg_combine` on ``device`` (default CUDA;
-        ``"cpu"`` takes the kernel's plain version); without it the combiner
-        is numpy and ``device`` is not used."""
+        :func:`repro_torch.kernels.seg_combine` on ``device``: ``None`` means
+        CUDA and raises without a card, ``"cpu"`` takes the kernel's plain
+        version.  ``use_kernel_combine=False`` keeps the numpy combiner of
+        the reference engine's default, and ``device`` is then not used."""
         self.hp = hp
         self.job = job
         self.use_kernel_combine = use_kernel_combine

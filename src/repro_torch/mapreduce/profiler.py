@@ -94,14 +94,15 @@ def run_measured(
     n_pairs: int,
     *,
     seed: int = 0,
-    use_kernel_combine: bool = False,
+    use_kernel_combine: bool = True,
     device=None,
 ) -> MeasuredRun:
     """Run the engine once on seeded input and profile it.
 
-    ``use_kernel_combine`` (the reference's ``use_pallas_combine``) runs the
-    combiner through the ``seg_combine`` kernel on ``device`` (default
-    CUDA; ``"cpu"`` takes its plain version)."""
+    The combiner runs through the ``seg_combine`` kernel on ``device``
+    (``None`` is CUDA; ``"cpu"`` takes its plain version) unless
+    ``use_kernel_combine=False`` (the reference's ``use_pallas_combine``)
+    asks for the numpy combiner; see :class:`MapReduceEngine`."""
     keys, values = make_input(job, n_pairs, seed=seed)
     eng = MapReduceEngine(hp, job, use_kernel_combine=use_kernel_combine,
                           device=device)
@@ -239,8 +240,12 @@ def prediction_error(
     *,
     seed: int = 0,
     fit: str = "lstsq",
+    device=None,
 ) -> dict:
-    """Fit on ``fit_hps``, predict ``test_hps``; report relative errors."""
-    fit_runs = [run_measured(job, hp, n_pairs, seed=seed) for hp in fit_hps]
-    test_runs = [run_measured(job, hp, n_pairs, seed=seed + 1) for hp in test_hps]
+    """Fit on ``fit_hps``, predict ``test_hps``; report relative errors.
+    The engine runs combine on ``device`` (see :func:`run_measured`)."""
+    fit_runs = [run_measured(job, hp, n_pairs, seed=seed, device=device)
+                for hp in fit_hps]
+    test_runs = [run_measured(job, hp, n_pairs, seed=seed + 1, device=device)
+                 for hp in test_hps]
     return prediction_error_from_runs(fit_runs, test_runs, fit=fit)

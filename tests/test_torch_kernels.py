@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from repro.kernels import seg_combine as j_seg_combine
+from repro.kernels.ref import seg_combine_ref as j_seg_combine_ref
 from repro_torch.kernels import seg_combine
-from repro_torch.kernels.ref import seg_combine_ref
 from repro_torch.kernels.seg_combine import seg_combine_torch
 
 SHAPES = [(1024, 256, 16), (777, 130, 7), (64, 8, 3)]
@@ -51,14 +51,14 @@ def test_plain_drops_negative_ids_like_pallas(n, d, p):
 def test_ids_at_or_above_p_are_dropped():
     # the Pallas kernel's one-hot never matches an id >= P, so it drops it;
     # the reference's jnp oracle clips it into row P-1 instead.  The port
-    # follows the kernel; its torch mirror of the oracle keeps the clip.
+    # follows the kernel.
     vals = np.ones((96, 2), np.float32)
     ids = (np.arange(96) % 6).astype(np.int32)        # P = 4: ids 4, 5 too big
     got = seg_combine(torch.from_numpy(vals), torch.from_numpy(ids), 4)
     pallas = np.asarray(j_seg_combine(jnp.asarray(vals), jnp.asarray(ids), 4))
     np.testing.assert_array_equal(got.numpy(), np.full((4, 2), 16.0))
     np.testing.assert_array_equal(got.numpy(), pallas)
-    oracle = seg_combine_ref(torch.from_numpy(vals), torch.from_numpy(ids), 4)
+    oracle = np.asarray(j_seg_combine_ref(jnp.asarray(vals), jnp.asarray(ids), 4))
     assert oracle[3, 0] == 16.0 + 32.0
 
 

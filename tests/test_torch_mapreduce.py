@@ -2,8 +2,9 @@
 
 The engine is carried numpy code: its dataflow counters, outputs and
 measured profiles must be identical to the reference engine's on the same
-seeded input.  With ``use_kernel_combine`` the combiner's segmented sums go
-through ``repro_torch.kernels.seg_combine`` (its plain version on the CPU):
+seeded input.  By default (``use_kernel_combine``) the combiner's segmented
+sums go through ``repro_torch.kernels.seg_combine`` (its plain version on
+the CPU):
 keys exact, values at rtol 1e-5, the twin of the reference's
 ``test_combiner_pallas_equals_numpy``.  The least-squares fit gives the
 reference's factors at rtol 1e-12 on runs with identical counters and
@@ -14,6 +15,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.hadoop import params as j_params
 from repro.mapreduce import JOBS as J_JOBS
@@ -57,7 +59,8 @@ def _run_both(name, n=N, **kw):
     t_keys, t_values = make_input(JOBS[name], n, seed=1)
     assert np.array_equal(keys, t_keys) and np.array_equal(values, t_values)
     jc = JEngine(hp, J_JOBS[name]).run_job(keys, values)
-    tc = MapReduceEngine(to_port(hp), JOBS[name]).run_job(keys, values)
+    tc = MapReduceEngine(to_port(hp), JOBS[name],
+                         use_kernel_combine=False).run_job(keys, values)
     return hp, jc, tc
 
 
@@ -78,10 +81,9 @@ def test_kernel_combine_equals_numpy_combiner(name):
     job = JOBS[name]
     hp = to_port(_hp(J_JOBS[name], 8_000))
     keys, values = make_input(job, 8_000)
-    jc_np = MapReduceEngine(hp, job).run_job(keys, values)
+    jc_np = MapReduceEngine(hp, job, use_kernel_combine=False).run_job(keys, values)
     before = seg_combine.launches
-    jc_k = MapReduceEngine(hp, job, use_kernel_combine=True,
-                           device="cpu").run_job(keys, values)
+    jc_k = MapReduceEngine(hp, job, device="cpu").run_job(keys, values)
     assert seg_combine.launches == before      # the CPU takes the plain version
     k1, v1 = jc_np.output
     k2, v2 = jc_k.output
@@ -93,13 +95,18 @@ def test_kernel_combine_equals_numpy_combiner(name):
 def test_kernel_combine_flag_is_renamed_and_needs_a_device():
     job = JOBS["wordcount"]
     hp = to_port(_hp(J_JOBS["wordcount"], 1_000))
-    eng = MapReduceEngine(hp, job)
-    assert eng.use_kernel_combine is False and eng.device is None
+    eng = MapReduceEngine(hp, job, device="cpu")
+    assert eng.use_kernel_combine is True and eng.device == torch.device("cpu")
+    eng = MapReduceEngine(hp, job, use_kernel_combine=False)
+    assert eng.device is None
     with pytest.raises(TypeError):
         MapReduceEngine(hp, job, use_pallas_combine=True)
     if not has_cuda():
+        # the kernel combine is the default, so no card means an error
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            MapReduceEngine(hp, job, use_kernel_combine=True)
+            MapReduceEngine(hp, job)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_profiler.run_measured(job, hp, 1_000)
 
 
 def _measured_pairs(name, hps, n=N):
@@ -108,7 +115,8 @@ def _measured_pairs(name, hps, n=N):
     out = []
     for hp in hps:
         jr = j_profiler.run_measured(J_JOBS[name], hp, n, seed=1)
-        tr = t_profiler.run_measured(JOBS[name], to_port(hp), n, seed=1)
+        tr = t_profiler.run_measured(JOBS[name], to_port(hp), n, seed=1,
+                                     device="cpu")
         assert _strip_times(tr.counters) == _strip_times(jr.counters)
         assert dataclasses.asdict(tr.stats) == dataclasses.asdict(jr.stats)
         tr = dataclasses.replace(tr, wall_s=jr.wall_s,
@@ -146,3 +154,18 @@ def test_prediction_error_from_runs_equal_reference():
     with pytest.raises(ValueError, match="lstsq"):
         t_profiler.prediction_error_from_runs(
             [t for t, _ in fit], [t for t, _ in test], fit="autodiff")
+
+
+def test_prediction_error_combines_on_the_requested_device():
+    job = J_JOBS["wordcount"]
+    fit_hps = [to_port(_hp(job, 4_000)), to_port(_hp(job, 4_000, pSortMB=1.0))]
+    test_hps = [to_port(_hp(job, 4_000, pNumReducers=8))]
+    before = seg_combine.launches
+    out = t_profiler.prediction_error(JOBS["wordcount"], fit_hps, test_hps,
+                                      4_000, device="cpu")
+    assert seg_combine.launches == before      # the CPU takes the plain version
+    assert len(out["rows"]) == 1 and np.isfinite(out["mean_rel_err"])
+    if not has_cuda():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_profiler.prediction_error(JOBS["wordcount"], fit_hps, test_hps,
+                                        4_000)
