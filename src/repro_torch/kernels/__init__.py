@@ -1,13 +1,18 @@
 """Hand-written Hopper kernels of the port, one per TPU kernel on its path.
 
-  seg_combine — per-partition sums (the Hadoop collect/partition/combine
-                step), CUDA C++ for sm_90a in ``csrc/seg_combine.cu``;
-                replaces the reference's Pallas ``seg_combine_kernel``.
+  seg_combine      — per-partition sums (the Hadoop collect/partition/
+                     combine step), ``csrc/seg_combine.cu``;
+  flash_attention  — blocked online-softmax GQA attention for prefill,
+                     ``csrc/flash_attention.cu``;
+  decode_attention — one token's GQA attention over a full or ring KV
+                     cache, split across CTAs, ``csrc/decode_attention.cu``.
 
-Each kernel has its launcher and plain PyTorch version (``<name>.py``) and a
-checked, counted public wrapper (``ops.py``).
+Each is CUDA C++ for sm_90a, built by :mod:`._build` and bound with ctypes,
+and replaces the reference's Pallas kernel of the same name.  Each has its
+launcher and plain PyTorch version (``<name>.py``) and a checked, counted
+public wrapper (``ops.py``).
 """
 
-from .ops import seg_combine
+from .ops import flash_attention, gqa_decode_attention, seg_combine
 
-__all__ = ["seg_combine"]
+__all__ = ["flash_attention", "gqa_decode_attention", "seg_combine"]

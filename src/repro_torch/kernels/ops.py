@@ -5,18 +5,165 @@ launches the hand-written CUDA kernel for a CUDA tensor, and takes the
 kernel's plain PyTorch version only for a tensor on the CPU.  There is no
 fallback: a CUDA tensor launches the kernel or raises.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``, a plain integer, so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel; a call counts once even
+where the kernel is two device launches.
+
+The attention wrappers take the reference's layouts at the public boundary
+(``repro/kernels/ops.py``): q (B, H, Sq, hd) and k, v (B, KV, Sk, hd) for
+``flash_attention``; q (B, H, 1, hd) over caches (B, KV, S, hd) for
+``gqa_decode_attention``.  The kernels take any head dim that is a multiple
+of 8 up to 256 and any sequence length, unpadded.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import decode_attention as _da
+from . import flash_attention as _fa
 from .seg_combine import seg_combine_cuda, seg_combine_torch
 
-__all__ = ["seg_combine"]
+__all__ = ["flash_attention", "gqa_decode_attention", "seg_combine"]
 
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_device(what: str, *tensors: torch.Tensor) -> str:
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: inputs on several devices: "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {dev}")
+    return dev.type
+
+
+def _check_attention(what: str, q, k, v, *, window, logit_cap) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{what}: {name} must be 4-d, got shape {tuple(t.shape)}")
+        if t.dtype not in _VALUE_DTYPES:
+            raise TypeError(f"{what}: {name} must be float32 or bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"{what}: q, k, v differ in dtype: {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.shape != v.shape:
+        raise ValueError(f"{what}: k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    B, H, _, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"{what}: q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         "differ in batch or head dim")
+    KV = k.shape[1]
+    if KV == 0 or H % KV:
+        raise ValueError(f"{what}: {H} query heads do not split into {KV} kv groups")
+    if window is not None and window < 1:
+        raise ValueError(f"{what}: window must be >= 1, got {window}")
+    if logit_cap is not None and not logit_cap > 0:
+        raise ValueError(f"{what}: logit_cap must be > 0, got {logit_cap}")
+
+
+def _check_head_dim(what: str, hd: int) -> None:
+    if hd % 8 or hd > 256:
+        raise ValueError(f"{what}: the kernel takes a head dim that is a "
+                         f"multiple of 8 up to 256, not {hd}")
+
+
+def flash_attention(
+    q: torch.Tensor,            # (B, H, Sq, hd) f32 or bf16, contiguous
+    k: torch.Tensor,            # (B, KV, Sk, hd), same dtype and device
+    v: torch.Tensor,            # (B, KV, Sk, hd)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    logit_cap: float | None = None,
+    q_offset: int = 0,
+    k_len: int | None = None,
+) -> torch.Tensor:
+    """GQA attention (B, H, Sq, hd): query head h reads kv head h // G.
+
+    Query row i sits at position ``q_offset + i``; keys at or past ``k_len``
+    (default Sk) are masked, as are keys after the query (``causal``) and
+    keys at or before ``q_pos - window``.  Scores are scaled by hd**-0.5 and
+    soft-capped to ``logit_cap * tanh(s / logit_cap)``.
+    """
+    _check_attention("flash_attention", q, k, v, window=window, logit_cap=logit_cap)
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    k_len = Sk if k_len is None else int(k_len)
+    if not 0 <= k_len <= Sk:
+        raise ValueError(f"flash_attention: k_len must be in [0, {Sk}], got {k_len}")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be >= 0, got {q_offset}")
+    spec = _fa.launch_spec(B, H, KV, Sq, hd).check("flash_attention")
+    _check_head_dim("flash_attention", hd)
+    on_cpu = _check_device("flash_attention", q, k, v) == "cpu"
+    if q.numel() == 0 or Sk == 0:
+        return torch.zeros_like(q)
+    if on_cpu:
+        return _fa.flash_attention_torch(
+            q, k, v, causal=causal, window=window, logit_cap=logit_cap,
+            q_offset=q_offset, k_len=k_len)
+    out = _fa.flash_attention_cuda(
+        q, k, v, causal=causal, window=window, logit_cap=logit_cap,
+        q_offset=int(q_offset), k_len=k_len, spec=spec)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def gqa_decode_attention(
+    q: torch.Tensor,            # (B, H, 1, hd) f32 or bf16, contiguous
+    k_cache: torch.Tensor,      # (B, KV, S, hd), same dtype and device
+    v_cache: torch.Tensor,      # (B, KV, S, hd)
+    slot_pos: torch.Tensor,     # (S,) int32: the position each slot holds
+    pos: torch.Tensor,          # 0-dim int32: the position of this token
+    *,
+    window: int | None = None,
+    logit_cap: float | None = None,
+) -> torch.Tensor:
+    """One token's attention over a full or ring cache, (B, H, 1, hd).
+
+    Slot s is seen when ``0 <= slot_pos[s] <= pos`` and, with a window,
+    ``slot_pos[s] > pos - window``; a slot never written holds a negative
+    position.  ``pos`` and ``slot_pos`` stay on the device.
+    """
+    what = "gqa_decode_attention"
+    _check_attention(what, q, k_cache, v_cache, window=window, logit_cap=logit_cap)
+    B, H, one, hd = q.shape
+    if one != 1:
+        raise ValueError(f"{what}: q must be (B, H, 1, hd), got {tuple(q.shape)}")
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    if slot_pos.shape != (S,) or slot_pos.dtype != torch.int32:
+        raise ValueError(f"{what}: slot_pos must be ({S},) int32, got "
+                         f"{tuple(slot_pos.shape)} {slot_pos.dtype}")
+    if pos.dim() != 0 or pos.dtype != torch.int32:
+        raise ValueError(f"{what}: pos must be a 0-dim int32 tensor, got "
+                         f"{tuple(pos.shape)} {pos.dtype}")
+    if not slot_pos.is_contiguous():
+        raise ValueError(f"{what}: slot_pos must be contiguous")
+    G = H // KV
+    spec, split_len = _da.launch_spec(B, KV, G, S, hd)
+    spec.check(what)
+    _check_head_dim(what, hd)
+    qg = q.view(B, KV, G, hd)
+    on_cpu = _check_device(what, q, k_cache, v_cache, slot_pos, pos) == "cpu"
+    if q.numel() == 0 or S == 0:
+        return torch.zeros_like(q)
+    if on_cpu:
+        out = _da.decode_attention_torch(qg, k_cache, v_cache, slot_pos, pos,
+                                         window=window, logit_cap=logit_cap)
+        return out.view(B, H, 1, hd)
+    out = _da.decode_attention_cuda(
+        qg, k_cache, v_cache, slot_pos, pos, window=window,
+        logit_cap=logit_cap, spec=spec, split_len=split_len)
+    gqa_decode_attention.launches += 1
+    return out.view(B, H, 1, hd)
+
+
+gqa_decode_attention.launches = 0
 
 
 def seg_combine(

@@ -1,4 +1,4 @@
-"""``seg_combine`` on Hopper: the CUDA kernel, its build, and its plain version.
+"""``seg_combine`` on Hopper: the CUDA kernel's launcher and its plain version.
 
 The kernel (``csrc/seg_combine.cu``) replaces the reference package's Pallas
 kernel ``repro/kernels/seg_combine.py::seg_combine_kernel``: per-partition
@@ -6,10 +6,7 @@ fp32 sums ``out[p, :] = sum(values[n, :] for ids[n] == p)``, with ids outside
 ``[0, P)`` dropped.  The source says why it is an atomic scatter here
 rather than the TPU's one-hot matrix product.
 
-It is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface and loaded with ``ctypes``, at first use, into
-``build/repro_torch/`` at the root of the checkout, keyed by a hash of the
-source and flags (so a fresh checkout builds it once, in seconds).
+It is built and loaded at first use by :mod:`repro_torch.kernels._build`.
 
 :func:`seg_combine_torch` is the plain PyTorch version of the same
 function.  The CPU path of :func:`repro_torch.kernels.seg_combine` and the
@@ -19,63 +16,16 @@ tests use it; on the card it is only the yardstick the kernel is held to.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-__all__ = ["build", "seg_combine_cuda", "seg_combine_torch"]
+from ._build import check, load
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "seg_combine.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC"]
-_LIB = None
+__all__ = ["seg_combine_cuda", "seg_combine_torch"]
 
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def build() -> Path:
-    """Compile ``seg_combine.cu`` (once per source hash); the library path."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_FLAGS).encode())
-    lib = _BUILD_DIR / f"seg_combine_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *_FLAGS, "-o", str(tmp), str(_SRC)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {_SRC.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for fn in (lib.seg_combine_f32, lib.seg_combine_bf16):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+_SIGNATURES = {"seg_combine_f32": _ARGS, "seg_combine_bf16": _ARGS}
 
 
 def seg_combine_cuda(
@@ -89,14 +39,13 @@ def seg_combine_cuda(
     """
     n, d = values.shape
     out = torch.zeros((num_parts, d), dtype=torch.float32, device=values.device)
-    lib = _lib()
+    lib = load("seg_combine", _SIGNATURES)
     fn = lib.seg_combine_f32 if values.dtype == torch.float32 else lib.seg_combine_bf16
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(values.data_ptr(), ids.data_ptr(), out.data_ptr(),
                  n, d, num_parts, stream)
-    if err != 0:
-        raise RuntimeError(f"seg_combine kernel launch failed: CUDA error {err}")
+    check(err, "seg_combine")
     return out
 
 

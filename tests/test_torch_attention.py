@@ -1,0 +1,306 @@
+"""The port's attention kernels against the JAX package's, on the CPU.
+
+On the CPU the port's wrappers take the kernels' plain PyTorch versions; the
+JAX side runs its Pallas kernels in interpret mode and its jnp oracles, as
+``tests/test_kernels.py`` does, over that file's own sweep.  The port's plain
+``chunked_attention`` (the ``"torch"`` attention impl) is held to the same
+oracle.  Tolerances are the reference's: 1e-5 in fp32 (the sums run in
+another order) and 2e-2 in bf16 (bf16 scores and probabilities round at other
+places in the two frameworks).  The wrappers' checks, their launch geometry
+and its shared memory are pinned here too; the kernels themselves run only on
+the card, in ``chip_smoke.py``.
+"""
+
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as j_flash_attention
+from repro.kernels import gqa_decode_attention as j_gqa_decode_attention
+from repro.kernels.ref import decode_attention_ref, flash_attention_ref
+from repro.models.attention import _ring_slot_positions
+from repro_torch.kernels import flash_attention, gqa_decode_attention
+from repro_torch.kernels.decode_attention import decode_attention_torch
+from repro_torch.kernels.decode_attention import launch_spec as decode_spec
+from repro_torch.kernels.flash_attention import flash_attention_torch
+from repro_torch.kernels.flash_attention import launch_spec as flash_spec
+from repro_torch.kernels._build import MAX_SMEM_BYTES
+from repro_torch.models.attention import chunked_attention, ring_slot_positions
+
+TOL = dict(rtol=2e-2, atol=2e-2)      # bf16
+TOL32 = dict(rtol=1e-5, atol=1e-5)
+DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _arrays(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _both(arrays, dtype):
+    t_dt, j_dt = DTYPES[dtype]
+    return ([torch.from_numpy(a).to(t_dt) for a in arrays],
+            [jnp.asarray(a, j_dt) for a in arrays])
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+# ----------------------------------------------------------- flash attention
+
+FLASH_CASES = {
+    # name: (B, H, KV, Sq, Sk, hd, causal, window, logit_cap, q_offset)
+    "gqa": (1, 4, 2, 256, 256, 64, True, None, None, 0),
+    "sq_ne_sk": (2, 2, 2, 128, 384, 128, True, None, None, 0),
+    "mqa_hd80": (1, 8, 1, 256, 256, 80, True, None, None, 0),
+}
+FLASH_F32_CASES = {
+    "window64": (1, 4, 4, 256, 256, 64, True, 64, None, 0),
+    "window128": (1, 4, 4, 256, 256, 64, True, 128, None, 0),
+    "window1024": (1, 4, 4, 256, 256, 64, True, 1024, None, 0),
+    "softcap_offset": (1, 4, 2, 128, 384, 128, True, None, 50.0, 256),
+    "bidirectional": (2, 4, 4, 128, 128, 64, False, None, None, 0),
+    "unaligned": (1, 2, 2, 200, 333, 64, False, None, None, 0),
+}
+_SWEEP = ([(n, "f32") for n in FLASH_CASES] + [(n, "bf16") for n in FLASH_CASES]
+          + [(n, "f32") for n in FLASH_F32_CASES])
+
+
+@pytest.mark.parametrize("name,dtype", _SWEEP)
+def test_flash_matches_pallas_and_oracle(name, dtype):
+    B, H, KV, Sq, Sk, hd, causal, window, cap, q_offset = {
+        **FLASH_CASES, **FLASH_F32_CASES}[name]
+    arrays = _arrays(zlib.crc32(name.encode()), (B, H, Sq, hd), (B, KV, Sk, hd),
+                     (B, KV, Sk, hd))
+    (q, k, v), (jq, jk, jv) = _both(arrays, dtype)
+    pallas = j_flash_attention(jq, jk, jv, causal, window, cap, q_offset)
+    oracle = flash_attention_ref(jq, jk, jv, causal=causal, window=window,
+                                 logit_cap=cap, q_offset=q_offset)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window, logit_cap=cap,
+                          q_offset=q_offset)
+    assert flash_attention.launches == before      # the CPU never launches
+    assert got.dtype == q.dtype and got.shape == (B, H, Sq, hd)
+    tol = TOL if dtype == "bf16" else TOL32
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol)
+    np.testing.assert_allclose(_np(got), _np(oracle), **tol)
+    chunked = chunked_attention(q, k, v, causal=causal, window=window,
+                                logit_cap=cap, q_offset=q_offset, chunk=128)
+    np.testing.assert_allclose(_np(chunked), _np(oracle), **tol)
+
+
+def test_flash_k_len_masks_the_tail():
+    q, k, v = (torch.from_numpy(a) for a in _arrays(
+        9, (1, 2, 64, 16), (1, 1, 96, 16), (1, 1, 96, 16)))
+    got = flash_attention(q, k, v, causal=False, k_len=70)
+    want = flash_attention_ref(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                               jnp.asarray(v.numpy()), causal=False, k_len=70)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL32)
+    cut = flash_attention(q, k[:, :, :70].contiguous(), v[:, :, :70].contiguous(),
+                          causal=False)
+    np.testing.assert_allclose(got.numpy(), cut.numpy(), **TOL32)
+
+
+# ----------------------------------------------------------- decode attention
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,H,KV,S,hd", [(2, 8, 2, 512, 64), (1, 4, 4, 300, 128)])
+def test_decode_full_cache(B, H, KV, S, hd, dtype):
+    arrays = _arrays(S + hd, (B, H, 1, hd), (B, KV, S, hd), (B, KV, S, hd))
+    (q, kc, vc), (jq, jkc, jvc) = _both(arrays, dtype)
+    slot_pos = np.arange(S, dtype=np.int32)
+    pos = np.int32(S // 2)                     # only half the cache is valid
+    pallas = j_gqa_decode_attention(jq, jkc, jvc, jnp.asarray(slot_pos),
+                                    jnp.asarray(pos))
+    oracle = decode_attention_ref(jq.reshape(B, KV, H // KV, hd), jkc, jvc,
+                                  jnp.asarray(slot_pos), jnp.asarray(pos))
+    before = gqa_decode_attention.launches
+    got = gqa_decode_attention(q, kc, vc, torch.from_numpy(slot_pos),
+                               torch.tensor(pos))
+    assert gqa_decode_attention.launches == before
+    assert got.dtype == q.dtype and got.shape == (B, H, 1, hd)
+    tol = TOL if dtype == "bf16" else TOL32
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol)
+    np.testing.assert_allclose(_np(got), _np(oracle).reshape(B, H, 1, hd), **tol)
+
+
+def test_decode_ring_cache_with_window_and_softcap():
+    B, H, KV, S, hd, window = 1, 4, 1, 256, 64, 200
+    arrays = _arrays(8, (B, H, 1, hd), (B, KV, S, hd), (B, KV, S, hd))
+    (q, kc, vc), (jq, jkc, jvc) = _both(arrays, "f32")
+    pos = torch.tensor(1000, dtype=torch.int32)
+    slot_pos = ring_slot_positions(pos, S)
+    j_slot_pos = _ring_slot_positions(jnp.asarray(1000, jnp.int32), S)
+    np.testing.assert_array_equal(slot_pos.numpy(), np.asarray(j_slot_pos))
+    pallas = j_gqa_decode_attention(jq, jkc, jvc, j_slot_pos.astype(jnp.int32),
+                                    jnp.asarray(1000, jnp.int32), window=window,
+                                    logit_cap=30.0)
+    oracle = decode_attention_ref(jq.reshape(B, KV, H // KV, hd), jkc, jvc,
+                                  j_slot_pos, jnp.asarray(1000), window=window,
+                                  logit_cap=30.0)
+    got = gqa_decode_attention(q, kc, vc, slot_pos, pos, window=window,
+                               logit_cap=30.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle).reshape(B, H, 1, hd),
+                               **TOL32)
+
+
+@pytest.mark.parametrize("pos", [0, 5, 15, 16, 17, 40])
+def test_ring_slot_positions_use_a_floored_mod(pos):
+    # before the ring fills, unwritten slots hold negative positions: the
+    # floored mod of torch.remainder, not fmod's truncated one
+    got = ring_slot_positions(torch.tensor(pos, dtype=torch.int32), 16)
+    want = _ring_slot_positions(jnp.asarray(pos, jnp.int32), 16)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ----------------------------------------------------------- launch geometry
+
+@pytest.mark.parametrize("hd", [16, 64, 80, 128, 256])
+def test_launch_shared_memory_fits_an_h100_block(hd):
+    spec = flash_spec(4, 16, 8, 512, hd)
+    assert spec.smem_bytes == (32 + 2 * 32) * (hd + 4) * 4
+    assert spec.smem_bytes <= MAX_SMEM_BYTES == 232_448
+    assert spec.grid == (512 * 2 // 32, 8, 4) and spec.block == (256, 1, 1)
+    dspec, split_len = decode_spec(4, 8, 2, 1024, hd)
+    assert dspec.smem_bytes == 4 * 4 * (hd + 2) * 4 <= MAX_SMEM_BYTES
+    assert spec.check("flash") is spec and dspec.check("decode") is dspec
+
+
+@pytest.mark.parametrize("B,KV,G,S", [(4, 8, 2, 1024), (1, 8, 2, 4096),
+                                      (1, 8, 2, 5120), (2, 2, 4, 512),
+                                      (1, 4, 1, 300), (1, 1, 9, 7)])
+def test_decode_split_covers_the_cache(B, KV, G, S):
+    spec, split_len = decode_spec(B, KV, G, S, 256)
+    n_splits = spec.grid[0]
+    assert split_len % 8 == 0 and split_len >= 32
+    assert (n_splits - 1) * split_len < S <= n_splits * split_len
+    assert spec.grid[1:] == (KV * -(-G // 4), B)
+
+
+# ----------------------------------------------------------- wrapper checks
+
+def _flash_args(case):
+    q = torch.ones((1, 4, 8, 16))
+    k = torch.ones((1, 2, 8, 16))
+    v = torch.ones((1, 2, 8, 16))
+    kw = {}
+    if case == "float64":
+        q, k, v = q.double(), k.double(), v.double()
+    elif case == "int":
+        q, k, v = (t.to(torch.int32) for t in (q, k, v))
+    elif case == "mixed_dtype":
+        q = q.to(torch.bfloat16)
+    elif case == "noncontig":
+        q = torch.ones((1, 4, 16, 8)).transpose(2, 3)
+    elif case == "heads":
+        k, v = torch.ones((1, 3, 8, 16)), torch.ones((1, 3, 8, 16))
+    elif case == "rank3":
+        q = q[0]
+    elif case == "kv_shape":
+        v = torch.ones((1, 2, 9, 16))
+    elif case == "head_dim_mismatch":
+        k, v = torch.ones((1, 2, 8, 24)), torch.ones((1, 2, 8, 24))
+    elif case == "head_dim_not_8":
+        q, k, v = (torch.ones(s[:3] + (20,)) for s in (q.shape, k.shape, v.shape))
+    elif case == "head_dim_over_256":
+        q, k, v = (torch.ones(s[:3] + (264,)) for s in (q.shape, k.shape, v.shape))
+    elif case == "smem":
+        q, k, v = (torch.ones(s[:3] + (1024,)) for s in (q.shape, k.shape, v.shape))
+    elif case == "window":
+        kw = {"window": 0}
+    elif case == "cap":
+        kw = {"logit_cap": 0.0}
+    elif case == "k_len":
+        kw = {"k_len": 9}
+    elif case == "q_offset":
+        kw = {"q_offset": -1}
+    return (q, k, v), kw
+
+
+@pytest.mark.parametrize("case", [
+    "float64", "int", "mixed_dtype", "noncontig", "heads", "rank3", "kv_shape",
+    "head_dim_mismatch", "head_dim_not_8", "head_dim_over_256", "smem",
+    "window", "cap", "k_len", "q_offset",
+])
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(case):
+    args, kw = _flash_args(case)
+    with pytest.raises((TypeError, ValueError)) as err:
+        flash_attention(*args, **kw)
+    if case == "smem":
+        assert "shared memory" in str(err.value)
+
+
+def _decode_args(case):
+    q = torch.ones((2, 4, 1, 16))
+    kc = torch.ones((2, 2, 32, 16))
+    vc = torch.ones((2, 2, 32, 16))
+    slot_pos = torch.arange(32, dtype=torch.int32)
+    pos = torch.tensor(5, dtype=torch.int32)
+    if case == "bf16_q_only":
+        q = q.to(torch.bfloat16)
+    elif case == "noncontig_cache":
+        kc = torch.ones((2, 2, 16, 32)).transpose(2, 3)
+    elif case == "heads":
+        q = torch.ones((2, 3, 1, 16))
+    elif case == "two_tokens":
+        q = torch.ones((2, 4, 2, 16))
+    elif case == "slot_pos_int64":
+        slot_pos = slot_pos.long()
+    elif case == "slot_pos_len":
+        slot_pos = slot_pos[:31]
+    elif case == "pos_int64":
+        pos = pos.long()
+    elif case == "pos_vector":
+        pos = pos.reshape(1)
+    elif case == "smem":
+        q, kc, vc = (torch.ones(t.shape[:3] + (4096,)) for t in (q, kc, vc))
+    return q, kc, vc, slot_pos, pos
+
+
+@pytest.mark.parametrize("case", [
+    "bf16_q_only", "noncontig_cache", "heads", "two_tokens", "slot_pos_int64",
+    "slot_pos_len", "pos_int64", "pos_vector", "smem",
+])
+def test_decode_wrapper_rejects_what_the_kernel_does_not_take(case):
+    with pytest.raises((TypeError, ValueError)) as err:
+        gqa_decode_attention(*_decode_args(case))
+    if case == "smem":
+        assert "shared memory" in str(err.value)
+
+
+def test_plain_versions_are_the_cpu_path():
+    (q, k, v) = (torch.from_numpy(a) for a in _arrays(
+        3, (1, 4, 40, 32), (1, 2, 40, 32), (1, 2, 40, 32)))
+    f0, d0 = flash_attention.launches, gqa_decode_attention.launches
+    assert torch.equal(
+        flash_attention(q, k, v, window=8, logit_cap=20.0),
+        flash_attention_torch(q, k, v, window=8, logit_cap=20.0))
+    qd = q[:, :, :1].contiguous()
+    sp = torch.arange(40, dtype=torch.int32)
+    pos = torch.tensor(30, dtype=torch.int32)
+    assert torch.equal(
+        gqa_decode_attention(qd, k, v, sp, pos),
+        decode_attention_torch(qd.view(1, 2, 2, 32), k, v, sp, pos)
+        .view(1, 4, 1, 32))
+    assert (flash_attention.launches, gqa_decode_attention.launches) == (f0, d0)
+
+
+def test_fully_masked_rows_are_zero():
+    # no visible key: l = 0, out = acc / max(l, 1e-30) = 0, in both plain
+    # versions as in the kernels
+    q, k, v = (torch.from_numpy(a) for a in _arrays(
+        4, (1, 2, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16)))
+    out = flash_attention(q, k, v, causal=False, k_len=0)
+    assert torch.equal(out, torch.zeros_like(out))
+    out = gqa_decode_attention(q[:, :, :1].contiguous(), k, v,
+                               torch.full((8,), -1, dtype=torch.int32),
+                               torch.tensor(3, dtype=torch.int32))
+    assert torch.equal(out, torch.zeros_like(out))
