@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths once on one CUDA card.
+"""Drive the PyTorch port's three paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 The job-tuning path, through the port's own entry points, at Hadoop's
 default sizes (``dfs.block.size`` 128 MiB splits of 400-byte wordcount
 records, ``io.sort.mb`` 100, so each map task spills 262,144-pair buffers),
-and the LM serving path at gemma2-9b's published width:
+the LM serving path at gemma2-9b's published width, and the static analyzer
+over the port's job model and kernel launches:
 
-  0. print the card (``nvidia-smi``) and build the three CUDA kernels
-     (``seg_combine``, ``flash_attention``, ``decode_attention``) from
-     ``src/repro_torch/kernels/csrc/`` with nvcc, one process each, all
-     started together;
+  0. print the card (``nvidia-smi``) and build the four CUDA kernels
+     (``seg_combine``, ``flash_attention``, ``decode_attention``,
+     ``fixture_copy``) from ``src/repro_torch/kernels/csrc/`` with nvcc, one
+     process each, all started together;
   1. hold ``seg_combine`` against its plain PyTorch version on the card, at
      the test shapes and at the engine's shape, and time the kernel, the
      plain version and one ``index_add_`` call (CUDA events, median of 50);
@@ -36,14 +37,26 @@ and the LM serving path at gemma2-9b's published width:
      tokens, 32 new tokens) and ``generate`` (prompts of 4608, 700 and 129
      tokens, 8 new tokens each; the first wraps the local layers' rings);
      then a 2-layer cut at full width, whose prefill and first-decode logits
-     through the kernels are held against the plain attention at 2e-2.
+     through the kernels are held against the plain attention in fp32 at
+     1e-4 (in bf16 their difference is printed beside the plain path's own
+     noise, chunk 128 against chunk 1024);
+  9. run the static analyzer on the card as ``python -m repro_torch.analysis``
+     runs it: ``run_all()`` (no finding beyond the empty
+     ``analysis_baseline_torch.json``, no coverage gap, each skipped target
+     with its reason) and ``selftest()`` (all five checkers fire; the
+     ``coverage`` launch fixture runs on the card); check every launch
+     geometry the wrappers recorded in phases 1-8; hold ``fixture_copy``
+     against ``x.clone()`` exactly and time it beside ``copy_``; and launch
+     the faulty fixture grid into a NaN-filled output, where exactly the
+     elements the checker names must stay NaN.
 
 Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
 beside it.  Each path's launch counts are zeroed just before it and read just
-after: ``seg_combine`` over phases 2-6 (> 0), and over the 42-layer run of
+after: ``seg_combine`` over phases 2-6 (> 0), over the 42-layer run of
 phase 8 ``flash_attention`` exactly 42 x 4 prefills and
-``gqa_decode_attention`` exactly 42 x (31 + 21) decode steps.  Before the
+``gqa_decode_attention`` exactly 42 x (31 + 21) decode steps, and
+``fixture_copy`` over the analyzer's run of phase 9 (> 0).  Before the
 last line it prints one ``{"kernels": [...]}`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -514,6 +527,111 @@ def _phase8_serving(timings, flash, decode, torch, np):
             torch.cuda.empty_cache()
 
 
+def _phase9_analysis(timings, builds, torch):
+    """Phase 9: the static analyzer on the card, the launch geometries the
+    wrappers recorded in phases 1-8, and ``fixture_copy`` against its plain
+    version and on the faulty fixture grid.  Returns fixture_copy's JSON
+    record."""
+    from repro_torch import analysis
+    from repro_torch.analysis.checkers import launch_geometry
+    from repro_torch.analysis.fixtures import (bad_launch_probes,
+                                               confirm_unwritten, selftest)
+    from repro_torch.analysis.targets import trace_target
+    from repro_torch.kernels import (fixture_copy, flash_attention,
+                                     gqa_decode_attention, seg_combine)
+    from repro_torch.kernels.fixture_copy import fixture_copy_torch
+
+    dev = torch.device("cuda")
+    copy = {"name": "fixture_copy", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fixture_copy.cu",
+            "replaces": "src/repro/analysis/fixtures.py:128",
+            "build_s": builds["fixture_copy"]["seconds"]}
+    with _phase("9_analysis", timings):
+        recorded = launch_geometry.recorded()
+        by_kernel = {}
+        for p in recorded:
+            by_kernel[p.kernel] = by_kernel.get(p.kernel, 0) + 1
+        print(f"   launch geometries recorded by the wrappers in phases 1-8: "
+              f"{by_kernel}")
+        assert set(by_kernel) == {"seg_combine", "flash_attention",
+                                  "decode_attention"}, by_kernel
+        found = launch_geometry.probe_kernels(recorded)
+        assert not found, [f.message for f in found]
+
+        for w in (seg_combine, flash_attention, gqa_decode_attention,
+                  fixture_copy):
+            w.launches = 0
+        t0 = time.perf_counter()
+        report = analysis.run_all()
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fired = selftest()
+        self_s = time.perf_counter() - t0
+        launches = fixture_copy.launches
+        others = (seg_combine.launches, flash_attention.launches,
+                  gqa_decode_attention.launches)
+        baseline = analysis.load_baseline(str(ROOT / analysis.DEFAULT_BASELINE))
+        new = report.new_findings(baseline)
+        print(f"   run_all on the card: {run_s:.2f} s, checkers "
+              f"{report.checkers_run}, {len(report.findings)} finding(s), "
+              f"{len(new)} new against {analysis.DEFAULT_BASELINE} "
+              f"({len(baseline)} accepted)")
+        for f in new:
+            print(f"   NEW {f.checker}/{f.kind} in {f.target} at {f.location}: "
+                  f"{f.message}")
+        assert not new and baseline == set()
+        assert not report.coverage_gaps, report.coverage_gaps
+        assert set(report.skipped) == {t.name for t in analysis.iter_targets()} \
+            - {"hadoop-model", "hadoop-grad"}
+        for name, why in report.skipped.items():
+            print(f"   skipped target {name}: {why}")
+        print(f"   selftest on the card: {self_s:.2f} s, "
+              f"{ {n: len(fs) for n, fs in fired.items()} } finding(s) per checker")
+        assert list(fired) == analysis.checker_names()
+        assert all(fired.values()), fired
+        print(f"   launches in the analyzer's run: fixture_copy {launches}; "
+              f"seg_combine, flash_attention, gqa_decode_attention {others}")
+        assert launches > 0, "the analyzer's run never launched fixture_copy"
+        assert others == (0, 0, 0), others
+        copy["launches"] = launches
+        for t in analysis.iter_targets():
+            if t.traceable:
+                tr = trace_target(t, dev)
+                print(f"   trace {t.name} on the card: {tr.seconds:.3f} s, "
+                      f"{len(tr.graph.graph.nodes)} graph nodes")
+
+        coverage = bad_launch_probes()[0]
+        n_nan = confirm_unwritten(coverage, dev)
+        (claim,) = launch_geometry.probe_kernels([coverage])
+        print(f"   faulty grid {coverage.spec.grid[:2]} on the card: {n_nan} "
+              f"elements stayed NaN, exactly those the checker named: "
+              f"{claim.message}")
+        assert n_nan == 400
+
+        gen = torch.Generator(device=dev).manual_seed(9)
+        max_err = 0.0
+        for shape, tile in (((4, 1000), (1, 300)), ((16_384, 4096), (16, 512))):
+            x = torch.randn(shape, generator=gen, device=dev)
+            got = fixture_copy(x, tile)
+            torch.cuda.synchronize()
+            assert torch.equal(got, x.clone()), shape
+            max_err = max(max_err, float((got - x).abs().max()))
+        out = torch.empty_like(x)
+        k_ms = _median_ms(lambda: fixture_copy(x, tile, out=out))
+        p_ms = _median_ms(lambda: fixture_copy_torch(x, tile))
+        l_ms = _median_ms(lambda: out.copy_(x))
+        n_bytes = 2 * x.numel() * x.element_size()      # read x, write out
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3         # no arithmetic
+        print(f"   fixture_copy {tuple(x.shape)} f32 tile {tile}: kernel "
+              f"{k_ms:.4f} ms, plain (x.clone()) {p_ms:.4f} ms, out.copy_(x) "
+              f"{l_ms:.4f} ms; bound {bound:.4f} ms (bytes: {n_bytes} B); "
+              f"max |kernel - x| {max_err}")
+        copy.update(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+                    bound_ms=bound, bound_by="bytes", library_ms=l_ms,
+                    library="Tensor.copy_")
+    return copy
+
+
 def main() -> int:
     import torch
 
@@ -562,8 +680,10 @@ def main() -> int:
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]}")
         t0 = time.perf_counter()
-        builds = build("seg_combine", "flash_attention", "decode_attention")
-        print(f"built 3 kernels in {time.perf_counter() - t0:.2f} s, in parallel")
+        builds = build("seg_combine", "flash_attention", "decode_attention",
+                       "fixture_copy")
+        print(f"built {len(builds)} kernels in {time.perf_counter() - t0:.2f} s, "
+              "in parallel")
         for name, b in builds.items():
             print(f"   {name}: {b['path'].name} in {b['seconds']:.2f} s")
             for line in b["log"].splitlines():
@@ -773,9 +893,10 @@ def main() -> int:
 
     flash, decode = _phase7_attention(timings, builds, torch, np)
     _phase8_serving(timings, flash, decode, torch, np)
+    copy = _phase9_analysis(timings, builds, torch)
 
     print(json.dumps({"phases_s": timings}))
-    print(json.dumps({"kernels": [kernel, flash, decode]}))
+    print(json.dumps({"kernels": [kernel, flash, decode, copy]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

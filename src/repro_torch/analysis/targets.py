@@ -1,0 +1,217 @@
+"""The analyzer's trace targets: the port's registered cost models and the
+closures that are differentiated.
+
+A :class:`TraceTarget` packages a builder that traces a callable into an aten
+graph (:func:`repro_torch.analysis.absint.trace`, ``make_fx`` on real tensors
+on the analysis device) and the per-input
+:class:`~repro_torch.analysis.interval.Interval` abstraction (from
+:mod:`repro_torch.spec.axes` bounds where declared).  Checkers consume the
+traced graph; nothing here runs model math beyond tracing.
+
+Targets, the reference's (``repro/analysis/targets.py``):
+
+* ``hadoop-model``  — the branch-free job model (Eqs. 1-98),
+  :func:`repro_torch.core.hadoop.model.job_model_torch`, over the physical
+  domain of :func:`repro_torch.spec.hadoop_space`.
+* ``hadoop-grad``   — the same graph cut to its ``j_totalCost`` output
+  (``eliminate_dead_code``): the path gradient search differentiates.
+* ``calib-loss``, ``tuner-objective``, ``cluster-rollout``,
+  ``cloud-rollout``, ``cloud-pricing``, ``network-model`` — registered with
+  ``traceable=False``: the modules they trace are not ported yet, and each
+  ``skip_reason`` names the ``ROADMAP.md`` item it waits for.
+* ``tpu-model``     — a pure-numpy table model, not traceable at all, as in
+  the reference.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+import time
+from dataclasses import dataclass
+from typing import Any, Callable
+
+from .interval import BOOL, Interval
+
+__all__ = ["TraceTarget", "Traced", "iter_targets", "trace_target",
+           "cut_to_outputs"]
+
+
+@dataclass
+class Traced:
+    """One traced target: its graph, the input intervals (one per
+    placeholder), the output names, the example arguments as they crossed
+    the trace boundary, and the seconds tracing took."""
+
+    graph: Any                      # torch.fx.GraphModule
+    intervals: list[Interval]
+    out_names: tuple[str, ...]
+    args: tuple
+    seconds: float = 0.0
+
+
+@dataclass
+class TraceTarget:
+    name: str
+    doc: str
+    traceable: bool = True
+    grad_mode: bool = False
+    #: device -> (graph, intervals, out_names, args); tracing is not free
+    build: Callable | None = None
+    skip_reason: str = ""
+
+
+def _axis_interval(ax) -> Interval:
+    if ax.kind == "bool":
+        return BOOL
+    return Interval.bounded(ax.lower, ax.upper, getattr(ax, "lower_open", False))
+
+
+def cut_to_outputs(gm, keep: list[int]):
+    """A copy of ``gm`` whose outputs are the kept indices of its flat output
+    list, dead code eliminated: the analyzer's way of restricting a graph to
+    the differentiated path (the cost, not the validity flags)."""
+    import torch
+
+    graph = copy.deepcopy(gm.graph)
+    out = next(n for n in graph.nodes if n.op == "output")
+    flat = out.args[0]
+    out.args = ([flat[i] for i in keep],)
+    graph.eliminate_dead_code()
+    return torch.fx.GraphModule(gm, graph)
+
+
+# ---------------------------------------------------------------------------
+# builders
+# ---------------------------------------------------------------------------
+
+
+def _hadoop_cfg_and_intervals(device):
+    from repro_torch.core.hadoop.model import pack_config
+    from repro_torch.core.hadoop.params import (CostFactors, HadoopParams,
+                                                ProfileStats)
+    from repro_torch.spec import hadoop_space
+
+    cfg = pack_config(HadoopParams(), ProfileStats(), CostFactors(),
+                      device=device)
+    space = hadoop_space()
+    keys = sorted(cfg)
+    intervals = [_axis_interval(space[k]) if k in space
+                 else Interval(0.0, math.inf, False, True) for k in keys]
+    return keys, cfg, intervals
+
+
+def _build_hadoop_model(device):
+    from repro_torch.core.hadoop.model import job_model_torch
+
+    from .absint import trace
+
+    keys, cfg, intervals = _hadoop_cfg_and_intervals(device)
+    names: list[str] = []
+
+    def fn(*xs):
+        out = job_model_torch(dict(zip(keys, xs)))
+        names[:] = sorted(out)
+        return [out[k] for k in names]
+
+    args = tuple(cfg[k] for k in keys)
+    return trace(fn, *args), intervals, tuple(names), args
+
+
+def _build_hadoop_grad(device):
+    # exactly gradient search's differentiated output: the raw total cost
+    gm, intervals, names, args = _build_hadoop_model(device)
+    cut = cut_to_outputs(gm, [names.index("j_totalCost")])
+    return cut, intervals, ("j_totalCost",), args
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+_WAITS = "waits for ROADMAP.md queue 1, "
+
+
+def iter_targets() -> list[TraceTarget]:
+    """All analyzer targets, untraced (call :func:`trace_target` per item)."""
+    return [
+        TraceTarget(
+            name="hadoop-model",
+            doc="full job model (Eqs. 1-98) over the physical axis domain",
+            build=_build_hadoop_model,
+        ),
+        TraceTarget(
+            name="hadoop-grad",
+            doc="the j_totalCost path gradient search differentiates",
+            build=_build_hadoop_grad,
+            grad_mode=True,
+        ),
+        TraceTarget(
+            name="calib-loss",
+            doc="build_loss_fn over canonical observations",
+            grad_mode=True,
+            traceable=False,
+            skip_reason=_WAITS + "slice 1 deferred item 2: calib/ "
+                        "(build_loss_fn, calibrate) is not ported yet",
+        ),
+        TraceTarget(
+            name="tuner-objective",
+            doc="build_relaxed_objective raw cost (gradient_descent_ev)",
+            grad_mode=True,
+            traceable=False,
+            skip_reason=_WAITS + "slice 1 deferred item 1: "
+                        "build_relaxed_objective and gradient_descent_ev are "
+                        "not ported yet",
+        ),
+        TraceTarget(
+            name="cluster-rollout",
+            doc="the wave simulator's rollout, all policies compiled in",
+            traceable=False,
+            skip_reason=_WAITS + "item 13: cluster/vector_sim.py is not "
+                        "ported yet (its loop also needs while recursion in "
+                        "absint)",
+        ),
+        TraceTarget(
+            name="cloud-rollout",
+            doc="the wave rollout with the elastic-fleet path compiled in",
+            traceable=False,
+            skip_reason=_WAITS + "items 13-14: cluster/vector_sim.py and "
+                        "cloud/ are not ported yet",
+        ),
+        TraceTarget(
+            name="cloud-pricing",
+            doc="the differentiable spot-pricing path (spot_inflation x "
+                "dollars_for)",
+            grad_mode=True,
+            traceable=False,
+            skip_reason=_WAITS + "item 14: cloud/pricing.py is not ported "
+                        "yet",
+        ),
+        TraceTarget(
+            name="network-model",
+            doc="the topology-aware effective shuffle bandwidth dividing "
+                "Eq. 91's netCost",
+            grad_mode=True,
+            traceable=False,
+            skip_reason=_WAITS + "item 12: cluster/network.py "
+                        "(effective_bandwidth) is not ported yet",
+        ),
+        TraceTarget(
+            name="tpu-model",
+            doc="TPU step table model (registered CostModel 'tpu')",
+            traceable=False,
+            skip_reason=(
+                "pure-numpy table model over integer mesh layouts: no graph "
+                "exists to trace, as in the reference; the model itself "
+                "waits for ROADMAP.md queue 1, item 19"),
+        ),
+    ]
+
+
+def trace_target(t: TraceTarget, device) -> Traced:
+    """Trace a traceable target on ``device``."""
+    if not t.traceable:
+        raise ValueError(f"target {t.name} is not traceable: {t.skip_reason}")
+    t0 = time.perf_counter()
+    gm, intervals, names, args = t.build(device)
+    return Traced(gm, intervals, names, args, time.perf_counter() - t0)

@@ -52,34 +52,50 @@ __all__ = [
 # letting the gradient pass through unchanged for finite inputs (the
 # straight-through estimator: d/dx = 1; non-finite inputs get a zero
 # gradient so an ``inf`` primal can never turn a finite gradient into NaN).
-# The torch is imported lazily so that the pure-Python half of this module
-# stays importable without it.
+#
+# Each helper is a custom operator, ``repro_torch::ste_<name>``, with its
+# gradient registered beside it, rather than a ``torch.autograd.Function``:
+# tracing (``make_fx``) records a custom operator as one node of that name,
+# while an ``autograd.Function`` dissolves into a bare ``aten.floor``.  The
+# static analyzer's grad-blocker checker (:mod:`repro_torch.analysis`) tells
+# the model's deliberate straight-through roundings from a bare ``floor`` on
+# a differentiated path by that node.  The operators are defined at first
+# use, and torch is imported lazily, so that the pure-Python half of this
+# module stays importable without it.
+
+#: the namespace of the straight-through operators in ``torch.ops``
+STE_NAMESPACE = "repro_torch"
 
 _STE_CACHE: dict = {}
 
 
 def _ste_wrap(name: str):
-    """Build (once) an autograd straight-through version of torch.<name>."""
+    """Define (once) the straight-through custom operator for torch.<name>."""
     if name in _STE_CACHE:
         return _STE_CACHE[name]
     import torch
 
     rounder = getattr(torch, name)
 
-    class _Ste(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, x):
-            ctx.save_for_backward(x)
-            return rounder(x)
+    @torch.library.custom_op(f"{STE_NAMESPACE}::ste_{name}", mutates_args=(),
+                             schema="(Tensor x) -> Tensor")
+    def op(x):
+        return rounder(x)
 
-        @staticmethod
-        def backward(ctx, g):
-            (x,) = ctx.saved_tensors
-            return torch.where(torch.isfinite(x), g, torch.zeros_like(g))
+    @op.register_fake
+    def _(x):
+        return torch.empty_like(x)
 
-    _Ste.__name__ = f"ste_{name}"
-    _STE_CACHE[name] = _Ste.apply
-    return _Ste.apply
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(torch.isfinite(x), g, torch.zeros_like(g))
+
+    op.register_autograd(backward, setup_context=setup_context)
+    _STE_CACHE[name] = op
+    return op
 
 
 def ste_floor(x):

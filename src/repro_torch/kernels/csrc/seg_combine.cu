@@ -22,7 +22,10 @@
 //
 // Plain C interface for ctypes: the functions return cudaGetLastError()
 // after the launch; they launch on the given stream and do not synchronise.
-// The caller zero-fills `out`.
+// The caller zero-fills `out`.  The grid comes from the caller: one thread
+// per element, `threads` a block, `blocks` = ceil(n * d / threads)
+// (seg_combine.py::launch_spec), and the kernel drops the threads past
+// n * d.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,11 +52,8 @@ __global__ void seg_combine_kernel(const T* __restrict__ values,
 
 template <typename T>
 static int launch(const void* values, const void* ids, void* out, int64_t n,
-                  int64_t d, int64_t p, void* stream) {
-  const int threads = 256;
-  int64_t total = n * d;
-  if (total > 0) {
-    unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
+                  int64_t d, int64_t p, int blocks, int threads, void* stream) {
+  if (n * d > 0) {
     seg_combine_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const T*)values, (const int32_t*)ids, (float*)out, n, d, p);
   }
@@ -61,11 +61,14 @@ static int launch(const void* values, const void* ids, void* out, int64_t n,
 }
 
 extern "C" int seg_combine_f32(const void* values, const void* ids, void* out,
-                               int64_t n, int64_t d, int64_t p, void* stream) {
-  return launch<float>(values, ids, out, n, d, p, stream);
+                               int64_t n, int64_t d, int64_t p, int blocks,
+                               int threads, void* stream) {
+  return launch<float>(values, ids, out, n, d, p, blocks, threads, stream);
 }
 
 extern "C" int seg_combine_bf16(const void* values, const void* ids, void* out,
-                                int64_t n, int64_t d, int64_t p, void* stream) {
-  return launch<__nv_bfloat16>(values, ids, out, n, d, p, stream);
+                                int64_t n, int64_t d, int64_t p, int blocks,
+                                int threads, void* stream) {
+  return launch<__nv_bfloat16>(values, ids, out, n, d, p, blocks, threads,
+                               stream);
 }

@@ -22,7 +22,8 @@ import torch
 
 from ._build import LaunchSpec, check, load
 
-__all__ = ["decode_attention_cuda", "decode_attention_torch", "launch_spec"]
+__all__ = ["coverage", "decode_attention_cuda", "decode_attention_torch",
+           "launch_spec"]
 
 WARPS = 4
 ROWS = 4            # heads of one kv group per CTA
@@ -49,6 +50,16 @@ def launch_spec(B: int, KV: int, G: int, S: int, hd: int) -> tuple[LaunchSpec, i
     spec = LaunchSpec(grid=(n_splits, KV * groups, B), block=(WARPS * 32, 1, 1),
                       smem_bytes=WARPS * ROWS * (hd + 2) * 4)
     return spec, split_len
+
+
+def coverage(B: int, KV: int, G: int, S: int, split_len: int
+             ) -> tuple[tuple[int, int, int], tuple[int, int, int]]:
+    """What pass 1's grid must cover, per grid axis (x, y, z): the S cache
+    slots, the (kv head, group of up to 4 of its G heads) pairs and the B
+    batch rows; and what one CTA covers of them: ``split_len`` slots of one
+    pair of one batch row.  The kernel masks the slots past S and the heads
+    past G."""
+    return (S, KV * -(-G // ROWS), B), (split_len, 1, 1)
 
 
 def decode_attention_cuda(

@@ -25,7 +25,8 @@ import torch
 
 from ._build import LaunchSpec, check, load
 
-__all__ = ["flash_attention_cuda", "flash_attention_torch", "launch_spec"]
+__all__ = ["coverage", "flash_attention_cuda", "flash_attention_torch",
+           "launch_spec"]
 
 ROWS = 32          # (query row, head) pairs per CTA
 BLOCK_K = 32       # keys per shared-memory tile
@@ -46,6 +47,15 @@ def launch_spec(B: int, H: int, KV: int, Sq: int, hd: int) -> LaunchSpec:
     return LaunchSpec(
         grid=(-(-Sq * G // ROWS), KV, B), block=(THREADS, 1, 1),
         smem_bytes=(ROWS + 2 * BLOCK_K) * (hd + 4) * 4)
+
+
+def coverage(B: int, H: int, KV: int, Sq: int
+             ) -> tuple[tuple[int, int, int], tuple[int, int, int]]:
+    """What the grid must cover, per grid axis (x, y, z): the Sq * G
+    (query row, head) pairs of a kv group, the KV kv heads and the B batch
+    rows; and what one CTA covers of them: 32 pairs of one (batch, kv head).
+    The kernel masks the pairs past Sq * G."""
+    return (Sq * (H // KV), KV, B), (ROWS, 1, 1)
 
 
 def flash_attention_cuda(

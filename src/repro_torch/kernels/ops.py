@@ -6,7 +6,12 @@ kernel's plain PyTorch version only for a tensor on the CPU.  There is no
 fallback: a CUDA tensor launches the kernel or raises.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``, a plain integer, so a run can
 show that its main path went through the kernel; a call counts once even
-where the kernel is two device launches.
+where the kernel is two device launches.  Beside the count, each wrapper
+keeps the distinct launch geometries it launched in
+``<wrapper>.geometries``, a set of ``(LaunchSpec, shape, tile)``: the grid
+and block, the index space the grid must cover and what one CTA covers of
+it (the kernel module's ``coverage``), for the static analyzer's
+``launch-geometry`` checker.
 
 The attention wrappers take the reference's layouts at the public boundary
 (``repro/kernels/ops.py``): q (B, H, Sq, hd) and k, v (B, KV, Sk, hd) for
@@ -20,10 +25,13 @@ from __future__ import annotations
 import torch
 
 from . import decode_attention as _da
+from . import fixture_copy as _fc
 from . import flash_attention as _fa
-from .seg_combine import seg_combine_cuda, seg_combine_torch
+from . import seg_combine as _sc
+from ._build import LaunchSpec
 
-__all__ = ["flash_attention", "gqa_decode_attention", "seg_combine"]
+__all__ = ["fixture_copy", "flash_attention", "gqa_decode_attention",
+           "seg_combine"]
 
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -108,10 +116,12 @@ def flash_attention(
         q, k, v, causal=causal, window=window, logit_cap=logit_cap,
         q_offset=int(q_offset), k_len=k_len, spec=spec)
     flash_attention.launches += 1
+    flash_attention.geometries.add((spec, *_fa.coverage(B, H, KV, Sq)))
     return out
 
 
 flash_attention.launches = 0
+flash_attention.geometries = set()
 
 
 def gqa_decode_attention(
@@ -160,10 +170,13 @@ def gqa_decode_attention(
         qg, k_cache, v_cache, slot_pos, pos, window=window,
         logit_cap=logit_cap, spec=spec, split_len=split_len)
     gqa_decode_attention.launches += 1
+    gqa_decode_attention.geometries.add(
+        (spec, *_da.coverage(B, KV, G, S, split_len)))
     return out.view(B, H, 1, hd)
 
 
 gqa_decode_attention.launches = 0
+gqa_decode_attention.geometries = set()
 
 
 def seg_combine(
@@ -196,15 +209,81 @@ def seg_combine(
     if num_parts < 0:
         raise ValueError(f"num_parts must be >= 0, got {num_parts}")
     if values.device.type == "cpu":
-        return seg_combine_torch(values, part_ids, num_parts)
+        return _sc.seg_combine_torch(values, part_ids, num_parts)
     if values.device.type != "cuda":
         raise ValueError(f"seg_combine runs on cuda or cpu, not {values.device}")
     if values.numel() == 0 or num_parts == 0:
         return torch.zeros((num_parts, values.shape[1]), dtype=torch.float32,
                            device=values.device)
-    out = seg_combine_cuda(values, part_ids, num_parts)
+    n, d = values.shape
+    spec = _sc.launch_spec(n, d)
+    out = _sc.seg_combine_cuda(values, part_ids, num_parts, spec)
     seg_combine.launches += 1
+    seg_combine.geometries.add((spec, *_sc.coverage(n, d)))
     return out
 
 
 seg_combine.launches = 0
+seg_combine.geometries = set()
+
+
+def _pair(what: str, name: str, v) -> tuple[int, int]:
+    try:
+        a, b = (int(t) for t in v)
+    except (TypeError, ValueError):
+        raise ValueError(f"{what}: {name} must be two ints, got {v!r}") from None
+    if a < 1 or b < 1:
+        raise ValueError(f"{what}: {name} must be >= 1, got {(a, b)}")
+    return a, b
+
+
+def fixture_copy(
+    x: torch.Tensor,            # (R, C) float32, contiguous
+    tile: tuple[int, int],      # what one CTA copies
+    *,
+    grid: tuple[int, int] | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """A copy of ``x``, one CTA per ``tile`` (the kernel of the analyzer's
+    known-bad launch fixture).
+
+    ``grid=None`` launches the ceiling-division grid of
+    :func:`repro_torch.kernels.fixture_copy.launch_spec`, which covers
+    ``x``.  A given ``(grid_x, grid_y)`` launches that geometry as it is,
+    faulty or not, into ``out`` (a NaN-filled tensor by default), so the
+    elements it leaves unwritten stay NaN.
+    """
+    what = "fixture_copy"
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"{what}: x must be a contiguous 2-d float32 tensor, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    tile = _pair(what, "tile", tile)
+    if tile[0] * tile[1] >= 2 ** 31:
+        raise ValueError(f"{what}: tile {tile} has 2^31 elements or more")
+    if grid is not None:
+        grid = _pair(what, "grid", grid)
+    if out is not None and (out.shape != x.shape or out.dtype != x.dtype
+                            or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be a contiguous tensor of x's "
+                         f"shape and dtype, got {tuple(out.shape)} {out.dtype}")
+    on_cpu = _check_device(what, *([x] if out is None else [x, out])) == "cpu"
+    if on_cpu:
+        return _fc.fixture_copy_torch(x, tile, grid, out)
+    R, C = x.shape
+    if grid is None:
+        spec = _fc.launch_spec(R, C, tile)
+        out = torch.empty_like(x) if out is None else out
+    else:
+        spec = LaunchSpec(grid=(*grid, 1), block=(_fc.THREADS, 1, 1),
+                          smem_bytes=0)
+        out = torch.full_like(x, float("nan")) if out is None else out
+    if x.numel() == 0:
+        return out
+    _fc.fixture_copy_cuda(x, out, spec, tile)
+    fixture_copy.launches += 1
+    fixture_copy.geometries.add((spec, *_fc.coverage(R, C, tile)))
+    return out
+
+
+fixture_copy.launches = 0
+fixture_copy.geometries = set()

@@ -1,4 +1,6 @@
-"""The port's ``seg_combine`` against the JAX package's, on the CPU.
+"""The port's ``seg_combine`` against the JAX package's, on the CPU, and the
+CPU side of ``fixture_copy`` (the kernel of the analyzer's known-bad launch
+fixture; ``tests/test_torch_analysis.py`` holds it to the Pallas kernel).
 
 On the CPU the port's wrapper takes the kernel's plain PyTorch version; the
 JAX side runs its Pallas kernel in interpret mode, as ``tests/test_kernels.py``
@@ -14,8 +16,10 @@ import torch
 
 from repro.kernels import seg_combine as j_seg_combine
 from repro.kernels.ref import seg_combine_ref as j_seg_combine_ref
-from repro_torch.kernels import seg_combine
-from repro_torch.kernels.seg_combine import seg_combine_torch
+from repro_torch.kernels import fixture_copy, seg_combine
+from repro_torch.kernels.fixture_copy import coverage as fixture_coverage
+from repro_torch.kernels.fixture_copy import launch_spec as fixture_launch_spec
+from repro_torch.kernels.seg_combine import coverage, launch_spec, seg_combine_torch
 
 SHAPES = [(1024, 256, 16), (777, 130, 7), (64, 8, 3)]
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -133,3 +137,65 @@ def test_empty_inputs():
     out = seg_combine(torch.ones((5, 3)), torch.zeros(5, dtype=torch.int32), 0)
     assert out.shape == (0, 3)
 
+
+
+# ------------------------------------------------------------ launch geometry
+
+@pytest.mark.parametrize("n,d", [(262_144, 1), (1024, 256), (777, 130), (1, 1)])
+def test_launch_spec_takes_one_thread_per_element(n, d):
+    spec = launch_spec(n, d)
+    shape, tile = coverage(n, d)
+    assert spec.block == (256, 1, 1) and spec.smem_bytes == 0
+    assert shape == (n * d, 1, 1) and tile == (256, 1, 1)
+    assert (spec.grid[0] - 1) * 256 < n * d <= spec.grid[0] * 256
+    assert spec.grid[1:] == (1, 1)
+
+
+# ------------------------------------------- fixture_copy (_bad_pallas_probe)
+
+@pytest.mark.parametrize("shape,tile", [((4, 1000), (1, 300)),
+                                        ((33, 70), (8, 32)), ((1, 1), (4, 4))])
+def test_fixture_copy_plain_is_a_clone_under_the_ceiling_grid(shape, tile):
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(shape)
+                         .astype(np.float32))
+    before = (fixture_copy.launches, len(fixture_copy.geometries))
+    assert torch.equal(fixture_copy(x, tile), x.clone())
+    out = torch.full_like(x, 7.0)
+    assert fixture_copy(x, tile, out=out) is out and torch.equal(out, x)
+    assert (fixture_copy.launches, len(fixture_copy.geometries)) == before
+    spec = fixture_launch_spec(*shape, tile)
+    assert spec.grid == (-(-shape[0] // tile[0]), -(-shape[1] // tile[1]), 1)
+    assert fixture_coverage(*shape, tile) == ((*shape, 1), (*tile, 1))
+
+
+def test_fixture_copy_under_a_given_grid_copies_only_its_tiles():
+    x = torch.arange(4000, dtype=torch.float32).reshape(4, 1000)
+    got = fixture_copy(x, (1, 300), grid=(4, 3))
+    assert torch.isnan(got[:, 900:]).all()
+    assert torch.equal(got[:, :900], x[:, :900])
+    got = fixture_copy(x, (1, 300), grid=(2, 4))
+    assert torch.isnan(got[2:]).all() and torch.equal(got[:2], x[:2])
+
+
+@pytest.mark.parametrize("case", ["float64", "rank3", "noncontig", "tile0",
+                                  "tile3", "grid0", "out_shape", "out_dtype"])
+def test_fixture_copy_rejects_what_the_kernel_does_not_take(case):
+    x, tile, kw = torch.ones((4, 8)), (1, 4), {}
+    if case == "float64":
+        x = x.double()
+    elif case == "rank3":
+        x = x[None]
+    elif case == "noncontig":
+        x = torch.ones((8, 4)).t()
+    elif case == "tile0":
+        tile = (0, 4)
+    elif case == "tile3":
+        tile = (1, 2, 3)
+    elif case == "grid0":
+        kw = {"grid": (4, 0)}
+    elif case == "out_shape":
+        kw = {"out": torch.ones((4, 9))}
+    elif case == "out_dtype":
+        kw = {"out": torch.ones((4, 8), dtype=torch.float64)}
+    with pytest.raises(ValueError):
+        fixture_copy(x, tile, **kw)
