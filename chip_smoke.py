@@ -9,10 +9,11 @@ records, ``io.sort.mb`` 100, so each map task spills 262,144-pair buffers),
 the LM serving path at gemma2-9b's published width, and the static analyzer
 over the port's job model and kernel launches:
 
-  0. print the card (``nvidia-smi``) and build the four CUDA kernels
-     (``seg_combine``, ``flash_attention``, ``decode_attention``,
-     ``fixture_copy``) from ``src/repro_torch/kernels/csrc/`` with nvcc, one
-     process each, all started together;
+  0. print the card (``nvidia-smi``) and build the five CUDA sources
+     (``seg_combine``, ``flash_attention_wgmma`` (bf16) and
+     ``flash_attention`` (fp32), ``decode_attention``, ``fixture_copy``) from
+     ``src/repro_torch/kernels/csrc/`` with nvcc, one process each, all
+     started together, printing each kernel's registers and spills;
   1. hold ``seg_combine`` against its plain PyTorch version on the card, at
      the test shapes and at the engine's shape, and time the kernel, the
      plain version and one ``index_add_`` call (CUDA events, median of 50);
@@ -27,11 +28,14 @@ over the port's job model and kernel launches:
      for bit equal to sequential ``evaluate`` calls);
   6. verify the default and tuned configs on the engine and simulate the
      tuned job on a cluster;
-  7. hold ``flash_attention`` and ``decode_attention`` against their plain
-     versions on the card, at the test shapes and the serving path's shapes
-     (bf16 at 2e-2, f32 at 1e-5 with TF32 off), and time the kernel, the
-     plain version and ``F.scaled_dot_product_attention`` (a yardstick only,
-     without softcap, which it cannot express) at the main shapes;
+  7. hold ``flash_attention`` (both kernels: bf16 on ``wgmma``, fp32 on the
+     CUDA cores) and ``decode_attention`` against their plain versions on the
+     card, at the test shapes, the bf16 kernel's edges (G = 3, hd 72 and 96,
+     ragged Sq and Sk with an offset, ``k_len`` < Sk, a window narrower than
+     a kv tile) and the serving path's shapes (bf16 at 2e-2, f32 at 1e-5 with
+     TF32 off), and time the kernel, the plain version and
+     ``F.scaled_dot_product_attention`` (a yardstick only, without softcap,
+     which it cannot express) at the main shapes;
   8. serve gemma2-9b, all 42 layers at full width with seeded random
      weights, through ``Server``: ``throughput_batch`` (4 prompts of 512
      tokens, 32 new tokens) and ``generate`` (prompts of 4608, 700 and 129
@@ -54,7 +58,8 @@ Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
 beside it.  Each path's launch counts are zeroed just before it and read just
 after: ``seg_combine`` over phases 2-6 (> 0), over the 42-layer run of
-phase 8 ``flash_attention`` exactly 42 x 4 prefills and
+phase 8 ``flash_attention`` exactly 42 x 4 prefills, all on the bf16
+``wgmma`` kernel, and
 ``gqa_decode_attention`` exactly 42 x (31 + 21) decode steps, and
 ``fixture_copy`` over the analyzer's run of phase 9 (> 0).  Before the
 last line it prints one ``{"kernels": [...]}`` JSON line; the last line is
@@ -81,7 +86,12 @@ FP32_OPS_PER_S = 67e12                        # H100 SXM, outside tensor cores
 BF16_OPS_PER_S = 989e12                       # H100 SXM, dense tensor cores
 RTOL, ATOL = 1e-4, 1e-3                       # fp32 atomics reorder sums
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # the reference's kernel tolerances
-# (B, H, KV, Sq, Sk, hd, causal, window, softcap, q_offset)
+# flash's bf16 device time at FLASH_MAIN before the wgmma kernel: the CUDA-core
+# kernel (csrc/flash_attention.cu's former bf16 instance), as this script
+# measured it on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md keeps the run
+PREVIOUS_FLASH_DEVICE_MS = 1.1116
+PREVIOUS_FLASH = "CUDA-core bf16 kernel, NVIDIA H100 80GB HBM3 700 W (PERF.md)"
+# (B, H, KV, Sq, Sk, hd, causal, window, softcap, q_offset[, k_len])
 FLASH_TEST = [(1, 4, 2, 256, 256, 64, True, None, None, 0),
               (2, 2, 2, 128, 384, 128, True, None, None, 0),
               (1, 8, 1, 256, 256, 80, True, None, None, 0),
@@ -89,7 +99,16 @@ FLASH_TEST = [(1, 4, 2, 256, 256, 64, True, None, None, 0),
               (1, 4, 4, 256, 256, 64, True, 1024, None, 0),
               (1, 4, 2, 128, 384, 128, True, None, 50.0, 256),
               (2, 4, 4, 128, 128, 64, False, None, None, 0),
-              (1, 2, 2, 200, 333, 64, False, None, None, 0)]
+              (1, 2, 2, 200, 333, 64, False, None, None, 0),
+              # the wgmma kernel's edges: G = 3 (one head per tile), hd 72 and
+              # 96 (padded to 128), Sq and Sk off the tile sizes with an
+              # offset, k_len below Sk, a window narrower than a kv tile; G 16
+              # (4 queries x 16 heads a tile) and G 6 at hd 256
+              (1, 6, 2, 200, 333, 72, True, 40, 50.0, 100, 250),
+              (1, 6, 2, 130, 200, 96, False, None, None, 0, 150),
+              (2, 4, 2, 77, 141, 128, True, 16, None, 64, 120),
+              (1, 16, 1, 100, 100, 64, True, None, None, 0),
+              (1, 6, 1, 70, 70, 256, True, None, 50.0, 0)]
 FLASH_MAIN = (4, 16, 8, 512, 512, 256, True, None, 50.0, 0)      # global layer
 FLASH_MAIN_LOCAL = (4, 16, 8, 512, 512, 256, True, 4096, 50.0, 0)
 FLASH_LONG = (1, 16, 8, 4608, 4608, 256, True, 4096, 50.0, 0)
@@ -134,16 +153,17 @@ def _median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
-def _back_to_back_ms(fn, reps: int = 10) -> float:
-    """ms per call over ``reps`` calls issued back to back between two CUDA
-    events: the device's time per call when each call keeps the device
-    busy longer than the host takes to issue the next."""
+def _back_to_back_ms(fn, reps: int = 20) -> float:
+    """The device's ms per call: ``reps`` calls queued behind a ~25 ms sleep
+    kernel, so that they run back to back between two CUDA events whatever
+    the host's rate of issuing them."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     a.record()
     for _ in range(reps):
         fn()
@@ -172,10 +192,11 @@ def _device_profile(fn, reps: int) -> tuple[float, int, float]:
     return dev_us / 1e3 / reps, round(len(kernels) / reps), wall * 1e3 / reps
 
 
-def _step_profile(fn) -> tuple[float, float, int, list]:
+def _step_profile(fn) -> tuple[float, float, int, list, dict]:
     """One run of ``fn`` (after a warm-up) under ``torch.profiler``: (host
     wall ms, device ms summed over its CUDA kernels, CUDA kernels, the five
-    kernel names with the most device time as (name, ms, count))."""
+    kernel names with the most device time as (name, ms, count), and
+    ``{name: [ms, count]}`` of every kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -195,7 +216,27 @@ def _step_profile(fn) -> tuple[float, float, int, list]:
     top = sorted(((n[:60], ms, c) for n, (ms, c) in by_name.items()),
                  key=lambda t: -t[1])[:5]
     dev = sum(ms for ms, _ in by_name.values())
-    return wall * 1e3, dev, sum(c for _, c in by_name.values()), top
+    return wall * 1e3, dev, sum(c for _, c in by_name.values()), top, by_name
+
+
+def _ptxas_summary(log: str) -> list[tuple[int, int, int]]:
+    """(template argument, registers, spill-store bytes) of each kernel
+    instantiation in an ``nvcc -Xptxas=-v`` log, in the log's order."""
+    import re
+
+    out, inst, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*kernelILi(\d+)E", line)
+        if m:
+            inst = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and inst is not None:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and inst is not None:
+            out.append((inst, int(m.group(1)), spill))
+            inst, spill = None, 0
+    return out
 
 
 def _strip_times(jc) -> dict:
@@ -215,9 +256,10 @@ def _flash_bound(shape, dtype_bytes: int, ops_per_s: float) -> tuple[float, str,
     pair, counted for this call's masks."""
     import numpy as np
 
-    B, H, KV, Sq, Sk, hd, causal, window, _, q_offset = shape
+    B, H, KV, Sq, Sk, hd, causal, window, _, q_offset = shape[:10]
+    k_len = shape[10] if len(shape) > 10 and shape[10] is not None else Sk
     qpos = q_offset + np.arange(Sq)
-    hi = np.minimum(Sk, qpos + 1) if causal else np.full(Sq, Sk)
+    hi = np.minimum(k_len, qpos + 1) if causal else np.full(Sq, k_len)
     lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq, int)
     pairs = int(np.maximum(0, hi - lo).sum()) * B * H
     n_bytes = (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd) * dtype_bytes
@@ -254,13 +296,15 @@ def _phase7_attention(timings, builds, torch, np):
 
     from repro_torch.kernels import flash_attention, gqa_decode_attention
     from repro_torch.kernels.decode_attention import decode_attention_torch
-    from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.kernels.flash_attention import VARIANTS, flash_attention_torch
 
     dev = torch.device("cuda")
-    flash = {"name": "flash_attention", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    flash = {"name": "flash_attention", "route": "cuda", "variant": "bf16_wgmma",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
              "replaces": "src/repro/kernels/flash_attention.py:44",
-             "build_s": builds["flash_attention"]["seconds"]}
+             "build_s": builds["flash_attention_wgmma"]["seconds"],
+             "previous_device_ms": PREVIOUS_FLASH_DEVICE_MS,
+             "previous": PREVIOUS_FLASH}
     decode = {"name": "decode_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
               "replaces": "src/repro/kernels/decode_attention.py:39",
@@ -282,7 +326,8 @@ def _phase7_attention(timings, builds, torch, np):
 
         def flash_kw(shape):
             return dict(causal=shape[6], window=shape[7], logit_cap=shape[8],
-                        q_offset=shape[9])
+                        q_offset=shape[9],
+                        k_len=shape[10] if len(shape) > 10 else None)
 
         def decode_inputs(shape, dtype):
             B, H, KV, S, hd, pos, _, _, ring = shape
@@ -305,13 +350,16 @@ def _phase7_attention(timings, builds, torch, np):
             errs[kind] = max(errs[kind], float((got.float() - want.float()).abs().max()))
 
         for dtype in (torch.float32, torch.bfloat16):
+            variant = VARIANTS[dtype]
             for shape in FLASH_TEST + [FLASH_MAIN, FLASH_MAIN_LOCAL, FLASH_LONG]:
                 q, k, v = flash_inputs(shape, dtype)
                 before = flash_attention.launches
+                on_variant = flash_attention.launches_by_variant[variant]
                 got = flash_attention(q, k, v, **flash_kw(shape))
                 torch.cuda.synchronize()
                 held("flash", got, flash_attention_torch(q, k, v, **flash_kw(shape)),
-                     dtype, flash_attention.launches == before + 1)
+                     dtype, flash_attention.launches == before + 1
+                     and flash_attention.launches_by_variant[variant] == on_variant + 1)
             for shape in DECODE_TEST + [DECODE_MAIN, DECODE_RING]:
                 q, kc, vc, sp, p = decode_inputs(shape, dtype)
                 B, H, KV, _, hd = shape[:5]
@@ -322,8 +370,9 @@ def _phase7_attention(timings, builds, torch, np):
                                               p, **decode_kw(shape)).view(B, H, 1, hd)
                 held("decode", got, want, dtype,
                      gqa_decode_attention.launches == before + 1)
+        n_flash = len(FLASH_TEST) + 3
         print(f"   max |kernel - plain|: flash {errs['flash']:.3e}, "
-              f"decode {errs['decode']:.3e} over {2 * 11} and {2 * 5} checks")
+              f"decode {errs['decode']:.3e} over {2 * n_flash} and {2 * 5} checks")
 
         def time_flash(shape, label, record=None):
             q, k, v = flash_inputs(shape, torch.bfloat16)
@@ -335,22 +384,24 @@ def _phase7_attention(timings, builds, torch, np):
             l_ms = _median_ms(sdpa)
             # torch.profiler recorded only one of several back-to-back flash
             # launches here, so the kernel's device time is taken from CUDA
-            # events over back-to-back launches, which it keeps the device
-            # busy through (phase 8's profile of a prefill counts each one)
+            # events over launches queued back to back (phase 8's profile of
+            # a prefill counts each one)
             k_dev = _back_to_back_ms(lambda: flash_attention(q, k, v, **kw))
             p_dev, p_n, _ = _device_profile(
                 lambda: flash_attention_torch(q, k, v, **kw), 5)
             bound, by, n_bytes, flop = _flash_bound(shape, 2, BF16_OPS_PER_S)
+            tflops = flop / (k_dev * 1e-3) / 1e12
             print(f"   flash {label} {shape[:6]} bf16: kernel {k_ms:.4f} ms "
-                  f"(device {k_dev:.4f} ms, back to back), plain {p_ms:.4f} ms (device "
-                  f"{p_dev:.4f} ms in {p_n} kernels), SDPA without softcap "
-                  f"{l_ms:.4f} ms; bound {bound:.4f} ms ({by}: {n_bytes} B, "
+                  f"(device {k_dev:.4f} ms, back to back, {tflops:.1f} TFLOP/s), "
+                  f"plain {p_ms:.4f} ms (device {p_dev:.4f} ms in {p_n} kernels), "
+                  f"SDPA without softcap {l_ms:.4f} ms (kernel / SDPA "
+                  f"{k_ms / l_ms:.2f}); bound {bound:.4f} ms ({by}: {n_bytes} B, "
                   f"{flop:.4g} FLOP)")
             if record is not None:
                 record.update(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
                               plain_device_ms=p_dev, library_ms=l_ms,
                               library="F.scaled_dot_product_attention, without softcap",
-                              bound_ms=bound, bound_by=by)
+                              bound_ms=bound, bound_by=by, tflop_per_s=tflops)
 
         def time_decode(shape, label, record=None):
             q, kc, vc, sp, p = decode_inputs(shape, torch.bfloat16)
@@ -384,6 +435,10 @@ def _phase7_attention(timings, builds, torch, np):
         time_flash(FLASH_MAIN, "main prefill (global layer)", flash)
         time_flash(FLASH_MAIN_LOCAL, "main prefill (local layer)")
         time_flash(FLASH_LONG, "long prefill (local layer)")
+        q, k, v = flash_inputs(FLASH_MAIN, torch.float32)
+        f32_dev = _back_to_back_ms(lambda: flash_attention(q, k, v, **flash_kw(FLASH_MAIN)))
+        print(f"   flash main prefill fp32 (CUDA-core kernel): device {f32_dev:.4f} ms, "
+              "back to back")
         time_decode(DECODE_MAIN, "main, full cache", decode)
         time_decode(DECODE_RING, "ring cache")
         flash["max_abs_err"] = errs["flash"]
@@ -418,6 +473,8 @@ def _phase8_serving(timings, flash, decode, torch, np):
         torch.cuda.reset_peak_memory_stats()
 
         flash_attention.launches = 0
+        flash_attention.launches_by_variant = dict.fromkeys(
+            flash_attention.launches_by_variant, 0)
         gqa_decode_attention.launches = 0
         out = Server(cfg, model, max_len=1024).throughput_batch(prompts, 32)
         server = Server(cfg, model, max_len=5120)
@@ -427,12 +484,14 @@ def _phase8_serving(timings, flash, decode, torch, np):
         server.generate(reqs)
         gen_s = time.perf_counter() - t0
         n_flash, n_decode = flash_attention.launches, gqa_decode_attention.launches
+        by_variant = dict(flash_attention.launches_by_variant)
 
         L = len(model.layers)
         print(f"   launches on the 42-layer run: flash_attention {n_flash} "
-              f"(want {L} x 4), gqa_decode_attention {n_decode} "
-              f"(want {L} x (31 + 21))")
+              f"(want {L} x 4) by kernel {by_variant}, gqa_decode_attention "
+              f"{n_decode} (want {L} x (31 + 21))")
         assert n_flash == L * 4 == 168, n_flash
+        assert by_variant == {"f32_cuda_cores": 0, "bf16_wgmma": 168}, by_variant
         assert n_decode == L * (31 + 21) == 2184, n_decode
         flash["launches"], decode["launches"] = n_flash, n_decode
         assert out["output"].shape == (4, 32)
@@ -461,11 +520,14 @@ def _phase8_serving(timings, flash, decode, torch, np):
 
         for label, fn in (("prefill B=4 x 512", prefill),
                           ("decode step B=4 at position 512", decode_one)):
-            wall, dev_ms, n_k, top = _step_profile(fn)
+            wall, dev_ms, n_k, top, by_name = _step_profile(fn)
+            attn = {n[:40]: (round(ms, 3), c) for n, (ms, c) in by_name.items()
+                    if "attention" in n}
             print(f"   {label} under torch.profiler: {wall:.2f} ms wall, "
                   f"{dev_ms:.2f} ms of device time in {n_k} CUDA kernels "
                   f"(device idle {100 * (1 - dev_ms / wall):.1f} %); most "
-                  f"device time: {[(n, round(ms, 3), c) for n, ms, c in top]}")
+                  f"device time: {[(n, round(ms, 3), c) for n, ms, c in top]}; "
+                  f"attention kernels (ms, launches): {attn}")
         del step
 
         attention.set_attention_impl("torch")
@@ -680,15 +742,20 @@ def main() -> int:
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]}")
         t0 = time.perf_counter()
-        builds = build("seg_combine", "flash_attention", "decode_attention",
-                       "fixture_copy")
+        builds = build("seg_combine", "flash_attention_wgmma", "flash_attention",
+                       "decode_attention", "fixture_copy")
         print(f"built {len(builds)} kernels in {time.perf_counter() - t0:.2f} s, "
               "in parallel")
         for name, b in builds.items():
             print(f"   {name}: {b['path'].name} in {b['seconds']:.2f} s")
             for line in b["log"].splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Performance Loss" in line):
                     print(f"      {line.strip()}")
+        for inst, regs, spill in _ptxas_summary(builds["flash_attention_wgmma"]["log"]):
+            print(f"   flash_attention_wgmma, padded hd {inst}: {regs} registers "
+                  f"at launch (setmaxnreg: consumers 240, producer 24), "
+                  f"{spill} bytes of spill stores")
         build_s = builds["seg_combine"]["seconds"]
 
     # ---------------------------------------------------------------- 1

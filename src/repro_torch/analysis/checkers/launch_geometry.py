@@ -131,16 +131,20 @@ HEAD_DIMS = (16, 64, 80, 128, 256)
 
 
 def _flash_probes(hds=HEAD_DIMS) -> list[LaunchProbe]:
+    import torch
+
     from repro_torch.kernels.flash_attention import coverage, launch_spec
 
     out = []
     # (B, H, KV, Sq): the reference's probe, gemma2-9b prefill B 4 x 512
-    # and the 4608-token prompt of generate
-    for B, H, KV, Sq in ((1, 2, 1, 256), (4, 16, 8, 512), (1, 16, 8, 4608)):
-        for hd in hds:
-            out.append(LaunchProbe("flash_attention",
-                                   launch_spec(B, H, KV, Sq, hd),
-                                   *coverage(B, H, KV, Sq)))
+    # and the 4608-token prompt of generate; each for both kernels (fp32 on
+    # the CUDA cores, bf16 on wgmma), whose grids differ
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, KV, Sq in ((1, 2, 1, 256), (4, 16, 8, 512), (1, 16, 8, 4608)):
+            for hd in hds:
+                out.append(LaunchProbe("flash_attention",
+                                       launch_spec(B, H, KV, Sq, hd, dtype),
+                                       *coverage(B, H, KV, Sq, dtype)))
     return out
 
 

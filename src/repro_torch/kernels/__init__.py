@@ -2,8 +2,10 @@
 
   seg_combine      — per-partition sums (the Hadoop collect/partition/
                      combine step), ``csrc/seg_combine.cu``;
-  flash_attention  — blocked online-softmax GQA attention for prefill,
-                     ``csrc/flash_attention.cu``;
+  flash_attention  — blocked online-softmax GQA attention for prefill:
+                     bf16 on ``wgmma`` with TMA-fed tiles,
+                     ``csrc/flash_attention_wgmma.cu``; fp32 on the CUDA
+                     cores, ``csrc/flash_attention.cu``;
   decode_attention — one token's GQA attention over a full or ring KV
                      cache, split across CTAs, ``csrc/decode_attention.cu``;
   fixture_copy     — a tiled copy, the kernel of the static analyzer's

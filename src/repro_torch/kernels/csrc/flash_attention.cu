@@ -5,9 +5,11 @@
 // global position of query row 0) and k_len (keys at or past it are masked).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::
-// flash_attention_kernel.  That kernel walks a sequential (B, H, q block,
-// kv block) grid with m, l and acc in VMEM scratch, one query head per
-// program, and skips a fully masked kv block with pl.when.  Here:
+// flash_attention_kernel for fp32 inputs, whose products need real fp32
+// arithmetic that neither TF32 nor bf16 wgmma gives; bf16 inputs go to
+// flash_attention_wgmma.cu.  That TPU kernel walks a sequential (B, H,
+// q block, kv block) grid with m, l and acc in VMEM scratch, one query head
+// per program, and skips a fully masked kv block with pl.when.  Here:
 //   * one CTA serves 32 (query row, head) pairs of one (batch, kv head):
 //     rows are ordered (query, head of the group), so the G heads that share
 //     a kv head share every K/V tile the CTA stages in shared memory;
@@ -18,19 +20,15 @@
 //     32-key tile and computes its dot products against the warp's 4 rows
 //     (q read as shared-memory broadcasts); for P.V a lane owns head dims
 //     lane + 32 i and the probabilities are broadcast by shuffles;
-//   * m, l and acc are fp32, whatever the input type, as on the TPU.
+//   * m, l and acc are fp32, as on the TPU.
 //     Masked keys get probability 0, so a row whose keys are all masked
 //     ends with l = 0 and is written as 0 (acc / max(l, 1e-30)).
 //
-// What bounds it at the main-path shape (gemma2-9b prefill, B 4, H 16,
-// KV 8, Sq = Sk = 512, hd 256, causal, bf16): 50.3 MB of traffic is 15 us at
-// 3.35 TB/s and 8.6 GFLOP of matrix products 8.7 us on the bf16 tensor
-// cores; at S = 4608 it is compute-bound (1.7e11 FLOP per layer, ~175 us).
-// This first kernel does its products in fp32 on the CUDA cores (67 TFLOP/s
-// peak) and reads q from shared memory for every four multiply-adds, so it
-// is bound by shared-memory bandwidth and fp32 throughput, far above both
-// bounds.  A later version moves the two products onto wgmma with TMA-fed
-// bf16 tiles (ROADMAP.md, queue 2).
+// What bounds it at the gemma2-9b prefill shape in fp32 (B 4, H 16, KV 8,
+// Sq = Sk = 512, hd 256, causal): 8.6 GFLOP of fp32 products, 128 us on
+// the CUDA cores' 67 TFLOP/s, against 100.7 MB of traffic, 30 us at
+// 3.35 TB/s.  It reads q from shared memory for every four multiply-adds,
+// so it runs at the rate shared memory serves it, above that bound.
 //
 // Shared memory: (32 rows of q + 32 keys of K + 32 of V) x (hd + 4) fp32,
 // 99,840 bytes at hd 256, so it is dynamic shared memory above the 48 KB
@@ -38,11 +36,10 @@
 // reads of a quarter-warp on distinct banks.  The Python wrapper computes
 // the same figure and refuses a launch above 232,448 bytes.
 //
-// Plain C interface for ctypes: the functions launch on the given stream,
-// do not synchronise and return cudaGetLastError() (or cudaErrorInvalidValue
+// Plain C interface for ctypes: the function launches on the given stream,
+// does not synchronise and returns cudaGetLastError() (or cudaErrorInvalidValue
 // when the shared-memory bytes given are below what the launch needs).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,13 +53,7 @@ constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -270,14 +261,4 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    int k_len, int smem_bytes, void* stream) {
   return dispatch<float>(q, k, v, out, B, H, KV, Sq, Sk, hd, scale, causal,
                          window, cap, q_offset, k_len, smem_bytes, stream);
-}
-
-extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
-                                    void* out, int B, int H, int KV, int Sq,
-                                    int Sk, int hd, float scale, int causal,
-                                    int window, float cap, int q_offset,
-                                    int k_len, int smem_bytes, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, out, B, H, KV, Sq, Sk, hd, scale,
-                                 causal, window, cap, q_offset, k_len,
-                                 smem_bytes, stream);
 }

@@ -1,61 +1,205 @@
-"""``flash_attention`` on Hopper: the CUDA kernel's launcher, its launch
-geometry, and its plain version.
+"""``flash_attention`` on Hopper: the CUDA kernels' launchers, their launch
+geometry and tile plan, and their plain version.
 
-The kernel (``csrc/flash_attention.cu``) replaces the reference package's
-Pallas kernel ``repro/kernels/flash_attention.py::flash_attention_kernel``:
-blocked online-softmax GQA attention with causal, sliding-window, softcap,
-``q_offset`` and ``k_len`` masks, m, l and acc in fp32.  The source says how
-its design differs from the TPU's and what bounds it.  It takes the head
-dim as it is: no lane padding of hd to 128 and no padding of the sequence to
-a block multiple, which were the TPU's needs; the kernel masks the ragged
-edge itself.
+Two kernels replace the reference package's Pallas kernel
+``repro/kernels/flash_attention.py::flash_attention_kernel`` (blocked
+online-softmax GQA attention with causal, sliding-window, softcap,
+``q_offset`` and ``k_len`` masks, m, l and acc in fp32), one per input type:
+
+* ``bf16_wgmma`` (``csrc/flash_attention_wgmma.cu``) serves bf16: both
+  products on the tensor cores with ``wgmma``, K/V tiles of 64 keys fed by
+  TMA into a ring of shared-memory stages by a producer warp, two consumer
+  warpgroups of 64 rows each;
+* ``f32_cuda_cores`` (``csrc/flash_attention.cu``) serves fp32: real fp32
+  products on the CUDA cores, which neither TF32 nor bf16 ``wgmma`` gives.
+
+Each source says what bounds it and what its design does about that.  Both
+take the head dim as it is (a multiple of 8 up to 256) and any sequence
+length: no lane padding of hd to 128 and no padding of the sequence to a
+block multiple, which were the TPU's needs.  The fp32 kernel masks the
+ragged edge itself; the bf16 kernel pads hd to 64, 128 or 256 in shared
+memory through TMA's zero fill and stores only what exists.
+
+:func:`tile_plan` computes in Python what the bf16 kernel does for each
+M-tile (a warpgroup's 64 rows): its kv range, the kv tiles it computes and
+which of them need the per-element mask, so the CPU tests can hold it to
+the masks.
 
 :func:`flash_attention_torch` is the plain PyTorch version of the same
 function.  It materialises the scores, as the reference's oracle
 ``repro/kernels/ref.py::flash_attention_ref`` does.  The CPU path of
 :func:`repro_torch.kernels.flash_attention` and the tests use it; on the
-card it is the yardstick the kernel is held to.
+card it is the yardstick both kernels are held to.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
-from ._build import LaunchSpec, check, load
+from ._build import MAX_SMEM_BYTES, LaunchSpec, check, load
 
-__all__ = ["coverage", "flash_attention_cuda", "flash_attention_torch",
-           "launch_spec"]
+__all__ = ["VARIANTS", "CtaPlan", "MTilePlan", "coverage",
+           "flash_attention_cuda", "flash_attention_torch", "heads_per_tile",
+           "launch_spec", "padded_head_dim", "tile_plan", "wgmma_stages"]
 
+#: the kernel that serves each input dtype
+VARIANTS = {torch.float32: "f32_cuda_cores", torch.bfloat16: "bf16_wgmma"}
+
+# the fp32 kernel (csrc/flash_attention.cu)
 ROWS = 32          # (query row, head) pairs per CTA
 BLOCK_K = 32       # keys per shared-memory tile
 THREADS = 256
+
+# the bf16 kernel (csrc/flash_attention_wgmma.cu)
+WG_ROWS = 64       # rows per consumer warpgroup: one wgmma M tile
+CONSUMERS = 2      # consumer warpgroups per CTA
+WG_THREADS = (CONSUMERS + 1) * 128
+BLOCK_N = 64       # keys per K/V tile
+BOX_BYTES = 64 * 128   # one TMA box: 64 rows (or keys) x 64 head dims of bf16
+MAX_STAGES = 4
+_ALIGN_SLACK, _BARRIER_BYTES = 1024, 128
+
 _NEG = -1e30
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
-         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_SIGNATURES = {"flash_attention_f32": _ARGS, "flash_attention_bf16": _ARGS}
+_F32_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_WGMMA_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+               + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_SOURCES = {"f32_cuda_cores": ("flash_attention", "flash_attention_f32",
+                               _F32_ARGS),
+            "bf16_wgmma": ("flash_attention_wgmma", "flash_attention_bf16_wgmma",
+                           _WGMMA_ARGS)}
 
 
-def launch_spec(B: int, H: int, KV: int, Sq: int, hd: int) -> LaunchSpec:
-    """The kernel's launch: one CTA per 32 (query row, head) pairs of one
-    (batch, kv head); q rows and one K and one V tile of 32 keys in fp32
-    shared memory, each row padded to hd + 4 floats."""
+def heads_per_tile(H: int, KV: int) -> int:
+    """Heads of one kv group that share a warpgroup's 64 rows in the bf16
+    kernel: all G = H / KV where G divides 64, else one."""
     G = H // KV
-    return LaunchSpec(
-        grid=(-(-Sq * G // ROWS), KV, B), block=(THREADS, 1, 1),
-        smem_bytes=(ROWS + 2 * BLOCK_K) * (hd + 4) * 4)
+    return G if WG_ROWS % G == 0 else 1
 
 
-def coverage(B: int, H: int, KV: int, Sq: int
+def padded_head_dim(hd: int) -> int:
+    """The bf16 kernel's head dim in shared memory: 64, 128 or 256."""
+    return 64 if hd <= 64 else 128 if hd <= 128 else 256
+
+
+def wgmma_stages(hd: int) -> int:
+    """K/V stages of the bf16 kernel's ring: as many as fit beside the q
+    tile in a block's shared memory, at most 4 (2 at hd 256)."""
+    boxes = padded_head_dim(hd) // 64
+    q_bytes = CONSUMERS * boxes * BOX_BYTES
+    free = MAX_SMEM_BYTES - _ALIGN_SLACK - _BARRIER_BYTES - q_bytes
+    return max(1, min(MAX_STAGES, free // (2 * boxes * BOX_BYTES)))
+
+
+def launch_spec(B: int, H: int, KV: int, Sq: int, hd: int,
+                dtype: torch.dtype) -> LaunchSpec:
+    """The launch of the kernel that serves ``dtype``.
+
+    fp32: one CTA of 256 threads per 32 (query row, head) pairs of one
+    (batch, kv head); q rows and one K and one V tile of 32 keys in fp32
+    shared memory, each row padded to hd + 4 floats.
+
+    bf16: grid (H / gh, B, M tiles) of 384-thread CTAs, where gh is
+    :func:`heads_per_tile` and a CTA takes 2 x 64 / gh queries of gh heads;
+    shared memory holds 1 KB of alignment slack, the q tile (128 rows of the
+    padded hd), the stages of K and V tiles (64 keys each) and 128 bytes of
+    barriers.
+    """
+    if dtype == torch.float32:
+        G = H // KV
+        return LaunchSpec(
+            grid=(-(-Sq * G // ROWS), KV, B), block=(THREADS, 1, 1),
+            smem_bytes=(ROWS + 2 * BLOCK_K) * (hd + 4) * 4)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention has no kernel for {dtype}")
+    gh = heads_per_tile(H, KV)
+    per_cta = CONSUMERS * WG_ROWS // gh
+    boxes = padded_head_dim(hd) // 64
+    smem = (_ALIGN_SLACK + CONSUMERS * boxes * BOX_BYTES
+            + wgmma_stages(hd) * 2 * boxes * BOX_BYTES + _BARRIER_BYTES)
+    return LaunchSpec(grid=(H // gh, B, -(-Sq // per_cta)),
+                      block=(WG_THREADS, 1, 1), smem_bytes=smem)
+
+
+def coverage(B: int, H: int, KV: int, Sq: int, dtype: torch.dtype
              ) -> tuple[tuple[int, int, int], tuple[int, int, int]]:
-    """What the grid must cover, per grid axis (x, y, z): the Sq * G
-    (query row, head) pairs of a kv group, the KV kv heads and the B batch
-    rows; and what one CTA covers of them: 32 pairs of one (batch, kv head).
-    The kernel masks the pairs past Sq * G."""
-    return (Sq * (H // KV), KV, B), (ROWS, 1, 1)
+    """What the grid must cover, per grid axis (x, y, z), and what one CTA
+    covers of it.  fp32: the Sq * G (query row, head) pairs of a kv group,
+    the KV kv heads and the B batch rows; 32 pairs of one (batch, kv head).
+    bf16: the H heads, the B batch rows and the Sq queries; gh heads of one
+    batch row and 2 x 64 / gh queries.  Both kernels mask what lies past."""
+    if dtype == torch.float32:
+        return (Sq * (H // KV), KV, B), (ROWS, 1, 1)
+    gh = heads_per_tile(H, KV)
+    return (H, B, Sq), (gh, 1, CONSUMERS * WG_ROWS // gh)
+
+
+@dataclass(frozen=True)
+class MTilePlan:
+    """One consumer warpgroup's rows: queries ``[q_lo, q_hi)`` of gh heads,
+    and the kv tiles it computes as ``(first key, masked)``; the others of
+    its CTA it waits for and releases unread."""
+
+    q_lo: int
+    q_hi: int
+    tiles: tuple[tuple[int, bool], ...]
+
+
+@dataclass(frozen=True)
+class CtaPlan:
+    """One CTA along the grid's z axis: its kv range ``[kbeg, kend)``, the
+    ``n_tiles`` tiles of ``BLOCK_N`` keys from ``kbeg`` that its producer
+    loads, and its warpgroups' M-tiles (those with rows)."""
+
+    kbeg: int
+    kend: int
+    n_tiles: int
+    mtiles: tuple[MTilePlan, ...]
+
+
+def tile_plan(H: int, KV: int, Sq: int, *, causal: bool, window: int | None,
+              q_offset: int, k_len: int) -> list[CtaPlan]:
+    """What the bf16 kernel computes, CTA by CTA along the grid's z axis
+    (the kernel launches them in reverse, longest kv range first).
+
+    Query q sees keys ``[lo(q), hi(q))``; both bounds are non-decreasing in
+    q, so the keys a run of queries sees are ``[lo(first), hi(last))`` and
+    the keys all of them see ``[lo(last), hi(first))``.  A warpgroup
+    computes a tile that overlaps the first range and masks it per element
+    unless it lies inside the second.  This is the kernel's arithmetic
+    (``flash_attention_wgmma.cu``), line for line.
+    """
+    w = window or 0
+
+    def lo(q):
+        return max(0, q_offset + q - w + 1) if w > 0 else 0
+
+    def hi(q):
+        return min(k_len, q_offset + q + 1) if causal else k_len
+
+    qm = WG_ROWS // heads_per_tile(H, KV)
+    plans = []
+    for q0 in range(0, Sq, CONSUMERS * qm):
+        kbeg, kend = lo(q0), hi(min(q0 + CONSUMERS * qm, Sq) - 1)
+        n_tiles = -(-(kend - kbeg) // BLOCK_N) if kend > kbeg else 0
+        mtiles = []
+        for qw0 in range(q0, min(q0 + CONSUMERS * qm, Sq), qm):
+            last = min(qw0 + qm, Sq) - 1
+            tiles = []
+            for t in range(n_tiles):
+                key0 = kbeg + t * BLOCK_N
+                if key0 < hi(last) and key0 + BLOCK_N > lo(qw0):
+                    inside = key0 >= lo(last) and key0 + BLOCK_N <= hi(qw0)
+                    tiles.append((key0, not inside))
+            mtiles.append(MTilePlan(qw0, last + 1, tuple(tiles)))
+        plans.append(CtaPlan(kbeg, kend, n_tiles, tuple(mtiles)))
+    return plans
 
 
 def flash_attention_cuda(
@@ -63,23 +207,26 @@ def flash_attention_cuda(
     window: int | None, logit_cap: float | None, q_offset: int, k_len: int,
     spec: LaunchSpec,
 ) -> torch.Tensor:
-    """Launch the kernel on the current stream; no checks, no synchronise.
+    """Launch the kernel for q's dtype on the current stream; no checks, no
+    synchronise.
 
     Callers go through :func:`repro_torch.kernels.flash_attention`, which
-    checks shapes, types, devices and the launch's shared memory.
+    checks shapes, types, alignment, devices and the launch's shared memory.
     """
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lib = load("flash_attention", _SIGNATURES)
-    fn = (lib.flash_attention_f32 if q.dtype == torch.float32
-          else lib.flash_attention_bf16)
+    source, fn_name, argtypes = _SOURCES[VARIANTS[q.dtype]]
+    fn = getattr(load(source, {fn_name: argtypes}), fn_name)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, KV, Sq, Sk, hd, hd ** -0.5, int(causal), window or 0,
+            logit_cap or 0.0, q_offset, k_len]
+    if q.dtype == torch.bfloat16:
+        args += [*spec.grid, heads_per_tile(H, KV), wgmma_stages(hd)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, H, KV, Sq, Sk, hd, hd ** -0.5, int(causal), window or 0,
-                 logit_cap or 0.0, q_offset, k_len, spec.smem_bytes, stream)
-    check(err, "flash_attention")
+        err = fn(*args, spec.smem_bytes, stream)
+    check(err, f"flash_attention ({VARIANTS[q.dtype]})")
     return out
 
 

@@ -6,8 +6,10 @@ kernel's plain PyTorch version only for a tensor on the CPU.  There is no
 fallback: a CUDA tensor launches the kernel or raises.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``, a plain integer, so a run can
 show that its main path went through the kernel; a call counts once even
-where the kernel is two device launches.  Beside the count, each wrapper
-keeps the distinct launch geometries it launched in
+where the kernel is two device launches.  ``flash_attention`` has one
+kernel per input type (bf16: ``bf16_wgmma``, fp32: ``f32_cuda_cores``) and
+also counts its launches per kernel in ``launches_by_variant``.  Beside the
+count, each wrapper keeps the distinct launch geometries it launched in
 ``<wrapper>.geometries``, a set of ``(LaunchSpec, shape, tile)``: the grid
 and block, the index space the grid must cover and what one CTA covers of
 it (the kernel module's ``coverage``), for the static analyzer's
@@ -93,7 +95,9 @@ def flash_attention(
     Query row i sits at position ``q_offset + i``; keys at or past ``k_len``
     (default Sk) are masked, as are keys after the query (``causal``) and
     keys at or before ``q_pos - window``.  Scores are scaled by hd**-0.5 and
-    soft-capped to ``logit_cap * tanh(s / logit_cap)``.
+    soft-capped to ``logit_cap * tanh(s / logit_cap)``.  On the card bf16
+    inputs launch the ``wgmma`` kernel (their addresses 16-byte aligned)
+    and fp32 inputs the CUDA-core kernel.
     """
     _check_attention("flash_attention", q, k, v, window=window, logit_cap=logit_cap)
     B, H, Sq, hd = q.shape
@@ -103,8 +107,14 @@ def flash_attention(
         raise ValueError(f"flash_attention: k_len must be in [0, {Sk}], got {k_len}")
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got {q_offset}")
-    spec = _fa.launch_spec(B, H, KV, Sq, hd).check("flash_attention")
+    spec = _fa.launch_spec(B, H, KV, Sq, hd, q.dtype).check("flash_attention")
     _check_head_dim("flash_attention", hd)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(
+                    f"flash_attention: {name} must start at a 16-byte-aligned "
+                    "address, which the bf16 kernel's TMA loads need")
     on_cpu = _check_device("flash_attention", q, k, v) == "cpu"
     if q.numel() == 0 or Sk == 0:
         return torch.zeros_like(q)
@@ -116,11 +126,13 @@ def flash_attention(
         q, k, v, causal=causal, window=window, logit_cap=logit_cap,
         q_offset=int(q_offset), k_len=k_len, spec=spec)
     flash_attention.launches += 1
-    flash_attention.geometries.add((spec, *_fa.coverage(B, H, KV, Sq)))
+    flash_attention.launches_by_variant[_fa.VARIANTS[q.dtype]] += 1
+    flash_attention.geometries.add((spec, *_fa.coverage(B, H, KV, Sq, q.dtype)))
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = dict.fromkeys(_fa.VARIANTS.values(), 0)
 flash_attention.geometries = set()
 
 

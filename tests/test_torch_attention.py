@@ -25,7 +25,9 @@ from repro.models.attention import _ring_slot_positions
 from repro_torch.kernels import flash_attention, gqa_decode_attention
 from repro_torch.kernels.decode_attention import decode_attention_torch
 from repro_torch.kernels.decode_attention import launch_spec as decode_spec
-from repro_torch.kernels.flash_attention import flash_attention_torch
+from repro_torch.kernels.flash_attention import (BLOCK_N, VARIANTS,
+                                                 flash_attention_torch,
+                                                 heads_per_tile, tile_plan)
 from repro_torch.kernels.flash_attention import launch_spec as flash_spec
 from repro_torch.kernels._build import MAX_SMEM_BYTES
 from repro_torch.models.attention import chunked_attention, ring_slot_positions
@@ -107,6 +109,151 @@ def test_flash_k_len_masks_the_tail():
     np.testing.assert_allclose(got.numpy(), cut.numpy(), **TOL32)
 
 
+# ------------------------------------------- the bf16 kernel's tile plan
+
+# (B, H, KV, Sq, Sk, hd, causal, window, logit_cap, q_offset), k_len
+PLAN_CASES = {
+    **{n: (c, None) for n, c in {**FLASH_CASES, **FLASH_F32_CASES}.items()},
+    # chip_smoke.py's main shapes: gemma2-9b prefill, global and local
+    # layers, and the 4608-token prompt
+    "main": ((4, 16, 8, 512, 512, 256, True, None, 50.0, 0), None),
+    "main_local": ((4, 16, 8, 512, 512, 256, True, 4096, 50.0, 0), None),
+    "long": ((1, 16, 8, 4608, 4608, 256, True, 4096, 50.0, 0), None),
+    # G = 3 (one head per tile), k_len below Sk, an offset and a window
+    # narrower than one kv tile
+    "g3_klen": ((1, 6, 2, 200, 333, 72, True, 40, None, 100), 250),
+    "g3_bidirectional_klen": ((1, 6, 2, 130, 200, 96, False, None, None, 0), 150),
+}
+
+
+def _visible(q_lo, q_hi, Sk, causal, window, q_offset, k_len):
+    """(queries, keys) visibility from the masks' definitions, as
+    flash_attention_torch applies them."""
+    qpos = q_offset + np.arange(q_lo, q_hi)[:, None]
+    key = np.arange(Sk)[None, :]
+    ok = key < k_len
+    if causal:
+        ok = ok & (key <= qpos)
+    if window is not None:
+        ok = ok & (key > qpos - window)
+    return ok
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_tile_plan_covers_every_visible_pair_and_masks_every_crossing(name):
+    (B, H, KV, Sq, Sk, hd, causal, window, cap, q_offset), k_len = PLAN_CASES[name]
+    k_len = Sk if k_len is None else k_len
+    plan = tile_plan(H, KV, Sq, causal=causal, window=window,
+                     q_offset=q_offset, k_len=k_len)
+    spec = flash_spec(B, H, KV, Sq, hd, torch.bfloat16)
+    assert len(plan) == spec.grid[2]
+    qm = 64 // heads_per_tile(H, KV)
+    rows = []
+    for cta in plan:
+        for mt in cta.mtiles:
+            rows.extend(range(mt.q_lo, mt.q_hi))
+            assert mt.q_hi - mt.q_lo <= qm
+            vis = _visible(mt.q_lo, mt.q_hi, Sk, causal, window, q_offset, k_len)
+            covered = np.zeros(Sk, bool)
+            for key0, masked in mt.tiles:
+                # a tile the producer loads, from the CTA's range
+                assert (key0 - cta.kbeg) % BLOCK_N == 0
+                assert cta.kbeg <= key0 < cta.kbeg + cta.n_tiles * BLOCK_N
+                assert key0 < cta.kend
+                tile = vis[:, key0:key0 + BLOCK_N]
+                assert tile.any(), (name, mt, key0)       # nothing launched empty
+                if not masked:                            # every pair visible
+                    assert key0 + BLOCK_N <= Sk and tile.all(), (name, mt, key0)
+                covered[key0:key0 + BLOCK_N] = True
+            assert not vis[:, ~covered].any(), (name, mt)  # every visible pair
+    assert rows == list(range(Sq))                         # every query once
+
+
+def test_tile_plan_masks_only_the_diagonal_at_the_main_shape():
+    # causal, 32 queries of 2 heads a warpgroup: one masked tile per M-tile
+    plan = tile_plan(16, 8, 512, causal=True, window=None, q_offset=0, k_len=512)
+    for z, cta in enumerate(plan):
+        assert (cta.kbeg, cta.n_tiles) == (0, z + 1)
+        for mt in cta.mtiles:
+            assert [m for _, m in mt.tiles] == [False] * z + [True]
+
+
+def _emulate_wgmma(q, k, v, *, causal, window, logit_cap, q_offset, k_len):
+    """The bf16 kernel's arithmetic, tile by tile along :func:`tile_plan`:
+    bf16 Q K^T summed in fp32, the scale (and softcap) folded with log2(e)
+    and exp2, the per-element mask only on tiles the plan marks, P rounded
+    to bf16 before P V, m, l and O in fp32."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.float()
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, BLOCK_N)).repeat_interleave(G, 1)
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, BLOCK_N)).repeat_interleave(G, 1)
+    log2e = 1.4426950408889634
+    out = torch.zeros(B, H, Sq, hd)
+    for cta in tile_plan(H, KV, Sq, causal=causal, window=window,
+                         q_offset=q_offset, k_len=k_len):
+        for mt in cta.mtiles:
+            qt = qf[:, :, mt.q_lo:mt.q_hi]
+            vis = torch.from_numpy(_visible(mt.q_lo, mt.q_hi, Sk + BLOCK_N, causal,
+                                            window, q_offset, k_len))
+            m = torch.full(qt.shape[:3], -1e30)
+            l = torch.zeros(qt.shape[:3])
+            o = torch.zeros(qt.shape)
+            for key0, masked in mt.tiles:
+                keys = slice(key0, key0 + BLOCK_N)
+                s = qt @ kf[:, :, keys].transpose(2, 3)
+                if logit_cap is not None:
+                    s = logit_cap * log2e * torch.tanh(s * (hd ** -0.5 / logit_cap))
+                else:
+                    s = s * (hd ** -0.5 * log2e)
+                if masked:
+                    s = s.masked_fill(~vis[:, keys], float("-inf"))
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[..., None])
+                l = l * corr + p.sum(-1)
+                o = o * corr[..., None] + p.bfloat16().float() @ vf[:, :, keys]
+                m = m_new
+            out[:, :, mt.q_lo:mt.q_hi] = o / l.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+EMULATION_CASES = {
+    **FLASH_CASES,
+    # gemma2-9b's attention at a 2-layer cut's size: H 16, KV 8, hd 256,
+    # softcap 50, a ragged Sq and Sk
+    "gemma2_hd256_softcap": (1, 16, 8, 200, 200, 256, True, None, 50.0, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(EMULATION_CASES))
+def test_bf16_kernel_arithmetic_matches_pallas_and_oracle(name):
+    B, H, KV, Sq, Sk, hd, causal, window, cap, q_offset = EMULATION_CASES[name]
+    arrays = _arrays(zlib.crc32(name.encode()) + 1, (B, H, Sq, hd),
+                     (B, KV, Sk, hd), (B, KV, Sk, hd))
+    (q, k, v), (jq, jk, jv) = _both(arrays, "bf16")
+    got = _emulate_wgmma(q, k, v, causal=causal, window=window, logit_cap=cap,
+                         q_offset=q_offset, k_len=Sk)
+    pallas = j_flash_attention(jq, jk, jv, causal, window, cap, q_offset)
+    oracle = flash_attention_ref(jq, jk, jv, causal=causal, window=window,
+                                 logit_cap=cap, q_offset=q_offset)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, Sq, hd)
+    np.testing.assert_allclose(_np(got), _np(pallas), **TOL)
+    np.testing.assert_allclose(_np(got), _np(oracle), **TOL)
+
+
+def test_each_dtype_has_its_kernel_and_the_cpu_counts_no_variant():
+    assert VARIANTS == {torch.float32: "f32_cuda_cores",
+                        torch.bfloat16: "bf16_wgmma"}
+    before = dict(flash_attention.launches_by_variant)
+    assert set(before) == set(VARIANTS.values())
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _arrays(
+        5, (1, 6, 40, 24), (1, 2, 40, 24), (1, 2, 40, 24)))
+    flash_attention(q, k, v, window=16, logit_cap=30.0, q_offset=3)
+    assert flash_attention.launches_by_variant == before
+
+
 # ----------------------------------------------------------- decode attention
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -163,12 +310,21 @@ def test_ring_slot_positions_use_a_floored_mod(pos):
 
 # ----------------------------------------------------------- launch geometry
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("hd", [16, 64, 80, 128, 256])
-def test_launch_shared_memory_fits_an_h100_block(hd):
-    spec = flash_spec(4, 16, 8, 512, hd)
-    assert spec.smem_bytes == (32 + 2 * 32) * (hd + 4) * 4
+def test_launch_shared_memory_fits_an_h100_block(hd, dtype):
+    spec = flash_spec(4, 16, 8, 512, hd, DTYPES[dtype][0])
+    if dtype == "f32":      # CUDA cores: 32 rows + 32 keys of K and of V, fp32
+        assert spec.smem_bytes == (32 + 2 * 32) * (hd + 4) * 4
+        assert spec.grid == (512 * 2 // 32, 8, 4) and spec.block == (256, 1, 1)
+    else:                   # wgmma: slack, q (128 rows), K/V stages of 64 keys
+        hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
+        stages = 2 if hdp == 256 else 4
+        assert spec.smem_bytes == (1024 + 128 * hdp * 2
+                                   + stages * 2 * 64 * hdp * 2 + 128)
+        # G = 2 heads share a warpgroup's 64 rows: 32 queries, 64 per CTA
+        assert spec.grid == (16 // 2, 4, 512 // 64) and spec.block == (384, 1, 1)
     assert spec.smem_bytes <= MAX_SMEM_BYTES == 232_448
-    assert spec.grid == (512 * 2 // 32, 8, 4) and spec.block == (256, 1, 1)
     dspec, split_len = decode_spec(4, 8, 2, 1024, hd)
     assert dspec.smem_bytes == 4 * 4 * (hd + 2) * 4 <= MAX_SMEM_BYTES
     assert spec.check("flash") is spec and dspec.check("decode") is dspec
@@ -222,13 +378,16 @@ def _flash_args(case):
         kw = {"k_len": 9}
     elif case == "q_offset":
         kw = {"q_offset": -1}
+    elif case == "bf16_misaligned":     # contiguous, but 2 bytes past 16
+        q = torch.ones(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
     return (q, k, v), kw
 
 
 @pytest.mark.parametrize("case", [
     "float64", "int", "mixed_dtype", "noncontig", "heads", "rank3", "kv_shape",
     "head_dim_mismatch", "head_dim_not_8", "head_dim_over_256", "smem",
-    "window", "cap", "k_len", "q_offset",
+    "window", "cap", "k_len", "q_offset", "bf16_misaligned",
 ])
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(case):
     args, kw = _flash_args(case)
