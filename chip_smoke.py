@@ -89,8 +89,6 @@ ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # the reference's kernel toleran
 # flash's bf16 device time at FLASH_MAIN before the wgmma kernel: the CUDA-core
 # kernel (csrc/flash_attention.cu's former bf16 instance), as this script
 # measured it on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md keeps the run
-PREVIOUS_FLASH_DEVICE_MS = 1.1116
-PREVIOUS_FLASH = "CUDA-core bf16 kernel, NVIDIA H100 80GB HBM3 700 W (PERF.md)"
 # (B, H, KV, Sq, Sk, hd, causal, window, softcap, q_offset[, k_len])
 FLASH_TEST = [(1, 4, 2, 256, 256, 64, True, None, None, 0),
               (2, 2, 2, 128, 384, 128, True, None, None, 0),
@@ -302,9 +300,7 @@ def _phase7_attention(timings, builds, torch, np):
     flash = {"name": "flash_attention", "route": "cuda", "variant": "bf16_wgmma",
              "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
              "replaces": "src/repro/kernels/flash_attention.py:44",
-             "build_s": builds["flash_attention_wgmma"]["seconds"],
-             "previous_device_ms": PREVIOUS_FLASH_DEVICE_MS,
-             "previous": PREVIOUS_FLASH}
+             "build_s": builds["flash_attention_wgmma"]["seconds"]}
     decode = {"name": "decode_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
               "replaces": "src/repro/kernels/decode_attention.py:39",
@@ -370,6 +366,18 @@ def _phase7_attention(timings, builds, torch, np):
                                               p, **decode_kw(shape)).view(B, H, 1, hd)
                 held("decode", got, want, dtype,
                      gqa_decode_attention.launches == before + 1)
+        # TMA loads need 16-byte-aligned addresses: the wrapper refuses a
+        # bf16 CUDA tensor that starts 2 bytes past one, and launches nothing
+        q, k, v = flash_inputs(FLASH_TEST[0], torch.bfloat16)
+        q = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
+        before = flash_attention.launches
+        try:
+            flash_attention(q, k, v, **flash_kw(FLASH_TEST[0]))
+        except ValueError as err:
+            assert "16-byte" in str(err), err
+        else:
+            raise AssertionError("flash_attention took a misaligned bf16 CUDA tensor")
+        assert flash_attention.launches == before
         n_flash = len(FLASH_TEST) + 3
         print(f"   max |kernel - plain|: flash {errs['flash']:.3e}, "
               f"decode {errs['decode']:.3e} over {2 * n_flash} and {2 * 5} checks")

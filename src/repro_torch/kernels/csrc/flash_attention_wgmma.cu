@@ -64,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kBlockN = 64;               // keys per K/V tile
@@ -71,6 +73,7 @@ constexpr int kRowsWG = 64;               // rows per consumer warpgroup
 constexpr int kConsumers = 2;             // consumer warpgroups per CTA
 constexpr int kThreads = (kConsumers + 1) * 128;
 constexpr int kMaxStages = 4;
+constexpr int kMaxDevices = 64;           // cards whose shared-memory limit is tracked
 constexpr int kBox = 64;                  // head dims per TMA box: 128 bytes
 constexpr int kBoxBytes = 64 * 128;       // one box of 64 rows (or keys)
 constexpr float kNeg = -1e30f;
@@ -546,9 +549,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
       !make_map(&tm_v, v, 3, kv_dims, kv_strides, kv_box))
     return (int)cudaErrorInvalidValue;
   auto kern = flash_attention_wgmma_kernel<HDP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  // The dynamic shared-memory limit is set once per device and instance, and
+  // again only when a launch needs more than was set.
+  static std::mutex smem_mutex;
+  static int smem_set[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(smem_mutex);
+    if (smem_set[device] < smem_bytes) {
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem_bytes);
+      if (err != cudaSuccess) return (int)err;
+      smem_set[device] = smem_bytes;
+    }
+  }
   constexpr float kLog2e = 1.4426950408889634f;
   const float score_mul = cap > 0.f ? scale / cap : scale * kLog2e;
   const float cap_mul = cap > 0.f ? cap * kLog2e : 0.f;

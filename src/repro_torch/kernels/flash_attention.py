@@ -20,10 +20,11 @@ block multiple, which were the TPU's needs.  The fp32 kernel masks the
 ragged edge itself; the bf16 kernel pads hd to 64, 128 or 256 in shared
 memory through TMA's zero fill and stores only what exists.
 
-:func:`tile_plan` computes in Python what the bf16 kernel does for each
+:func:`tile_plan` mirrors in Python what the bf16 kernel does for each
 M-tile (a warpgroup's 64 rows): its kv range, the kv tiles it computes and
-which of them need the per-element mask, so the CPU tests can hold it to
-the masks.
+which of them need the per-element mask, so the CPU tests can hold that
+logic to the masks.  It is a copy; the kernel's own decisions are checked
+on the card only, through its output.
 
 :func:`flash_attention_torch` is the plain PyTorch version of the same
 function.  It materialises the scores, as the reference's oracle
@@ -172,8 +173,11 @@ def tile_plan(H: int, KV: int, Sq: int, *, causal: bool, window: int | None,
     q, so the keys a run of queries sees are ``[lo(first), hi(last))`` and
     the keys all of them see ``[lo(last), hi(first))``.  A warpgroup
     computes a tile that overlaps the first range and masks it per element
-    unless it lies inside the second.  This is the kernel's arithmetic
-    (``flash_attention_wgmma.cu``), line for line.
+    unless it lies inside the second.  It mirrors the decisions that
+    ``flash_attention_wgmma.cu`` makes on the card, as a second copy: the
+    CPU tests check this copy against the masks, and the kernel's own copy
+    is checked only by holding its output to the plain version on the card
+    (``chip_smoke.py``, phase 7).
     """
     w = window or 0
 

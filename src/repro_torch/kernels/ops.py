@@ -96,8 +96,8 @@ def flash_attention(
     (default Sk) are masked, as are keys after the query (``causal``) and
     keys at or before ``q_pos - window``.  Scores are scaled by hd**-0.5 and
     soft-capped to ``logit_cap * tanh(s / logit_cap)``.  On the card bf16
-    inputs launch the ``wgmma`` kernel (their addresses 16-byte aligned)
-    and fp32 inputs the CUDA-core kernel.
+    inputs launch the ``wgmma`` kernel (their addresses must be 16-byte
+    aligned) and fp32 inputs the CUDA-core kernel.
     """
     _check_attention("flash_attention", q, k, v, window=window, logit_cap=logit_cap)
     B, H, Sq, hd = q.shape
@@ -109,12 +109,6 @@ def flash_attention(
         raise ValueError(f"flash_attention: q_offset must be >= 0, got {q_offset}")
     spec = _fa.launch_spec(B, H, KV, Sq, hd, q.dtype).check("flash_attention")
     _check_head_dim("flash_attention", hd)
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(
-                    f"flash_attention: {name} must start at a 16-byte-aligned "
-                    "address, which the bf16 kernel's TMA loads need")
     on_cpu = _check_device("flash_attention", q, k, v) == "cpu"
     if q.numel() == 0 or Sk == 0:
         return torch.zeros_like(q)
@@ -122,6 +116,12 @@ def flash_attention(
         return _fa.flash_attention_torch(
             q, k, v, causal=causal, window=window, logit_cap=logit_cap,
             q_offset=q_offset, k_len=k_len)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(
+                    f"flash_attention: {name} must start at a 16-byte-aligned "
+                    "address, which the bf16 kernel's TMA loads need")
     out = _fa.flash_attention_cuda(
         q, k, v, causal=causal, window=window, logit_cap=logit_cap,
         q_offset=int(q_offset), k_len=k_len, spec=spec)
