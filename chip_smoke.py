@@ -32,18 +32,29 @@ over the port's job model and kernel launches:
      CUDA cores) and ``decode_attention`` against their plain versions on the
      card, at the test shapes, the bf16 kernel's edges (G = 3, hd 72 and 96,
      ragged Sq and Sk with an offset, ``k_len`` < Sk, a window narrower than
-     a kv tile) and the serving path's shapes (bf16 at 2e-2, f32 at 1e-5 with
-     TF32 off), and time the kernel, the plain version and
-     ``F.scaled_dot_product_attention`` (a yardstick only, without softcap,
-     which it cannot express) at the main shapes;
+     a kv tile), the decode split's edges (pos 0, inside the first split, at
+     tile and split boundaries and +-1, the last slot, a wrapped ring, S off
+     the tile size, G 1 to 16), each decode shape with its cache layout
+     declared and without, twice, and the serving path's shapes (bf16 at
+     2e-2, f32 at 1e-5 with TF32 off); replay one decode call captured in a
+     CUDA graph at three positions; and time the kernel, its device time
+     back to back, the plain version and ``F.scaled_dot_product_attention``
+     (a yardstick only, without softcap, which it cannot express; for decode
+     over the live slots, each call on the next of enough cache copies that
+     the cache is cold in L2, as a decode step finds it) at the main
+     shapes, the serving step's among them;
   8. serve gemma2-9b, all 42 layers at full width with seeded random
      weights, through ``Server``: ``throughput_batch`` (4 prompts of 512
-     tokens, 32 new tokens) and ``generate`` (prompts of 4608, 700 and 129
-     tokens, 8 new tokens each; the first wraps the local layers' rings);
-     then a 2-layer cut at full width, whose prefill and first-decode logits
-     through the kernels are held against the plain attention in fp32 at
-     1e-4 (in bf16 their difference is printed beside the plain path's own
-     noise, chunk 128 against chunk 1024);
+     tokens, 32 new tokens) eager, with its decode step replayed as a CUDA
+     graph, graphed again and eager again, the graphed greedy tokens equal
+     to the eager ones; ``generate`` (prompts of 4608, 700 and 129 tokens, 8
+     new tokens each; the first wraps the local layers' rings); the first
+     replayed step's logits against the eager step's, and one step of each
+     under ``torch.profiler``; then a 2-layer cut at full width, whose
+     prefill and first-decode logits through the kernels are held against
+     the plain attention in fp32 at 1e-4 (in bf16 their difference is
+     printed beside the plain path's own noise, chunk 128 against chunk
+     1024);
   9. run the static analyzer on the card as ``python -m repro_torch.analysis``
      runs it: ``run_all()`` (no finding beyond the empty
      ``analysis_baseline_torch.json``, no coverage gap, each skipped target
@@ -58,9 +69,10 @@ Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
 beside it.  Each path's launch counts are zeroed just before it and read just
 after: ``seg_combine`` over phases 2-6 (> 0), over the 42-layer run of
-phase 8 ``flash_attention`` exactly 42 x 4 prefills, all on the bf16
-``wgmma`` kernel, and
-``gqa_decode_attention`` exactly 42 x (31 + 21) decode steps, and
+phase 8 (the graphed ``throughput_batch`` and ``generate``)
+``flash_attention`` exactly 42 x 4 prefills, all on the bf16 ``wgmma``
+kernel, and ``gqa_decode_attention`` exactly 42 x (31 + 21) decode steps (a
+graph replay adds the launches its capture recorded), and
 ``fixture_copy`` over the analyzer's run of phase 9 (> 0).  Before the
 last line it prints one ``{"kernels": [...]}`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -68,6 +80,7 @@ last line it prints one ``{"kernels": [...]}`` JSON line; the last line is
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -82,6 +95,7 @@ RECORDS_PER_MAP = int(128 * MiB // 400)       # one 128 MiB split of 400 B recor
 MAIN_SHAPE = (262_144, 1, 4_128)              # (N, D, P) of one engine spill
 TEST_SHAPES = [(1024, 256, 16), (777, 130, 7), (64, 8, 3)]
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
+L2_COLD_BYTES = 60e6                          # more than the H100's 50 MB L2
 FP32_OPS_PER_S = 67e12                        # H100 SXM, outside tensor cores
 BF16_OPS_PER_S = 989e12                       # H100 SXM, dense tensor cores
 RTOL, ATOL = 1e-4, 1e-3                       # fp32 atomics reorder sums
@@ -113,8 +127,27 @@ FLASH_LONG = (1, 16, 8, 4608, 4608, 256, True, 4096, 50.0, 0)
 # (B, H, KV, S, hd, pos, window, softcap, ring)
 DECODE_TEST = [(2, 8, 2, 512, 64, 256, None, None, False),
                (1, 4, 4, 300, 128, 150, None, None, False),
-               (1, 4, 1, 256, 64, 1000, 200, 30.0, True)]
+               (1, 4, 1, 256, 64, 1000, 200, 30.0, True),
+               # the split's edges at gemma2-9b's shape (32 tiles of 32 slots
+               # among 12 CTAs a kv head): pos 0, inside the first split, a
+               # tile boundary, a split boundary (12 tiles = 384 slots) and
+               # +-1, the last slot
+               (4, 16, 8, 1024, 256, 0, None, 50.0, False),
+               (4, 16, 8, 1024, 256, 17, None, 50.0, False),
+               (4, 16, 8, 1024, 256, 31, None, 50.0, False),
+               (4, 16, 8, 1024, 256, 382, None, 50.0, False),
+               (4, 16, 8, 1024, 256, 383, None, 50.0, False),
+               (4, 16, 8, 1024, 256, 384, None, 50.0, False),
+               # a wrapped ring with a window narrower than S; S off the tile
+               # size; G 1, 3, 8 (hd 128) and 16
+               (1, 32, 2, 256, 64, 300, 100, None, True),
+               (1, 8, 1, 100, 256, 250, 64, None, True),
+               (2, 4, 4, 777, 128, 776, None, 50.0, False),
+               (1, 6, 2, 200, 72, 150, None, None, False),
+               (2, 16, 2, 777, 128, 776, None, 50.0, False),
+               (1, 32, 2, 300, 64, 299, None, 30.0, False)]
 DECODE_MAIN = (4, 16, 8, 1024, 256, 1023, None, 50.0, False)
+DECODE_STEP = (4, 16, 8, 1024, 256, 527, None, 50.0, False)   # the serving step
 DECODE_RING = (1, 16, 8, 4096, 256, 4610, 4096, 50.0, True)
 
 
@@ -237,6 +270,29 @@ def _ptxas_summary(log: str) -> list[tuple[int, int, int]]:
     return out
 
 
+def _decode_ptxas(log: str) -> list[tuple[str, int, int]]:
+    """(instance, registers, spill-store bytes) of each instance of the
+    decode kernel in an ``nvcc -Xptxas=-v`` log: ``bf16 tensor cores`` or
+    ``fp32 NCH n HPW h`` (16-byte chunks a lane owns, heads a warp takes)."""
+    import re
+
+    out, inst, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*decode_attention_kernel\S*", line)
+        if m:
+            simt = re.search(r"SimtHeadsIfLi(\d+)ELi(\d+)E", line)
+            inst = ("fp32 NCH {} HPW {}".format(*simt.groups()) if simt
+                    else "bf16 tensor cores")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and inst is not None:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and inst is not None:
+            out.append((inst, int(m.group(1)), spill))
+            inst, spill = None, 0
+    return out
+
+
 def _strip_times(jc) -> dict:
     import dataclasses
 
@@ -336,7 +392,11 @@ def _phase7_attention(timings, builds, torch, np):
         def decode_kw(shape):
             return dict(window=shape[6], logit_cap=shape[7])
 
+        def decode_layout(shape):
+            return "ring" if shape[8] else "full"
+
         errs = {"flash": 0.0, "decode": 0.0}
+        n_decode_checks = 0
 
         def held(kind, got, want, dtype, launched):
             assert launched, f"{kind} did not launch its kernel"
@@ -356,16 +416,21 @@ def _phase7_attention(timings, builds, torch, np):
                 held("flash", got, flash_attention_torch(q, k, v, **flash_kw(shape)),
                      dtype, flash_attention.launches == before + 1
                      and flash_attention.launches_by_variant[variant] == on_variant + 1)
-            for shape in DECODE_TEST + [DECODE_MAIN, DECODE_RING]:
+            for shape in DECODE_TEST + [DECODE_MAIN, DECODE_STEP, DECODE_RING]:
                 q, kc, vc, sp, p = decode_inputs(shape, dtype)
                 B, H, KV, _, hd = shape[:5]
-                before = gqa_decode_attention.launches
-                got = gqa_decode_attention(q, kc, vc, sp, p, **decode_kw(shape))
-                torch.cuda.synchronize()
                 want = decode_attention_torch(q.view(B, KV, H // KV, hd), kc, vc, sp,
                                               p, **decode_kw(shape)).view(B, H, 1, hd)
-                held("decode", got, want, dtype,
-                     gqa_decode_attention.launches == before + 1)
+                # the declared layout (the span at pos) and none (all S
+                # slots), each twice: the merge counters are back at 0
+                for layout in (decode_layout(shape), None, decode_layout(shape), None):
+                    before = gqa_decode_attention.launches
+                    got = gqa_decode_attention(q, kc, vc, sp, p, layout=layout,
+                                               **decode_kw(shape))
+                    torch.cuda.synchronize()
+                    held("decode", got, want, dtype,
+                         gqa_decode_attention.launches == before + 1)
+                    n_decode_checks += 1
         # TMA loads need 16-byte-aligned addresses: the wrapper refuses a
         # bf16 CUDA tensor that starts 2 bytes past one, and launches nothing
         q, k, v = flash_inputs(FLASH_TEST[0], torch.bfloat16)
@@ -378,9 +443,46 @@ def _phase7_attention(timings, builds, torch, np):
         else:
             raise AssertionError("flash_attention took a misaligned bf16 CUDA tensor")
         assert flash_attention.launches == before
+        # the decode kernel's 16-byte loads need aligned addresses too
+        q, kc, vc, sp, p = decode_inputs(DECODE_TEST[0], torch.bfloat16)
+        q = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
+        before = gqa_decode_attention.launches
+        try:
+            gqa_decode_attention(q, kc, vc, sp, p, layout="full")
+        except ValueError as err:
+            assert "16-byte" in str(err), err
+        else:
+            raise AssertionError("gqa_decode_attention took a misaligned CUDA tensor")
+        assert gqa_decode_attention.launches == before
         n_flash = len(FLASH_TEST) + 3
         print(f"   max |kernel - plain|: flash {errs['flash']:.3e}, "
-              f"decode {errs['decode']:.3e} over {2 * n_flash} and {2 * 5} checks")
+              f"decode {errs['decode']:.3e} over {2 * n_flash} and "
+              f"{n_decode_checks} checks")
+
+        # one decode call captured in a CUDA graph and replayed at three
+        # advancing positions, written in place: the kernel reads pos on the
+        # device and its merge counters are back at 0 after every replay
+        q, kc, vc, sp, p = decode_inputs(DECODE_MAIN, torch.bfloat16)
+        B, H, KV, _, hd = DECODE_MAIN[:5]
+        kw = dict(decode_kw(DECODE_MAIN), layout="full")
+        gqa_decode_attention(q, kc, vc, sp, p, **kw)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            g_out = gqa_decode_attention(q, kc, vc, sp, p, **kw)
+        replayed = []
+        for pos in (100, 527, 1023):
+            p.fill_(pos)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = decode_attention_torch(q.view(B, KV, H // KV, hd), kc, vc, sp, p,
+                                          **decode_kw(DECODE_MAIN)).view(B, H, 1, hd)
+            torch.testing.assert_close(g_out.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
+            replayed.append(float((g_out.float() - want.float()).abs().max()))
+        del graph
+        print(f"   decode captured once in a CUDA graph, replayed at pos 100, 527, "
+              f"1023: max |replay - plain| {replayed} (bf16 2e-2)")
 
         def time_flash(shape, label, record=None):
             q, k, v = flash_inputs(shape, torch.bfloat16)
@@ -411,34 +513,59 @@ def _phase7_attention(timings, builds, torch, np):
                               library="F.scaled_dot_product_attention, without softcap",
                               bound_ms=bound, bound_by=by, tflop_per_s=tflops)
 
-        def time_decode(shape, label, record=None):
+        def time_decode(shape, label) -> dict:
+            """Times with the cache cold in L2, as a decode step finds it (the
+            step reads 42 layers' caches in turn): each call reads the next of
+            enough copies of the caches that the calls before it moved more
+            than the 50 MB L2.  The kernel's device time warm (one copy, as
+            earlier PRs timed it) is kept beside it."""
             q, kc, vc, sp, p = decode_inputs(shape, torch.bfloat16)
-            B, H, KV, S, hd = shape[:5]
+            B, H, KV, S, hd, pos = shape[:6]
             kw = decode_kw(shape)
             qg = q.view(B, KV, H // KV, hd)
-            k_ms = _median_ms(lambda: gqa_decode_attention(q, kc, vc, sp, p, **kw))
-            p_ms = _median_ms(lambda: decode_attention_torch(qg, kc, vc, sp, p, **kw))
-            sdpa = lambda: F.scaled_dot_product_attention(    # noqa: E731
-                q, kc, vc, enable_gqa=True)
-            l_ms = _median_ms(sdpa)
-            k_dev, k_n, _ = _device_profile(
-                lambda: gqa_decode_attention(q, kc, vc, sp, p, **kw), 20)
-            p_dev, p_n, _ = _device_profile(
-                lambda: decode_attention_torch(qg, kc, vc, sp, p, **kw), 20)
             bound, by, n_bytes, flop = _decode_bound(
                 shape, sp.cpu().numpy(), 2, BF16_OPS_PER_S)
-            print(f"   decode {label} {shape[:6]} bf16: kernel {k_ms:.4f} ms "
-                  f"(device {k_dev:.4f} ms in {k_n} kernels), plain {p_ms:.4f} ms "
-                  f"(device {p_dev:.4f} ms in {p_n} kernels), SDPA without "
-                  f"softcap {l_ms:.4f} ms; bound {bound:.4f} ms ({by}: "
-                  f"{n_bytes} B, {flop:.4g} FLOP)")
-            if record is not None:
-                record.update(ms=k_ms, device_ms=k_dev,
-                              device_kernels=k_n, plain_ms=p_ms,
-                              plain_device_ms=p_dev, library_ms=l_ms,
-                              library="F.scaled_dot_product_attention(enable_gqa=True), "
-                                      "without softcap",
-                              bound_ms=bound, bound_by=by)
+            n_copies = 2 + int(L2_COLD_BYTES // n_bytes)
+            caches = itertools.cycle(
+                [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n_copies - 1)])
+            # SDPA over the live slots of a full cache (all of a ring's)
+            live = S if shape[8] else min(S, pos + 1)
+
+            def call():
+                k, v = next(caches)
+                return gqa_decode_attention(q, k, v, sp, p, layout=decode_layout(shape),
+                                            **kw)
+
+            def plain():
+                k, v = next(caches)
+                return decode_attention_torch(qg, k, v, sp, p, **kw)
+
+            def sdpa():
+                k, v = next(caches)
+                return F.scaled_dot_product_attention(
+                    q, k[:, :, :live], v[:, :, :live], enable_gqa=True)
+
+            k_ms = _median_ms(call)
+            k_dev = _back_to_back_ms(call)
+            warm_dev = _back_to_back_ms(lambda: gqa_decode_attention(
+                q, kc, vc, sp, p, layout=decode_layout(shape), **kw))
+            prof_dev, k_n, _ = _device_profile(call, 20)
+            assert k_n == 1, f"decode ran {k_n} device kernels a call, not 1"
+            p_ms = _median_ms(plain)
+            p_dev, p_n, _ = _device_profile(plain, 20)
+            l_ms = _median_ms(sdpa)
+            print(f"   decode {label} {shape[:6]} bf16, L2 cold ({n_copies} cache "
+                  f"copies in turn): kernel {k_ms:.4f} ms (device {k_dev:.4f} ms "
+                  f"back to back, {100 * bound / k_dev:.0f} % of the bound; profiler "
+                  f"{prof_dev:.4f} ms in {k_n} kernel; warm in L2 {warm_dev:.4f} ms "
+                  f"back to back), plain {p_ms:.4f} ms (device {p_dev:.4f} ms in "
+                  f"{p_n} kernels), SDPA over {live} slots without softcap "
+                  f"{l_ms:.4f} ms (kernel / SDPA {k_ms / l_ms:.2f}); bound "
+                  f"{bound:.4f} ms ({by}: {n_bytes} B, {flop:.4g} FLOP)")
+            return dict(ms=k_ms, device_ms=k_dev, profiled_device_ms=prof_dev,
+                        warm_device_ms=warm_dev, device_kernels=k_n, plain_ms=p_ms,
+                        plain_device_ms=p_dev, library_ms=l_ms, bound_ms=bound,
+                        bound_by=by)
 
         time_flash(FLASH_MAIN, "main prefill (global layer)", flash)
         time_flash(FLASH_MAIN_LOCAL, "main prefill (local layer)")
@@ -447,8 +574,14 @@ def _phase7_attention(timings, builds, torch, np):
         f32_dev = _back_to_back_ms(lambda: flash_attention(q, k, v, **flash_kw(FLASH_MAIN)))
         print(f"   flash main prefill fp32 (CUDA-core kernel): device {f32_dev:.4f} ms, "
               "back to back")
-        time_decode(DECODE_MAIN, "main, full cache", decode)
-        time_decode(DECODE_RING, "ring cache")
+        decode.update(time_decode(DECODE_MAIN, "main, full cache"),
+                      library="F.scaled_dot_product_attention(enable_gqa=True), "
+                              "without softcap")
+        for key, shape, label in (("step", DECODE_STEP, "serving step, full cache"),
+                                  ("ring", DECODE_RING, "ring cache")):
+            decode.update({f"{key}_{k}": v for k, v in time_decode(shape, label).items()
+                           if k in ("ms", "device_ms", "warm_device_ms", "plain_ms",
+                                    "library_ms", "bound_ms")})
         flash["max_abs_err"] = errs["flash"]
         decode["max_abs_err"] = errs["decode"]
     return flash, decode
@@ -461,6 +594,7 @@ def _phase8_serving(timings, flash, decode, torch, np):
     from repro_torch.kernels import flash_attention, gqa_decode_attention
     from repro_torch.launch.steps import init_params
     from repro_torch.models import attention
+    from repro_torch.runtime.decode_graph import GreedyDecoder
     from repro_torch.runtime.serve_loop import Request, Server
 
     dev = torch.device("cuda")
@@ -480,11 +614,26 @@ def _phase8_serving(timings, flash, decode, torch, np):
                         for n in (4608, 700, 129)]
         torch.cuda.reset_peak_memory_stats()
 
+        # throughput_batch eager, graphed, graphed, eager; the main path
+        # (counted) is the first graphed run and generate
+        L = len(model.layers)
+        runs = {}
+
+        def batch(label, graphed):
+            before = gqa_decode_attention.launches
+            out = Server(cfg, model, max_len=1024).throughput_batch(
+                prompts, 32, cuda_graph=graphed)
+            n = gqa_decode_attention.launches - before
+            assert out["cuda_graph"] is graphed and n == L * 31, (label, n)
+            runs[label] = out
+            return out
+
+        batch("eager 1", False)
         flash_attention.launches = 0
         flash_attention.launches_by_variant = dict.fromkeys(
             flash_attention.launches_by_variant, 0)
         gqa_decode_attention.launches = 0
-        out = Server(cfg, model, max_len=1024).throughput_batch(prompts, 32)
+        out = batch("graphed 1", True)
         server = Server(cfg, model, max_len=5120)
         reqs = [Request(rid=i, prompt=p, max_new_tokens=8)
                 for i, p in enumerate(long_prompts)]
@@ -493,24 +642,35 @@ def _phase8_serving(timings, flash, decode, torch, np):
         gen_s = time.perf_counter() - t0
         n_flash, n_decode = flash_attention.launches, gqa_decode_attention.launches
         by_variant = dict(flash_attention.launches_by_variant)
+        batch("graphed 2", True)
+        batch("eager 2", False)
 
-        L = len(model.layers)
-        print(f"   launches on the 42-layer run: flash_attention {n_flash} "
-              f"(want {L} x 4) by kernel {by_variant}, gqa_decode_attention "
-              f"{n_decode} (want {L} x (31 + 21))")
+        print(f"   launches on the 42-layer run (throughput_batch graphed, then "
+              f"generate): flash_attention {n_flash} (want {L} x 4) by kernel "
+              f"{by_variant}, gqa_decode_attention {n_decode} (want {L} x "
+              f"(31 + 21)); every throughput_batch run, eager or graphed: "
+              f"{L} x 31 decode launches")
         assert n_flash == L * 4 == 168, n_flash
         assert by_variant == {"f32_cuda_cores": 0, "bf16_wgmma": 168}, by_variant
         assert n_decode == L * (31 + 21) == 2184, n_decode
         flash["launches"], decode["launches"] = n_flash, n_decode
         assert out["output"].shape == (4, 32)
         assert ((out["output"] >= 0) & (out["output"] < cfg.vocab_size)).all()
+        for label, r in runs.items():
+            same = float((r["output"] == runs["eager 1"]["output"]).mean())
+            print(f"   throughput_batch B=4 x 512 + 32, {label}: prefill "
+                  f"{r['prefill_s'] * 1e3:.1f} ms, decode "
+                  f"{r['decode_s'] * 1e3 / 31:.2f} ms per step over 31 steps "
+                  f"(capture {r['capture_s'] * 1e3:.1f} ms, not counted), "
+                  f"{r['tok_per_s']:.1f} tokens/s; greedy tokens equal to eager "
+                  f"1's: {same * 100:.1f} %")
+            assert same == 1.0, label
+        decode["decode_step_ms"] = {label: r["decode_s"] * 1e3 / 31
+                                    for label, r in runs.items()}
+        decode["capture_ms"] = out["capture_s"] * 1e3
         assert all(r.done and len(r.generated) == 8 for r in reqs)
         assert dict(server.stats) == {"prefills": 3, "decode_ticks": 7,
                                       "tokens_out": 21}
-        print(f"   throughput_batch B=4 x 512 + 32: prefill "
-              f"{out['prefill_s'] * 1e3:.1f} ms, decode "
-              f"{out['decode_s'] * 1e3 / 31:.2f} ms per step, "
-              f"{out['tok_per_s']:.1f} tokens/s over the decode steps")
         print(f"   generate 3 requests (4608, 700, 129 tokens, 8 new each): "
               f"{gen_s:.2f} s, latencies "
               f"{[round(r.latency_s, 3) for r in reqs]} s")
@@ -522,12 +682,34 @@ def _phase8_serving(timings, flash, decode, torch, np):
         def prefill():
             step["out"] = model.prefill(toks, 1024)
 
-        def decode_one():
-            logits, caches, pos = step["out"]
-            model.decode_step(torch.argmax(logits[:, -1:], dim=-1), caches, pos)
+        def decoder(graphed):
+            logits, caches, pos = model.prefill(toks, 1024)
+            return GreedyDecoder(model, caches, torch.argmax(logits[:, -1:], dim=-1),
+                                 pos, cuda_graph=graphed)
 
+        # the first replayed step's logits against the eager step's (step 2
+        # of each, at position 513: a graphed decoder's first step is eager)
+        first = {}
+        for graphed in (False, True):
+            dec = decoder(graphed)
+            for _ in range(2):
+                dec.step()
+            torch.cuda.synchronize()
+            first[graphed] = dec.logits.float().clone()
+            del dec
+        logit_diff = float((first[True] - first[False]).abs().max())
+        print(f"   first replayed step (position 513): max |graphed - eager| "
+              f"logits {logit_diff:.3e}")
+        decode["graph_vs_eager_max_logit_diff"] = logit_diff
+
+        eager_dec, graph_dec = decoder(False), decoder(True)
+        for _ in range(2):
+            graph_dec.step()
+        torch.cuda.reset_peak_memory_stats()
         for label, fn in (("prefill B=4 x 512", prefill),
-                          ("decode step B=4 at position 512", decode_one)):
+                          ("decode step B=4 at position ~512, eager", eager_dec.step),
+                          ("decode step B=4 at position ~512, graph replay",
+                           graph_dec.step)):
             wall, dev_ms, n_k, top, by_name = _step_profile(fn)
             attn = {n[:40]: (round(ms, 3), c) for n, (ms, c) in by_name.items()
                     if "attention" in n}
@@ -536,11 +718,33 @@ def _phase8_serving(timings, flash, decode, torch, np):
                   f"(device idle {100 * (1 - dev_ms / wall):.1f} %); most "
                   f"device time: {[(n, round(ms, 3), c) for n, ms, c in top]}; "
                   f"attention kernels (ms, launches): {attn}")
-        del step
+            if "graph" in label:
+                decode["graph_step_profile"] = dict(wall_ms=wall, device_ms=dev_ms,
+                                                    kernels=n_k)
+            elif "eager" in label:
+                decode["eager_step_profile"] = dict(wall_ms=wall, device_ms=dev_ms,
+                                                    kernels=n_k)
+        # a replayed step timed with CUDA events around 10 replays, each
+        # after the host has queued it
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        for _ in range(10):
+            graph_dec.step()
+        ev[1].record()
+        ev[1].synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 10
+        print(f"   10 graph replays: {ev[0].elapsed_time(ev[1]) / 10:.3f} ms a step "
+              f"between CUDA events, {host_ms:.3f} ms a step on the host clock; "
+              f"graph pool: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        decode["graph_step_event_ms"] = ev[0].elapsed_time(ev[1]) / 10
+        del step, eager_dec, graph_dec
 
         attention.set_attention_impl("torch")
         try:
-            plain = Server(cfg, model, max_len=1024).throughput_batch(prompts, 32)
+            plain = Server(cfg, model, max_len=1024).throughput_batch(
+                prompts, 32, cuda_graph=False)
         finally:
             attention.set_attention_impl("kernel")
         diff = plain["output"] != out["output"]
@@ -764,6 +968,9 @@ def main() -> int:
             print(f"   flash_attention_wgmma, padded hd {inst}: {regs} registers "
                   f"at launch (setmaxnreg: consumers 240, producer 24), "
                   f"{spill} bytes of spill stores")
+        for inst, regs, spill in _decode_ptxas(builds["decode_attention"]["log"]):
+            print(f"   decode_attention, {inst}: {regs} registers, {spill} bytes "
+                  f"of spill stores")
         build_s = builds["seg_combine"]["seconds"]
 
     # ---------------------------------------------------------------- 1

@@ -153,12 +153,12 @@ def _decode_probes(hds=HEAD_DIMS) -> list[LaunchProbe]:
 
     out = []
     # (B, KV, G, S): the reference's probe, gemma2-9b decode over caches
-    # of 1024 (B 4) and 4096 (B 1)
+    # of 1024 (B 4) and 4096 (B 1), in the serving dtype
     for B, KV, G, S in ((1, 2, 2, 512), (4, 8, 2, 1024), (1, 8, 2, 4096)):
         for hd in hds:
-            spec, split_len = launch_spec(B, KV, G, S, hd)
+            spec = launch_spec(B, KV, G, S, hd)
             out.append(LaunchProbe("decode_attention", spec,
-                                   *coverage(B, KV, G, S, split_len)))
+                                   *coverage(B, KV, G, S, spec.grid[0])))
     return out
 
 

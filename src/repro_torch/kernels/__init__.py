@@ -7,7 +7,10 @@
                      ``csrc/flash_attention_wgmma.cu``; fp32 on the CUDA
                      cores, ``csrc/flash_attention.cu``;
   decode_attention — one token's GQA attention over a full or ring KV
-                     cache, split across CTAs, ``csrc/decode_attention.cu``;
+                     cache in one launch: CTAs share the live span at
+                     ``pos`` and the last one merges; bf16 on the tensor
+                     cores (``mma.sync``), fp32 on the CUDA cores,
+                     ``csrc/decode_attention.cu``;
   fixture_copy     — a tiled copy, the kernel of the static analyzer's
                      known-bad launch fixture, ``csrc/fixture_copy.cu``.
 

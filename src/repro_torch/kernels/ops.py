@@ -6,7 +6,9 @@ kernel's plain PyTorch version only for a tensor on the CPU.  There is no
 fallback: a CUDA tensor launches the kernel or raises.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``, a plain integer, so a run can
 show that its main path went through the kernel; a call counts once even
-where the kernel is two device launches.  ``flash_attention`` has one
+where the kernel is two device launches (``seg_combine``).  A CUDA graph
+that captured wrapper calls adds them again on every replay
+(``runtime.decode_graph``).  ``flash_attention`` has one
 kernel per input type (bf16: ``bf16_wgmma``, fp32: ``f32_cuda_cores``) and
 also counts its launches per kernel in ``launches_by_variant``.  Beside the
 count, each wrapper keeps the distinct launch geometries it launched in
@@ -145,12 +147,19 @@ def gqa_decode_attention(
     *,
     window: int | None = None,
     logit_cap: float | None = None,
+    layout: str | None = None,
 ) -> torch.Tensor:
     """One token's attention over a full or ring cache, (B, H, 1, hd).
 
     Slot s is seen when ``0 <= slot_pos[s] <= pos`` and, with a window,
     ``slot_pos[s] > pos - window``; a slot never written holds a negative
-    position.  ``pos`` and ``slot_pos`` stay on the device.
+    position.  ``pos`` and ``slot_pos`` stay on the device.  ``layout``
+    says which of the model's two cache layouts ``slot_pos`` is:
+    ``"full"`` (``models.attention.full_slot_positions``) or ``"ring"``
+    (``ring_slot_positions`` at ``pos``); the kernel then reads only the
+    live span at ``pos`` (``decode_attention.live_span``).  ``None``, for
+    any other ``slot_pos``, reads all S slots.  The mask holds either way.
+    On the card every input must start at a 16-byte-aligned address.
     """
     what = "gqa_decode_attention"
     _check_attention(what, q, k_cache, v_cache, window=window, logit_cap=logit_cap)
@@ -166,9 +175,14 @@ def gqa_decode_attention(
                          f"{tuple(pos.shape)} {pos.dtype}")
     if not slot_pos.is_contiguous():
         raise ValueError(f"{what}: slot_pos must be contiguous")
+    if layout not in _da.LAYOUTS:
+        raise ValueError(f"{what}: layout must be one of {list(_da.LAYOUTS)}, "
+                         f"not {layout!r}")
     G = H // KV
-    spec, split_len = _da.launch_spec(B, KV, G, S, hd)
-    spec.check(what)
+    if G > _da.MAX_G:
+        raise ValueError(f"{what}: the kernel takes up to {_da.MAX_G} heads "
+                         f"per kv group, not {G}")
+    spec = _da.launch_spec(B, KV, G, S, hd, q.dtype).check(what)
     _check_head_dim(what, hd)
     qg = q.view(B, KV, G, hd)
     on_cpu = _check_device(what, q, k_cache, v_cache, slot_pos, pos) == "cpu"
@@ -178,12 +192,16 @@ def gqa_decode_attention(
         out = _da.decode_attention_torch(qg, k_cache, v_cache, slot_pos, pos,
                                          window=window, logit_cap=logit_cap)
         return out.view(B, H, 1, hd)
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start at a 16-byte-aligned "
+                             "address, which the kernel's 16-byte loads need")
     out = _da.decode_attention_cuda(
         qg, k_cache, v_cache, slot_pos, pos, window=window,
-        logit_cap=logit_cap, spec=spec, split_len=split_len)
+        logit_cap=logit_cap, layout=layout, spec=spec)
     gqa_decode_attention.launches += 1
     gqa_decode_attention.geometries.add(
-        (spec, *_da.coverage(B, KV, G, S, split_len)))
+        (spec, *_da.coverage(B, KV, G, S, spec.grid[0])))
     return out.view(B, H, 1, hd)
 
 

@@ -66,10 +66,11 @@ def _dispatch_prefill(q, k, v, *, causal, window, logit_cap, q_offset):
                              logit_cap=logit_cap, q_offset=q_offset)
 
 
-def _dispatch_decode(q, k_cache, v_cache, slot_pos, pos, *, window, logit_cap):
+def _dispatch_decode(q, k_cache, v_cache, slot_pos, pos, *, window, logit_cap,
+                     layout):
     if _IMPL == "kernel":
         return _decode_kernel(q.contiguous(), k_cache, v_cache, slot_pos, pos,
-                              window=window, logit_cap=logit_cap)
+                              window=window, logit_cap=logit_cap, layout=layout)
     return decode_attention(q, k_cache, v_cache, slot_pos, pos, window=window,
                             logit_cap=logit_cap)
 
@@ -257,8 +258,10 @@ def attn_block_decode(
 ):
     """One decode step: write this token's k, v into ``cache`` in place and
     attend over it.  ``slot_pos`` may be passed in when several layers share
-    the cache size (it is computed from ``pos`` otherwise).  Returns
-    (y, cache)."""
+    the cache size (it is computed from ``pos`` otherwise); it must be the
+    layout of ``kind``: :func:`ring_slot_positions` at ``pos`` for a local
+    layer, :func:`full_slot_positions` otherwise, which the decode kernel is
+    told, so that it reads only the live span.  Returns (y, cache)."""
     if kind not in ("attn", "local"):
         raise ValueError(f"attention kind {kind!r} is not ported")
     B = x.shape[0]
@@ -271,15 +274,15 @@ def attn_block_decode(
         slot = torch.remainder(pos, size)
         if slot_pos is None:
             slot_pos = ring_slot_positions(pos, size)
-        win = window
+        win, layout = window, "ring"
     else:
         slot = pos
         if slot_pos is None:
             slot_pos = full_slot_positions(size, x.device)
-        win = None
+        win, layout = None, "full"
     index = slot.reshape(1).long()
     cache["k"].index_copy_(2, index, k)
     cache["v"].index_copy_(2, index, v)
     out = _dispatch_decode(q, cache["k"], cache["v"], slot_pos, pos,
-                           window=win, logit_cap=logit_cap)
+                           window=win, logit_cap=logit_cap, layout=layout)
     return _out_project(out, p["o"]), cache

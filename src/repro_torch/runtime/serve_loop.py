@@ -8,10 +8,12 @@ slot; finished slots are retired and admit the next request.
 ``new_tokens - 1`` decode steps for a whole prompt batch).
 
 Where the reference jit-compiles prefill and decode, the port runs
-``LM.prefill`` / ``LM.decode_step`` eagerly; their attention goes through the
-CUDA kernels on the card.  Caches are written in place.  The batched path
-keeps the token and the position on the device between steps; ``generate``
-reads each sampled token on the host, as the reference does.
+``LM.prefill`` eagerly and, in :meth:`Server.throughput_batch`, replays
+``LM.decode_step`` as a CUDA graph on the card
+(:mod:`repro_torch.runtime.decode_graph`); their attention goes through the
+CUDA kernels.  Caches are written in place.  The batched path keeps the
+token and the position on the device between steps; ``generate`` runs
+eagerly and reads each sampled token on the host, as the reference does.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from repro_torch.models.lm import LM
 from repro_torch.obs import MetricsRegistry
 from repro_torch.obs import current as _obs_current
 from repro_torch.runtime.batching import AdmissionQueue, LatencyStats
+from repro_torch.runtime.decode_graph import GreedyDecoder
 
 __all__ = ["Request", "Server"]
 
@@ -180,12 +183,21 @@ class Server:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def throughput_batch(self, prompts: np.ndarray, new_tokens: int) -> dict:
+    def throughput_batch(self, prompts: np.ndarray, new_tokens: int, *,
+                         cuda_graph: bool | None = None) -> dict:
         """Fixed-batch generation (all slots in lockstep): one prefill and
         ``new_tokens - 1`` greedy decode steps for a (B, S) prompt batch.
-        ``prefill_s`` and ``decode_s`` end in a device synchronise."""
+
+        The decode steps run through a :class:`GreedyDecoder` over static
+        token and position buffers.  ``cuda_graph`` (default: on for a CUDA
+        model) captures the step once as a CUDA graph and replays it; False
+        runs the same steps eagerly; True on the CPU raises.  ``prefill_s``
+        and ``decode_s`` end in a device synchronise; ``decode_s`` leaves
+        out the capture, whose host time is ``capture_s``."""
         B, S = prompts.shape
         self._check_fits(S, new_tokens)
+        if cuda_graph is None:
+            cuda_graph = self.device.type == "cuda"
         self._sync()
         t0 = time.perf_counter()
         logits, caches, pos = self.model.prefill(
@@ -195,17 +207,18 @@ class Server:
         self._sync()
         prefill_s = time.perf_counter() - t0
         t1 = time.perf_counter()
+        decoder = GreedyDecoder(self.model, caches, tok, pos,
+                                cuda_graph=cuda_graph)
         outs = [tok]
         for _ in range(new_tokens - 1):
-            logits, caches = self.model.decode_step(tok, caches, pos)
-            tok = torch.argmax(logits[:, -1:], dim=-1)
-            outs.append(tok)
-            pos = pos + 1
+            outs.append(decoder.step().clone())
         self._sync()
-        decode_s = time.perf_counter() - t1
+        decode_s = time.perf_counter() - t1 - decoder.capture_s
         return {
             "prefill_s": prefill_s,
             "decode_s": decode_s,
+            "capture_s": decoder.capture_s,
+            "cuda_graph": cuda_graph,
             "tokens": B * new_tokens,
             "tok_per_s": B * new_tokens / max(decode_s, 1e-9),
             "output": torch.cat(outs, dim=1).cpu().numpy(),

@@ -24,6 +24,8 @@ from repro.kernels.ref import decode_attention_ref, flash_attention_ref
 from repro.models.attention import _ring_slot_positions
 from repro_torch.kernels import flash_attention, gqa_decode_attention
 from repro_torch.kernels.decode_attention import decode_attention_torch
+from repro_torch.kernels.decode_attention import TILE, live_span, split_plan
+from repro_torch.kernels.decode_attention import coverage as decode_coverage
 from repro_torch.kernels.decode_attention import launch_spec as decode_spec
 from repro_torch.kernels.flash_attention import (BLOCK_N, VARIANTS,
                                                  flash_attention_torch,
@@ -325,8 +327,18 @@ def test_launch_shared_memory_fits_an_h100_block(hd, dtype):
         # G = 2 heads share a warpgroup's 64 rows: 32 queries, 64 per CTA
         assert spec.grid == (16 // 2, 4, 512 // 64) and spec.block == (384, 1, 1)
     assert spec.smem_bytes <= MAX_SMEM_BYTES == 232_448
-    dspec, split_len = decode_spec(4, 8, 2, 1024, hd)
-    assert dspec.smem_bytes == 4 * 4 * (hd + 2) * 4 <= MAX_SMEM_BYTES
+    # decode: two stages of 32 K and 32 V rows, each padded by 16 bytes,
+    # (in bf16 Q's 2 rows and a zero row, padded too), the stages' slot
+    # positions and 4,672 bytes of scratch; at hd 256 bf16 three CTAs fit an
+    # SM, so 3 x 132 // 32 = 12 splits
+    dspec = decode_spec(4, 8, 2, 1024, hd, DTYPES[dtype][0])
+    esize = DTYPES[dtype][0].itemsize
+    n_splits = dspec.grid[0]
+    assert dspec.grid[1:] == (8, 4) and dspec.block == (128, 1, 1)
+    assert n_splits == (12 if (hd, dtype) == (256, "bf16") else n_splits) <= 32
+    q_rows = 3 if dtype == "bf16" else 0
+    assert dspec.smem_bytes == ((2 * 2 * 32 + q_rows) * (hd + 16 // esize) * esize
+                                + 2 * 32 * 4 + 4672) <= MAX_SMEM_BYTES
     assert spec.check("flash") is spec and dspec.check("decode") is dspec
 
 
@@ -334,11 +346,175 @@ def test_launch_shared_memory_fits_an_h100_block(hd, dtype):
                                       (1, 8, 2, 5120), (2, 2, 4, 512),
                                       (1, 4, 1, 300), (1, 1, 9, 7)])
 def test_decode_split_covers_the_cache(B, KV, G, S):
-    spec, split_len = decode_spec(B, KV, G, S, 256)
+    # the grid is sized for the worst case, all S slots live: as many CTAs
+    # as stay resident (3 a SM at hd 256 bf16), at most one a 32-slot tile,
+    # at most 32 a (batch row, kv head); the split of the tiles among them
+    # is decided on the device (split_plan)
+    spec = decode_spec(B, KV, G, S, 256)
     n_splits = spec.grid[0]
-    assert split_len % 8 == 0 and split_len >= 32
-    assert (n_splits - 1) * split_len < S <= n_splits * split_len
-    assert spec.grid[1:] == (KV * -(-G // 4), B)
+    tiles = -(-S // TILE)
+    assert n_splits == max(1, min(32, tiles, 3 * 132 // (B * KV)))
+    assert (B, KV, S) != (4, 8, 1024) or n_splits == 12
+    assert spec.grid[1:] == (KV, B) and spec.block == (128, 1, 1)
+    shape, tile = decode_coverage(B, KV, G, S, n_splits)
+    assert shape == (S, KV, B) and tile[1:] == (1, 1)
+    assert tile[0] == -(-tiles // n_splits) * TILE and n_splits * tile[0] >= S
+    plan = split_plan(S - 1, S, n_splits)            # all S slots live
+    assert max(len(p) for p in plan) <= tile[0]
+    assert sorted(s for p in plan for s in p) == list(range(S))
+
+
+def _slot_positions(pos, S, layout):
+    if layout == "ring":
+        return ring_slot_positions(torch.tensor(pos, dtype=torch.int32), S).numpy()
+    return np.arange(S, dtype=np.int32)
+
+
+def _seen(slot_pos, pos, window):
+    ok = (slot_pos >= 0) & (slot_pos <= pos)
+    if window is not None:
+        ok &= slot_pos > pos - window
+    return ok
+
+
+SPLIT_CASES = {
+    # name: (B, KV, S, pos, window, layout); gemma2-9b's full cache of 1024
+    # is cut into 32 tiles among 12 splits (at G 2)
+    "pos0": (4, 8, 1024, 0, None, "full"),
+    "inside_first_split": (4, 8, 1024, 17, None, "full"),
+    "tile_boundary_minus1": (4, 8, 1024, 30, None, "full"),
+    "tile_boundary": (4, 8, 1024, 31, None, "full"),
+    "tile_boundary_plus1": (4, 8, 1024, 32, None, "full"),
+    "split_boundary_minus1": (4, 8, 1024, 382, None, "full"),
+    "split_boundary": (4, 8, 1024, 383, None, "full"),
+    "split_boundary_plus1": (4, 8, 1024, 384, None, "full"),
+    "serving_step": (4, 8, 1024, 527, None, "full"),
+    "last_slot": (4, 8, 1024, 1023, None, "full"),
+    "full_with_window": (1, 2, 512, 400, 100, "full"),
+    "ring_not_yet_full": (1, 8, 4096, 700, 4096, "ring"),
+    "ring_wrapped": (1, 8, 4096, 4610, 4096, "ring"),
+    "ring_window_below_S": (1, 1, 256, 1000, 200, "ring"),
+    "ring_s_off_tile": (1, 2, 100, 250, 64, "ring"),
+    "s_off_tile": (1, 4, 300, 299, None, "full"),
+    "undeclared": (2, 2, 300, 150, None, None),
+    "undeclared_ring": (1, 1, 256, 1000, 200, None),
+}
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 8])
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_plan_reads_every_seen_slot_once(name, G):
+    B, KV, S, pos, window, layout = SPLIT_CASES[name]
+    n_splits = decode_spec(B, KV, G, S, 256).grid[0]
+    plan = split_plan(pos, S, n_splits, window=window, layout=layout)
+    assert len(plan) == n_splits
+    read = [s for p in plan for s in p]
+    assert len(read) == len(set(read))                 # no slot twice
+    assert all(len(p) <= decode_coverage(B, KV, G, S, n_splits)[1][0]
+               for p in plan)
+    seen = np.flatnonzero(_seen(_slot_positions(pos, S, layout), pos, window))
+    assert set(seen) <= set(read)                      # every seen slot
+    first, n = live_span(pos, S, window=window, layout=layout)
+    assert len(read) == n and read[:1] == ([first] if n else [])
+    if layout is not None:                             # only the live span
+        assert len(read) == len(seen)
+    # the tiles are shared as evenly as the splits allow
+    sizes = [-(-len(p) // TILE) for p in plan]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def _emulate_decode(q, kc, vc, slot_pos, pos, *, window, logit_cap, layout):
+    """The decode kernel's arithmetic on the CPU: each split of
+    :func:`split_plan` runs an fp32 online softmax over its tiles of 32
+    slots (a tile with no slot seen is skipped); in bf16 P goes to P V as
+    two bf16 parts, hi + lo (the tensor cores' input), and l sums the fp32
+    P; the splits' partials (m, l, acc) merge in split order; rounded
+    once."""
+    B, KV, G, hd = q.shape
+    S = kc.shape[2]
+    n_splits = decode_spec(B, KV, G, S, hd, q.dtype).grid[0]
+    plan = split_plan(int(pos), S, n_splits, window=window, layout=layout)
+    ok_all = torch.from_numpy(_seen(slot_pos.numpy(), int(pos), window))
+    qf, kf, vf = q.float(), kc.float(), vc.float()
+    bf16 = q.dtype == torch.bfloat16
+    out = torch.zeros(B, KV, G, hd)
+    for b in range(B):
+        for h in range(KV):
+            parts = []
+            for slots in plan:
+                m, l, acc = torch.full((G,), -1e30), torch.zeros(G), torch.zeros(G, hd)
+                for t0 in range(0, len(slots), TILE):
+                    idx = torch.tensor(slots[t0:t0 + TILE])
+                    ok = ok_all[idx]
+                    if not ok.any():
+                        continue
+                    s = qf[b, h] @ kf[b, h, idx].T * hd ** -0.5
+                    if logit_cap is not None:
+                        s = logit_cap * torch.tanh(s / logit_cap)
+                    m_new = torch.maximum(m, torch.where(ok, s, -1e30).amax(-1))
+                    corr = torch.exp(m - m_new)
+                    p = torch.where(ok, torch.exp(s - m_new[:, None]), 0.0)
+                    l = l * corr + p.sum(-1)
+                    if bf16:
+                        hi = p.bfloat16().float()
+                        pv = (hi, (p - hi).bfloat16().float())
+                    else:
+                        pv = (p,)
+                    acc = acc * corr[:, None] + sum(part @ vf[b, h, idx] for part in pv)
+                    m = m_new
+                parts.append((m, l, acc))
+            M = torch.stack([m for m, _, _ in parts]).amax(0)
+            L, o = torch.zeros(G), torch.zeros(G, hd)
+            for m, l, acc in parts:
+                c = torch.exp(m - M)
+                L, o = L + l * c, o + acc * c[:, None]
+            out[b, h] = o / L.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+MERGE_CASES = {
+    # name: (B, H, KV, S, hd, pos, window, logit_cap, layout)
+    "full_half": (2, 8, 2, 512, 64, 256, None, None, "full"),
+    "full_undeclared": (2, 8, 2, 512, 64, 256, None, None, None),
+    "ring_window_softcap": (1, 4, 1, 256, 64, 1000, 200, 30.0, "ring"),
+    "gemma_hd256_softcap": (1, 16, 8, 160, 256, 100, None, 50.0, "full"),
+    "mqa_g1_ring": (1, 4, 4, 96, 64, 130, None, 30.0, "ring"),
+    "g8_ring_s_off_tile": (1, 16, 2, 100, 128, 250, 64, None, "ring"),
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", list(MERGE_CASES))
+def test_decode_kernel_merge_matches_pallas_and_oracle(name, dtype):
+    B, H, KV, S, hd, pos, window, cap, layout = MERGE_CASES[name]
+    arrays = _arrays(zlib.crc32(name.encode()), (B, H, 1, hd), (B, KV, S, hd),
+                     (B, KV, S, hd))
+    (q, kc, vc), (jq, jkc, jvc) = _both(arrays, dtype)
+    slot_pos = _slot_positions(pos, S, layout if layout else "full")
+    jpos, jsp = jnp.asarray(pos, jnp.int32), jnp.asarray(slot_pos)
+    got = _emulate_decode(q.view(B, KV, H // KV, hd), kc, vc,
+                          torch.from_numpy(slot_pos), torch.tensor(pos),
+                          window=window, logit_cap=cap, layout=layout)
+    pallas = j_gqa_decode_attention(jq, jkc, jvc, jsp, jpos, window=window,
+                                    logit_cap=cap)
+    oracle = decode_attention_ref(jq.reshape(B, KV, H // KV, hd), jkc, jvc,
+                                  jsp, jpos, window=window, logit_cap=cap)
+    tol = TOL if dtype == "bf16" else TOL32
+    got = _np(got).reshape(B, H, 1, hd)
+    np.testing.assert_allclose(got, _np(pallas), **tol)
+    np.testing.assert_allclose(got, _np(oracle).reshape(B, H, 1, hd), **tol)
+
+
+def test_decode_wrapper_takes_a_declared_layout_on_the_cpu():
+    (q, k, v) = (torch.from_numpy(a) for a in _arrays(
+        6, (1, 4, 1, 32), (1, 2, 64, 32), (1, 2, 64, 32)))
+    pos = torch.tensor(100, dtype=torch.int32)
+    sp = ring_slot_positions(pos, 64)
+    want = gqa_decode_attention(q, k, v, sp, pos, window=50)
+    assert torch.equal(gqa_decode_attention(q, k, v, sp, pos, window=50,
+                                            layout="ring"), want)
+    with pytest.raises(ValueError, match="layout"):
+        gqa_decode_attention(q, k, v, sp, pos, layout="paged")
 
 
 # ----------------------------------------------------------- wrapper checks
@@ -433,12 +609,14 @@ def _decode_args(case):
         pos = pos.reshape(1)
     elif case == "smem":
         q, kc, vc = (torch.ones(t.shape[:3] + (4096,)) for t in (q, kc, vc))
+    elif case == "over_16_heads_a_group":
+        q = torch.ones((2, 34, 1, 16))
     return q, kc, vc, slot_pos, pos
 
 
 @pytest.mark.parametrize("case", [
     "bf16_q_only", "noncontig_cache", "heads", "two_tokens", "slot_pos_int64",
-    "slot_pos_len", "pos_int64", "pos_vector", "smem",
+    "slot_pos_len", "pos_int64", "pos_vector", "smem", "over_16_heads_a_group",
 ])
 def test_decode_wrapper_rejects_what_the_kernel_does_not_take(case):
     with pytest.raises((TypeError, ValueError)) as err:

@@ -22,6 +22,7 @@ from repro.runtime.serve_loop import Server as JServer
 from repro_torch.configs import get_config
 from repro_torch.models.weights import from_jax_params
 from repro_torch.obs import observe
+from repro_torch.runtime.decode_graph import GreedyDecoder
 from repro_torch.runtime.serve_loop import Request, Server
 
 MAX_LEN = 64
@@ -126,3 +127,45 @@ def test_server_needs_a_card_unless_given_the_cpu(models, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Server(cfg, model, max_len=MAX_LEN)
+
+
+def test_static_buffer_decoder_matches_eager_loop_and_reference(models):
+    # the unit a CUDA graph replays, run eagerly on the CPU: the same greedy
+    # tokens as a loop that rebinds token and position every step, and as
+    # the reference's throughput_batch; its inputs keep their addresses
+    cfg, j_cfg, params, model = models
+    prompts = np.random.default_rng(7).integers(2, cfg.vocab_size, (2, 20))
+    toks = torch.as_tensor(prompts, dtype=torch.long)
+    logits, caches, pos = model.prefill(toks, MAX_LEN)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    eager = [tok]
+    for _ in range(9):
+        logits, caches = model.decode_step(eager[-1], caches, pos)
+        eager.append(torch.argmax(logits[:, -1:], dim=-1))
+        pos = pos + 1
+
+    logits, caches, pos = model.prefill(toks, MAX_LEN)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    decoder = GreedyDecoder(model, caches, tok, pos, cuda_graph=False)
+    ptrs = (decoder.token.data_ptr(), decoder.pos.data_ptr())
+    static = [tok] + [decoder.step().clone() for _ in range(9)]
+    assert (decoder.token.data_ptr(), decoder.pos.data_ptr()) == ptrs
+    assert int(decoder.pos) == 20 + 9 and decoder.steps == 9
+    assert decoder.capture_s == 0.0 and decoder.logits.shape == (2, 1, cfg.vocab_size)
+    np.testing.assert_array_equal(torch.cat(static, 1).numpy(),
+                                  torch.cat(eager, 1).numpy())
+    want = JServer(j_cfg, params, max_len=MAX_LEN).throughput_batch(prompts, 10)
+    np.testing.assert_array_equal(torch.cat(static, 1).numpy(),
+                                  np.asarray(want["output"]))
+
+
+def test_cuda_graph_needs_a_model_on_the_card(models):
+    cfg, _, _, model = models
+    logits, caches, pos = model.prefill(torch.full((1, 8), 3), MAX_LEN)
+    with pytest.raises(ValueError, match="CUDA"):
+        GreedyDecoder(model, caches, logits.argmax(-1), pos, cuda_graph=True)
+    server = Server(cfg, model, max_len=MAX_LEN, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        server.throughput_batch(np.full((1, 8), 3), 3, cuda_graph=True)
+    out = server.throughput_batch(np.full((1, 8), 3), 3)
+    assert out["cuda_graph"] is False and out["capture_s"] == 0.0
