@@ -15,11 +15,19 @@ over the port's job model and kernel launches:
      ``src/repro_torch/kernels/csrc/`` with nvcc, one process each, all
      started together, printing each kernel's registers and spills;
   1. hold ``seg_combine`` against its plain PyTorch version on the card, at
-     the test shapes and at the engine's shape, and time the kernel, the
-     plain version and one ``index_add_`` call (CUDA events, median of 50);
+     the test shapes (the columns route), at ``MAIN_SHAPE`` with uniform
+     sorted ids, at the engine's first spill (ids built as ``_combine``
+     builds them) and at the distributed caller's shape (the same split's
+     words mod 8,192, unsorted; counts exact); and at the last three time
+     the wrapper, its device time and device ops a call (``torch.profiler``),
+     the plain version, one ``torch.zeros(...).index_add_`` call (wrapper and
+     device), the byte bound, the route taken, and the device time of each
+     D == 1 route launched directly;
   2. run the MapReduce engine (4 maps, 8 reducers, combiner on) as a user
      calls it, so the combiner's sums go to the kernel on the card, and
-     hold it against the numpy combiner;
+     hold it against the numpy combiner; time the engine's whole combine
+     call for its first spill beside the part of it on the card (copies in,
+     wrapper, copy out);
   3. profile three probe runs and fit the Table-3 cost factors;
   4. search a >= 10^5-config grid with the chunked evaluator on the card
      (chunked == unchunked bit for bit; top-10 == the CPU run's), then
@@ -61,9 +69,11 @@ over the port's job model and kernel launches:
      with its reason) and ``selftest()`` (all five checkers fire; the
      ``coverage`` launch fixture runs on the card); check every launch
      geometry the wrappers recorded in phases 1-8; hold ``fixture_copy``
-     against ``x.clone()`` exactly and time it beside ``copy_``; and launch
-     the faulty fixture grid into a NaN-filled output, where exactly the
-     elements the checker names must stay NaN.
+     against ``x.clone()`` exactly on its vector path (the timing shape) and
+     its scalar path (an odd width), each as ``route`` predicts and the
+     launcher reports, and time it (wrapper and device) beside ``copy_``;
+     and launch the faulty fixture grid into a NaN-filled output, where
+     exactly the elements the checker names must stay NaN.
 
 Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
@@ -93,6 +103,7 @@ sys.path.insert(0, str(ROOT / "src"))
 MiB = 1024 * 1024
 RECORDS_PER_MAP = int(128 * MiB // 400)       # one 128 MiB split of 400 B records
 MAIN_SHAPE = (262_144, 1, 4_128)              # (N, D, P) of one engine spill
+DIST_PARTS = 8_192                            # the distributed caller's P
 TEST_SHAPES = [(1024, 256, 16), (777, 130, 7), (64, 8, 3)]
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 L2_COLD_BYTES = 60e6                          # more than the H100's 50 MB L2
@@ -181,6 +192,20 @@ def _median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _host_median_ms(fn, reps: int = 20) -> float:
+    """Median host wall ms of ``fn``, which ends in a copy to the host (so
+    the device's work is inside), after one warm-up call."""
+    import numpy as np
+
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
 
 
@@ -340,6 +365,85 @@ def _decode_bound(shape, slot_pos, dtype_bytes: int,
     ops_ms = flop / ops_per_s * 1e3
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
             n_bytes, flop)
+
+
+def _engine_first_spill(job, hp, keys, values) -> dict:
+    """The first spill of one map task as ``MapReduceEngine._combine`` gets
+    it: the map output's first ``MAIN_SHAPE[0]`` pairs, hash-partitioned and
+    lexsorted by (partition, key); ``ids`` is ``np.unique``'s inverse over
+    the (partition, key) pairs, ``num_parts`` the distinct pairs."""
+    import numpy as np
+
+    from repro_torch.mapreduce.engine import _hash_partition
+
+    okeys, ovals = job.map_fn(keys, values)
+    n = MAIN_SHAPE[0]
+    part = _hash_partition(okeys, hp.pNumReducers)[:n]
+    k, v = okeys[:n], ovals[:n]
+    order = np.lexsort((k, part))
+    part, k, v = part[order], k[order], v[order]
+    uniq, inverse = np.unique(np.stack([part, k], 1), axis=0, return_inverse=True)
+    return {"part": part, "keys": k, "vals": np.asarray(v, np.float32),
+            "ids": inverse.reshape(-1).astype(np.int32),
+            "num_parts": int(uniq.shape[0])}
+
+
+def _time_seg_combine(label, v, ids, p, torch) -> dict:
+    """``seg_combine`` at one phase-1 shape beside its plain version and one
+    ``index_add_``: wrapper times (CUDA events around one call, median of
+    50), device time and device ops a call (``torch.profiler``), the device
+    time back to back, and the device time of each D == 1 route launched
+    directly (each held to the plain version); with, from ``reduce_plan``
+    (the kernel's reduction repeated on the CPU), its passes, those that
+    added into shared-memory bins, and its global atomics.  Returns the JSON
+    record."""
+    from repro_torch.kernels import seg_combine
+    from repro_torch.kernels.seg_combine import (geometry, reduce_plan, route,
+                                                 seg_combine_cuda,
+                                                 seg_combine_torch)
+
+    n, d = v.shape
+    dev = v.device
+    kind = route(n, d, p)
+    plan = reduce_plan(v.cpu(), ids.cpu(), p)
+
+    def library():
+        return torch.zeros((p, d), device=dev).index_add_(0, ids, v)
+
+    k_ms = _median_ms(lambda: seg_combine(v, ids, p))
+    k_dev, k_ops, _ = _device_profile(lambda: seg_combine(v, ids, p), 20)
+    k_b2b = _back_to_back_ms(lambda: seg_combine(v, ids, p))
+    p_ms = _median_ms(lambda: seg_combine_torch(v, ids, p))
+    l_ms = _median_ms(library)
+    l_dev, l_ops, _ = _device_profile(library, 20)
+    want = seg_combine_torch(v, ids, p)
+    routes = {}
+    for r in ("bins", "global"):
+        def call(geo=geometry(n, d, p, r)):
+            return seg_combine_cuda(v, ids, p, geo)
+
+        torch.testing.assert_close(call(), want, rtol=RTOL, atol=ATOL)
+        routes[r] = _device_profile(call, 20)[0]
+    n_bytes = n * d * v.element_size() + n * 4 + p * d * 4   # values, ids, sums
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * d / FP32_OPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    print(f"   {label} N={n} D={d} P={p}, route {kind} ({plan.bins_passes} of "
+          f"{plan.passes} passes into shared-memory bins, {plan.atomics} global "
+          f"atomics, by reduce_plan): wrapper {k_ms:.4f} ms, "
+          f"device {k_dev:.4f} ms in {k_ops} device ops (profiler; "
+          f"{k_b2b:.4f} ms a call back to back); index_add_ wrapper "
+          f"{l_ms:.4f} ms, device {l_dev:.4f} ms in {l_ops} device ops "
+          f"(wrapper / index_add_ {k_ms / l_ms:.2f}); plain {p_ms:.4f} ms; "
+          f"bound {bound:.6f} ms ({n_bytes} B); device time by route "
+          f"{ {r: round(t, 4) for r, t in routes.items()} }")
+    return dict(route_taken=kind, passes=plan.passes, bins_passes=plan.bins_passes,
+                atomics=plan.atomics, ms=k_ms, device_ms=k_dev, device_ops=k_ops,
+                back_to_back_ms=k_b2b, plain_ms=p_ms, library_ms=l_ms,
+                library="torch.zeros + Tensor.index_add_",
+                library_device_ms=l_dev, library_device_ops=l_ops,
+                bound_ms=bound, bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                routes_device_ms=routes)
 
 
 def _phase7_attention(timings, builds, torch, np):
@@ -814,6 +918,7 @@ def _phase9_analysis(timings, builds, torch):
     from repro_torch.kernels import (fixture_copy, flash_attention,
                                      gqa_decode_attention, seg_combine)
     from repro_torch.kernels.fixture_copy import fixture_copy_torch
+    from repro_torch.kernels.fixture_copy import route as copy_route
 
     dev = torch.device("cuda")
     copy = {"name": "fixture_copy", "route": "cuda",
@@ -884,25 +989,47 @@ def _phase9_analysis(timings, builds, torch):
 
         gen = torch.Generator(device=dev).manual_seed(9)
         max_err = 0.0
-        for shape, tile in (((4, 1000), (1, 300)), ((16_384, 4096), (16, 512))):
+        paths = {}
+        for shape, tile in (((4, 1000), (1, 300)), ((333, 1001), (8, 100)),
+                            ((16_384, 4096), (16, 512))):
             x = torch.randn(shape, generator=gen, device=dev)
-            got = fixture_copy(x, tile)
+            out = torch.empty_like(x)
+            before = dict(fixture_copy.launches_by_variant)
+            got = fixture_copy(x, tile, out=out)
             torch.cuda.synchronize()
+            taken = [k for k, c in fixture_copy.launches_by_variant.items()
+                     if c != before[k]]
+            assert taken == [copy_route(*shape, tile, x.data_ptr(), out.data_ptr())]
             assert torch.equal(got, x.clone()), shape
             max_err = max(max_err, float((got - x).abs().max()))
-        out = torch.empty_like(x)
+            paths[shape] = taken[0]
+        print(f"   fixture_copy paths taken, each equal to x.clone(): {paths}")
+        assert paths[(16_384, 4096)] == "vector" and paths[(333, 1001)] == "scalar"
+        # device times from CUDA events around calls queued back to back:
+        # torch.profiler, asked beside them, records only some of these
+        # calls at this point of the script (tools/time_kernels.py, a fresh
+        # process, records one a call)
         k_ms = _median_ms(lambda: fixture_copy(x, tile, out=out))
+        k_dev = _back_to_back_ms(lambda: fixture_copy(x, tile, out=out))
+        k_prof, k_ops, _ = _device_profile(lambda: fixture_copy(x, tile, out=out), 10)
         p_ms = _median_ms(lambda: fixture_copy_torch(x, tile))
         l_ms = _median_ms(lambda: out.copy_(x))
+        l_dev = _back_to_back_ms(lambda: out.copy_(x))
+        l_prof, l_ops, _ = _device_profile(lambda: out.copy_(x), 10)
         n_bytes = 2 * x.numel() * x.element_size()      # read x, write out
         bound = n_bytes / HBM_BYTES_PER_S * 1e3         # no arithmetic
         print(f"   fixture_copy {tuple(x.shape)} f32 tile {tile}: kernel "
-              f"{k_ms:.4f} ms, plain (x.clone()) {p_ms:.4f} ms, out.copy_(x) "
-              f"{l_ms:.4f} ms; bound {bound:.4f} ms (bytes: {n_bytes} B); "
-              f"max |kernel - x| {max_err}")
-        copy.update(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+              f"{k_ms:.4f} ms (device {k_dev:.4f} ms back to back; "
+              f"torch.profiler {k_prof:.4f} ms in {k_ops} device op(s) a call; "
+              f"{100 * bound / k_dev:.1f} % of the bound), plain (x.clone()) "
+              f"{p_ms:.4f} ms, out.copy_(x) {l_ms:.4f} ms (device {l_dev:.4f} ms "
+              f"back to back; profiler {l_prof:.4f} ms in {l_ops}); kernel / copy_ "
+              f"{k_ms / l_ms:.3f}; bound "
+              f"{bound:.4f} ms (bytes: {n_bytes} B); max |kernel - x| {max_err}")
+        copy.update(max_abs_err=max_err, ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
                     bound_ms=bound, bound_by="bytes", library_ms=l_ms,
-                    library="Tensor.copy_")
+                    library_device_ms=l_dev, library="Tensor.copy_",
+                    paths={f"{r}x{c}": v for (r, c), v in paths.items()})
     return copy
 
 
@@ -974,6 +1101,16 @@ def main() -> int:
         build_s = builds["seg_combine"]["seconds"]
 
     # ---------------------------------------------------------------- 1
+    job = JOBS["wordcount"]
+    n_maps = 4
+    n_records = n_maps * RECORDS_PER_MAP
+    hp = HadoopParams(pNumMappers=n_maps, pNumReducers=8, pUseCombine=True,
+                      pSortMB=100.0, pSplitSize=128 * MiB)
+    keys, values = make_input(job, n_records, seed=0)
+    # the first map task's split (run_job splits the records in 4)
+    split = (keys[:RECORDS_PER_MAP], values[:RECORDS_PER_MAP])
+    spill = _engine_first_spill(job, hp, *split)
+
     with _phase("1_kernel_vs_plain", timings):
         rng = np.random.default_rng(0)
         max_err = 0.0
@@ -1010,39 +1147,40 @@ def main() -> int:
         check(vals_main, ids_main, p)
         check(vals_main.to(torch.bfloat16), ids_main, p)
 
-        kernel_ms = _median_ms(lambda: seg_combine(ones, ids_main, p))
-        plain_ms = _median_ms(lambda: seg_combine_torch(ones, ids_main, p))
-        library_ms = _median_ms(lambda: torch.zeros(
-            (p, d), device=dev).index_add_(0, ids_main, ones))
-        k_dev, k_n, _ = _device_profile(lambda: seg_combine(ones, ids_main, p), 20)
-        p_dev, p_n, _ = _device_profile(
-            lambda: seg_combine_torch(ones, ids_main, p), 20)
-        print(f"   device time per call (torch.profiler): kernel {k_dev:.4f} ms "
-              f"in {k_n} CUDA kernels, plain {p_dev:.4f} ms in {p_n}")
-        n_bytes = n * d * 4 + n * 4 + p * d * 4       # values, ids, sums
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n * d / FP32_OPS_PER_S * 1e3
-        kernel.update(
-            max_abs_err=max_err, ms=kernel_ms,
-            plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            device_ms=k_dev, device_kernels=k_n, plain_device_ms=p_dev,
-            plain_device_kernels=p_n, build_s=build_s)
-        print(f"   main shape N={n} D={d} P={p}: kernel {kernel_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, "
-              f"bound {kernel['bound_ms']:.6f} ms ({n_bytes} B)")
+        # the engine's first spill, as _combine builds it, and the
+        # distributed caller's map output of the same split: words mod
+        # 8,192, unsorted, half of them in 64 hot keys
+        ids_spill = torch.from_numpy(spill["ids"]).to(dev)
+        p_spill = spill["num_parts"]
+        ones_spill = torch.from_numpy(spill["vals"][:, None]).to(dev)
+        check(ones_spill, ids_spill, p_spill, exact=True)
+        check(vals_main, ids_spill, p_spill)
+        check(vals_main.to(torch.bfloat16), ids_spill, p_spill)
+        words, _ = job.map_fn(*split)
+        ids_dist = torch.from_numpy((words % DIST_PARTS).astype(np.int32)).to(dev)
+        ones_dist = torch.ones((ids_dist.numel(), 1), device=dev)
+        check(ones_dist, ids_dist, DIST_PARTS, exact=True)
+        check(ones_dist.to(torch.bfloat16), ids_dist, DIST_PARTS, exact=True)
+        check(torch.from_numpy(rng.standard_normal((ids_dist.numel(), 1))
+                               .astype(np.float32)).to(dev), ids_dist, DIST_PARTS)
+        print(f"   held to the plain version: max |kernel - plain| {max_err:.3e} "
+              f"(rtol {RTOL}, atol {ATOL}; counts exact)")
+
+        records = {label: _time_seg_combine(label, v, ids, p, torch)
+                   for label, (v, ids, p) in (
+                       ("uniform", (ones, ids_main, MAIN_SHAPE[2])),
+                       ("engine", (ones_spill, ids_spill, p_spill)),
+                       ("distributed", (ones_dist, ids_dist, DIST_PARTS)))}
+        kernel.update(records["uniform"])
+        for label in ("engine", "distributed"):
+            kernel.update({f"{label}_{k}": v for k, v in records[label].items()})
+        kernel.update(max_abs_err=max_err, build_s=build_s)
 
     # ------------------------------------------------------ main path: 2-6
     seg_combine.launches = 0
-    job = JOBS["wordcount"]
-    n_maps = 4
-    n_records = n_maps * RECORDS_PER_MAP
-    hp = HadoopParams(pNumMappers=n_maps, pNumReducers=8, pUseCombine=True,
-                      pSortMB=100.0, pSplitSize=128 * MiB)
+    seg_combine.launches_by_variant = dict.fromkeys(seg_combine.launches_by_variant, 0)
 
     with _phase("2_engine", timings):
-        keys, values = make_input(job, n_records, seed=0)
         t0 = time.perf_counter()
         engine = MapReduceEngine(hp, job)          # combines on the card
         assert engine.device.type == "cuda"
@@ -1058,10 +1196,34 @@ def main() -> int:
         np.testing.assert_allclose(jc_k.output[1], jc_np.output[1], rtol=1e-5)
         assert _strip_times(jc_k) == _strip_times(jc_np)
         m0 = jc_k.maps[0]
+        assert m0.spillBufferPairs == MAIN_SHAPE[0], m0.spillBufferPairs
         print(f"   {n_records} records, {n_maps} maps x {m0.numSpills} spills of "
               f"{m0.spillBufferPairs} pairs; {launches_engine} launches "
-              f"({launches_engine / n_maps:.2f} per map task); engine "
-              f"{t_kernel:.2f} s with the kernel, {t_numpy:.2f} s with numpy")
+              f"({launches_engine / n_maps:.2f} per map task, routes "
+              f"{seg_combine.launches_by_variant}); engine {t_kernel:.2f} s with "
+              f"the kernel, {t_numpy:.2f} s with numpy")
+
+        # the engine's whole combine call for its first spill, and the part
+        # of it on the card (copies in, wrapper, copy out); these timing
+        # launches are taken back out of the main path's counts
+        counts = (seg_combine.launches, dict(seg_combine.launches_by_variant))
+
+        def on_card():
+            v = torch.from_numpy(spill["vals"][:, None])
+            i = torch.from_numpy(spill["ids"])
+            return seg_combine(v.to(dev), i.to(dev), spill["num_parts"])[:, 0].cpu()
+
+        combine_ms = _host_median_ms(
+            lambda: engine._combine(spill["part"], spill["keys"], spill["vals"]))
+        card_ms = _host_median_ms(on_card)
+        seg_combine.launches, seg_combine.launches_by_variant = counts
+        wrapper_ms = kernel["engine_ms"]
+        print(f"   the engine's combine of its first spill ({MAIN_SHAPE[0]} pairs, "
+              f"P {spill['num_parts']}): {combine_ms:.3f} ms on the host clock, "
+              f"median of 20; of it copies in + wrapper + copy out {card_ms:.3f} ms "
+              f"({100 * card_ms / combine_ms:.1f} %), the wrapper alone "
+              f"{wrapper_ms:.4f} ms ({100 * wrapper_ms / combine_ms:.2f} %, phase 1)")
+        kernel.update(engine_combine_ms=combine_ms, engine_combine_card_ms=card_ms)
 
     with _phase("3_profile_and_fit", timings):
         probes = [hp, hp.replace(pSortMB=50.0),

@@ -165,9 +165,12 @@ def _decode_probes(hds=HEAD_DIMS) -> list[LaunchProbe]:
 def _seg_combine_probes() -> list[LaunchProbe]:
     from repro_torch.kernels.seg_combine import coverage, launch_spec
 
-    # (N, D): the reference's probe and the engine's spill (P = 4,128)
-    return [LaunchProbe("seg_combine", launch_spec(n, d), *coverage(n, d))
-            for n, d in ((1024, 256), (262_144, 1))]
+    # (N, D, P): the reference's probe, the engine's spill, and the
+    # distributed caller's map output of one 128 MiB split of 400-byte
+    # records (4 words a record) over 8,192 keys; one probe per route
+    return [LaunchProbe("seg_combine", launch_spec(n, d, p), *coverage(n, d, p))
+            for n, d, p in ((1024, 256, 16), (262_144, 1, 4_128),
+                            (1_342_176, 1, 8_192), (262_144, 1, 100_000))]
 
 
 def _fixture_copy_probes() -> list[LaunchProbe]:

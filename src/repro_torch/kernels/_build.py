@@ -26,7 +26,7 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["MAX_SMEM_BYTES", "LaunchSpec", "build", "check", "load"]
+__all__ = ["MAX_SMEM_BYTES", "LaunchSpec", "build", "check", "launch", "load"]
 
 #: shared memory one block may have on an H100 (227 KB of the SM's 256 KB)
 MAX_SMEM_BYTES = 232_448
@@ -116,6 +116,21 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def launch(fn, args: tuple, device) -> int:
+    """Call the C launcher ``fn(*args, stream)`` with PyTorch's current
+    stream on CUDA ``device`` (its raw ``cudaStream_t``, as
+    ``torch.cuda.current_stream().cuda_stream`` gives it, without building
+    a ``Stream`` object), inside a device context only when ``device`` is
+    not the current device.  Returns the launcher's error code."""
+    import torch
+
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(err: int, what: str) -> None:

@@ -19,20 +19,34 @@ tests use it; on the card it is what the kernel is held to.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ._build import LaunchSpec, check, load
+from ._build import LaunchSpec, check, launch, load
 
-__all__ = ["coverage", "fixture_copy_cuda", "fixture_copy_torch",
-           "launch_spec"]
+__all__ = ["PATHS", "coverage", "fixture_copy_cuda", "fixture_copy_torch",
+           "geometry", "launch_spec", "route"]
 
 THREADS = 256
+#: the kernel's paths, by the code its launcher reports
+PATHS = ("scalar", "vector")
 
 _SIGNATURES = {"fixture_copy_f32": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]}
+    ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]}
+_FN: dict[str, object] = {}     # the loaded C entry point
+
+
+def route(R: int, C: int, tile: tuple[int, int], *ptrs: int) -> str:
+    """The path the launcher takes (``csrc/fixture_copy.cu``): ``"vector"``
+    (16-byte float4s) where C and the tile's width are multiples of 4 and
+    every address in ``ptrs`` (x's and out's) is 16-byte aligned,
+    ``"scalar"`` otherwise."""
+    if C % 4 == 0 and tile[1] % 4 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "vector"
+    return "scalar"
 
 
 def launch_spec(R: int, C: int, tile: tuple[int, int]) -> LaunchSpec:
@@ -51,20 +65,31 @@ def coverage(R: int, C: int, tile: tuple[int, int]
     return (R, C, 1), (tile[0], tile[1], 1)
 
 
+@functools.lru_cache(maxsize=256)
+def geometry(R: int, C: int, tile: tuple[int, int],
+             grid: tuple[int, int] | None = None):
+    """(spec, shape, tile) of one launch, kept per shape: ``grid=None``
+    launches :func:`launch_spec`'s ceiling grid, a given grid as it is;
+    ``shape`` and ``tile`` are :func:`coverage`'s."""
+    spec = (launch_spec(R, C, tile) if grid is None else
+            LaunchSpec(grid=(*grid, 1), block=(THREADS, 1, 1), smem_bytes=0))
+    return (spec, *coverage(R, C, tile))
+
+
 def fixture_copy_cuda(x: torch.Tensor, out: torch.Tensor, spec: LaunchSpec,
-                      tile: tuple[int, int]) -> torch.Tensor:
+                      tile: tuple[int, int]) -> str:
     """Launch the kernel with ``spec`` on the current stream; no checks, no
-    synchronise.  Callers go through :func:`repro_torch.kernels.fixture_copy`,
-    which checks shapes, types and devices."""
-    R, C = x.shape
-    lib = load("fixture_copy", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fixture_copy_f32(x.data_ptr(), out.data_ptr(), R, C, tile[0],
-                                   tile[1], spec.grid[0], spec.grid[1],
-                                   spec.block[0], stream)
+    synchronise.  Returns the path the launcher took (:data:`PATHS`).
+    Callers go through :func:`repro_torch.kernels.fixture_copy`, which
+    checks shapes, types and devices."""
+    fn = _FN.get("f32")
+    if fn is None:
+        fn = _FN["f32"] = load("fixture_copy", _SIGNATURES).fixture_copy_f32
+    path = ctypes.c_int(-1)
+    err = launch(fn, (x.data_ptr(), out.data_ptr(), *x.shape, *tile, spec.grid[0],
+                      spec.grid[1], spec.block[0], ctypes.byref(path)), x.device)
     check(err, "fixture_copy")
-    return out
+    return PATHS[path.value]
 
 
 def fixture_copy_torch(

@@ -5,12 +5,16 @@ launches the hand-written CUDA kernel for a CUDA tensor, and takes the
 kernel's plain PyTorch version only for a tensor on the CPU.  There is no
 fallback: a CUDA tensor launches the kernel or raises.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``, a plain integer, so a run can
-show that its main path went through the kernel; a call counts once even
-where the kernel is two device launches (``seg_combine``).  A CUDA graph
+show that its main path went through the kernel; each wrapper makes one C
+call a call, which launches its kernel (``seg_combine``'s also zeroes its
+output with ``cudaMemsetAsync`` first, on the same stream).  A CUDA graph
 that captured wrapper calls adds them again on every replay
-(``runtime.decode_graph``).  ``flash_attention`` has one
-kernel per input type (bf16: ``bf16_wgmma``, fp32: ``f32_cuda_cores``) and
-also counts its launches per kernel in ``launches_by_variant``.  Beside the
+(``runtime.decode_graph``).  A wrapper whose kernel has several variants
+also counts its launches per variant in ``launches_by_variant``:
+``flash_attention`` one kernel per input type (bf16: ``bf16_wgmma``, fp32:
+``f32_cuda_cores``), ``seg_combine`` its routes (``bins``, ``global``,
+``columns``), ``fixture_copy`` its paths (``vector``, ``scalar``, as the
+launcher took them).  Beside the
 count, each wrapper keeps the distinct launch geometries it launched in
 ``<wrapper>.geometries``, a set of ``(LaunchSpec, shape, tile)``: the grid
 and block, the index space the grid must cover and what one CTA covers of
@@ -32,7 +36,6 @@ from . import decode_attention as _da
 from . import fixture_copy as _fc
 from . import flash_attention as _fa
 from . import seg_combine as _sc
-from ._build import LaunchSpec
 
 __all__ = ["fixture_copy", "flash_attention", "gqa_decode_attention",
            "seg_combine"]
@@ -218,7 +221,9 @@ def seg_combine(
 
     Ids outside ``[0, P)`` are dropped, as the reference's Pallas kernel
     drops them.  (The reference's jnp oracle clips ids >= P into row P-1;
-    the kernel, and this port, do not.)
+    the kernel, and this port, do not.)  Ids may come in any order.  On the
+    card the kernel's route is :func:`repro_torch.kernels.seg_combine.route`
+    of (N, D, P).
     """
     if values.dim() != 2:
         raise ValueError(f"values must be (N, D), got shape {tuple(values.shape)}")
@@ -245,15 +250,16 @@ def seg_combine(
     if values.numel() == 0 or num_parts == 0:
         return torch.zeros((num_parts, values.shape[1]), dtype=torch.float32,
                            device=values.device)
-    n, d = values.shape
-    spec = _sc.launch_spec(n, d)
-    out = _sc.seg_combine_cuda(values, part_ids, num_parts, spec)
+    geo = _sc.geometry(*values.shape, num_parts)
+    out = _sc.seg_combine_cuda(values, part_ids, num_parts, geo)
     seg_combine.launches += 1
-    seg_combine.geometries.add((spec, *_sc.coverage(n, d)))
+    seg_combine.launches_by_variant[geo.route] += 1
+    seg_combine.geometries.add(geo[1:])
     return out
 
 
 seg_combine.launches = 0
+seg_combine.launches_by_variant = dict.fromkeys(_sc.ROUTES, 0)
 seg_combine.geometries = set()
 
 
@@ -299,21 +305,19 @@ def fixture_copy(
     on_cpu = _check_device(what, *([x] if out is None else [x, out])) == "cpu"
     if on_cpu:
         return _fc.fixture_copy_torch(x, tile, grid, out)
-    R, C = x.shape
-    if grid is None:
-        spec = _fc.launch_spec(R, C, tile)
-        out = torch.empty_like(x) if out is None else out
-    else:
-        spec = LaunchSpec(grid=(*grid, 1), block=(_fc.THREADS, 1, 1),
-                          smem_bytes=0)
-        out = torch.full_like(x, float("nan")) if out is None else out
+    if out is None:
+        out = (torch.empty_like(x) if grid is None
+               else torch.full_like(x, float("nan")))
     if x.numel() == 0:
         return out
-    _fc.fixture_copy_cuda(x, out, spec, tile)
+    geo = _fc.geometry(*x.shape, tile, grid)
+    path = _fc.fixture_copy_cuda(x, out, geo[0], tile)
     fixture_copy.launches += 1
-    fixture_copy.geometries.add((spec, *_fc.coverage(R, C, tile)))
+    fixture_copy.launches_by_variant[path] += 1
+    fixture_copy.geometries.add(geo)
     return out
 
 
 fixture_copy.launches = 0
+fixture_copy.launches_by_variant = dict.fromkeys(_fc.PATHS, 0)
 fixture_copy.geometries = set()

@@ -474,15 +474,17 @@ def test_recorded_geometries_are_checked_except_the_fixtures_own(monkeypatch):
     from repro_torch.kernels.seg_combine import coverage, launch_spec
 
     coverage_probe = bad_launch_probes()[0]
+    # one CTA covers 2,048 rows of a D == 1 call: a grid of 3 leaves 3,904
     short = LaunchSpec(grid=(3, 1, 1), block=(256, 1, 1), smem_bytes=0)
     monkeypatch.setattr(ops.seg_combine, "geometries", {
-        (launch_spec(1000, 1), *coverage(1000, 1)), (short, *coverage(1000, 1))})
+        (launch_spec(10_048, 1, 50_000), *coverage(10_048, 1, 50_000)),
+        (short, *coverage(10_048, 1, 50_000))})
     monkeypatch.setattr(ops.fixture_copy, "geometries", {
         (coverage_probe.spec, coverage_probe.shape, coverage_probe.tile)})
     assert len(lg.recorded()) == 3
     (f,) = lg.check_recorded()
     assert (f.kind, f.target) == ("coverage", "seg_combine")
-    assert "[768:1000, :, :]" in f.message
+    assert "[6144:10048, :, :]" in f.message
 
 
 def test_coverage_finding_names_columns_900_to_999():

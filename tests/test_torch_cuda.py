@@ -11,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import flash_attention, gqa_decode_attention
+from repro_torch.kernels import (fixture_copy, flash_attention,
+                                 gqa_decode_attention, seg_combine)
 from repro_torch.kernels.decode_attention import decode_attention_torch
+from repro_torch.kernels.fixture_copy import route as copy_route
+from repro_torch.kernels.seg_combine import reduce_plan, route, seg_combine_torch
 
 
 @pytest.fixture
@@ -91,3 +94,118 @@ def test_decode_call_captured_in_a_graph_replays_at_advancing_positions(cuda_dev
         want = decode_attention_torch(q.view(B, KV, H // KV, hd), kc, vc,
                                       slot_pos, pos, **kw).view(B, H, 1, hd)
         torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+# ------------------------------------------------------------- seg_combine
+
+def _seg_ids(rng, n, p, order):
+    """Ids for ``order``: "sorted", "unsorted", "skewed" (half of the rows
+    in 64 hot keys, unsorted, as the wordcount map emits them), or
+    "dropped" and "dropped_unsorted" (ids < 0 and >= P among them, sorted
+    or not)."""
+    if order == "dropped":
+        return np.sort(rng.integers(-3, p + 3, n))
+    if order == "dropped_unsorted":
+        return rng.integers(-3, p + 3, n)
+    ids = rng.integers(0, p, n)
+    if order == "skewed":
+        ids = np.where(rng.random(n) < 0.5, rng.integers(0, 64, n), ids)
+    return np.sort(ids) if order == "sorted" else ids
+
+
+# (N, D, P) on each route: bins, global (P past the shared-memory bins),
+# columns; N off the 8-row vector width
+SEG_SHAPES = [(50_001, 1, 700), (50_001, 1, 20_000), (3_001, 5, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order", ["sorted", "unsorted", "skewed", "dropped",
+                                   "dropped_unsorted"])
+@pytest.mark.parametrize("n,d,p", SEG_SHAPES)
+def test_seg_combine_matches_plain_on_the_card(cuda_device, n, d, p, order, dtype):
+    rng = np.random.default_rng(n + d + p)
+    ids = torch.from_numpy(_seg_ids(rng, n, p, order).astype(np.int32))
+    vals = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dtype)
+    kind = route(n, d, p)
+    before = (seg_combine.launches, seg_combine.launches_by_variant[kind])
+    got = seg_combine(vals.to(cuda_device), ids.to(cuda_device), p)
+    torch.cuda.synchronize()
+    assert (seg_combine.launches, seg_combine.launches_by_variant[kind]) == \
+        (before[0] + 1, before[1] + 1)
+    want = seg_combine_torch(vals, ids, p)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got.cpu(), reduce_plan(vals, ids, p).out,
+                               rtol=1e-4, atol=1e-3)
+    ones = torch.ones((n, d), dtype=dtype)
+    counts = seg_combine(ones.to(cuda_device), ids.to(cuda_device), p)
+    assert torch.equal(counts.cpu(), seg_combine_torch(ones, ids, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,p", SEG_SHAPES)
+def test_seg_combine_on_misaligned_views(cuda_device, n, d, p):
+    # values and ids that start 4 bytes past a 16-byte boundary take the
+    # kernel's scalar loads
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(_seg_ids(rng, n, p, "skewed").astype(np.int32))
+    vals = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
+    v = torch.empty(n * d + 1, device=cuda_device)[1:].view(n, d).copy_(vals)
+    i = torch.empty(n + 1, dtype=torch.int32, device=cuda_device)[1:].copy_(ids)
+    assert v.data_ptr() % 16 and i.data_ptr() % 16
+    got = seg_combine(v, i, p)
+    torch.testing.assert_close(got.cpu(), seg_combine_torch(vals, ids, p),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_seg_combine_captured_in_a_graph_replays(cuda_device):
+    # the memset and the kernel are both captured: each replay starts from
+    # zeros and sums the ids written in place before it
+    rng = np.random.default_rng(3)
+    n, p = 262_144, 4_128
+    ids = torch.empty(n, dtype=torch.int32, device=cuda_device)
+    vals = torch.ones((n, 1), device=cuda_device)
+    ids.copy_(torch.from_numpy(np.sort(rng.integers(0, p, n)).astype(np.int32)))
+    seg_combine(vals, ids, p)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = seg_combine(vals, ids, p)
+    for order in ("sorted", "skewed", "dropped"):
+        host = torch.from_numpy(_seg_ids(rng, n, p, order).astype(np.int32))
+        ids.copy_(host)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), seg_combine_torch(vals.cpu(), host, p))
+
+
+# ------------------------------------------------------------ fixture_copy
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tile,offset,path", [
+    ((64, 4096), (16, 512), 0, "vector"),
+    ((4, 1000), (1, 300), 0, "vector"),
+    ((333, 1001), (8, 100), 0, "scalar"),      # C off the vector width
+    ((64, 1024), (3, 30), 0, "scalar"),        # tile_c off the vector width
+    ((64, 1024), (16, 512), 1, "scalar"),      # x 4 bytes past a boundary
+])
+def test_fixture_copy_paths_on_the_card(cuda_device, shape, tile, offset, path):
+    rng = np.random.default_rng(4)
+    host = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    x = torch.empty(host.numel() + offset, device=cuda_device)[offset:]
+    x = x.view(shape).copy_(host)
+    out = torch.empty_like(x)
+    assert copy_route(*shape, tile, x.data_ptr(), out.data_ptr()) == path
+    before = fixture_copy.launches_by_variant[path]
+    assert fixture_copy(x, tile, out=out) is out
+    torch.cuda.synchronize()
+    assert fixture_copy.launches_by_variant[path] == before + 1
+    assert torch.equal(out.cpu(), host)
+
+
+@pytest.mark.cuda
+def test_fixture_copy_faulty_grid_leaves_400_nan_on_the_card(cuda_device):
+    from repro_torch.analysis.fixtures import bad_launch_probes, confirm_unwritten
+
+    assert confirm_unwritten(bad_launch_probes()[0], cuda_device) == 400

@@ -4,8 +4,10 @@ fixture; ``tests/test_torch_analysis.py`` holds it to the Pallas kernel).
 
 On the CPU the port's wrapper takes the kernel's plain PyTorch version; the
 JAX side runs its Pallas kernel in interpret mode, as ``tests/test_kernels.py``
-does.  Tolerance rtol 1e-4 / atol 1e-3, the reference's: the two sum in
-different orders (the CUDA kernel with fp32 atomics, in an order that
+does.  ``reduce_plan`` repeats the CUDA kernel's reduction (its routes, its
+association and its global atomics) on the CPU and is held to both.
+Tolerance rtol 1e-4 / atol 1e-3, the reference's: the sums are taken in
+different orders (the CUDA kernel's fp32 atomics land in an order that
 changes from run to run).  Sums of ones (pair counts) are exact.
 """
 
@@ -16,10 +18,22 @@ import torch
 
 from repro.kernels import seg_combine as j_seg_combine
 from repro.kernels.ref import seg_combine_ref as j_seg_combine_ref
+from repro_torch.analysis.checkers.launch_geometry import validate_launch
 from repro_torch.kernels import fixture_copy, seg_combine
 from repro_torch.kernels.fixture_copy import coverage as fixture_coverage
 from repro_torch.kernels.fixture_copy import launch_spec as fixture_launch_spec
-from repro_torch.kernels.seg_combine import coverage, launch_spec, seg_combine_torch
+from repro_torch.kernels.fixture_copy import route as fixture_route
+from repro_torch.kernels.seg_combine import (
+    PASS,
+    coverage,
+    launch_spec,
+    reduce_plan,
+    route,
+    rows_per_cta,
+    seg_combine_torch,
+)
+from repro_torch.mapreduce import JOBS, make_input
+from repro_torch.mapreduce.engine import _hash_partition
 
 SHAPES = [(1024, 256, 16), (777, 130, 7), (64, 8, 3)]
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -141,14 +155,110 @@ def test_empty_inputs():
 
 # ------------------------------------------------------------ launch geometry
 
-@pytest.mark.parametrize("n,d", [(262_144, 1), (1024, 256), (777, 130), (1, 1)])
-def test_launch_spec_takes_one_thread_per_element(n, d):
-    spec = launch_spec(n, d)
-    shape, tile = coverage(n, d)
-    assert spec.block == (256, 1, 1) and spec.smem_bytes == 0
-    assert shape == (n * d, 1, 1) and tile == (256, 1, 1)
-    assert (spec.grid[0] - 1) * 256 < n * d <= spec.grid[0] * 256
-    assert spec.grid[1:] == (1, 1)
+@pytest.mark.parametrize("n,d,p,kind", [
+    (262_144, 1, 4_128, "bins"),               # the engine's spill
+    (1024, 256, 16, "columns"),
+    (777, 130, 7, "columns"),
+    (1, 1, 1, "bins"),
+    (1_342_176, 1, 8_192, "bins"),             # the distributed caller
+    (262_144, 1, 100_000, "global"),           # P past the shared-memory bins
+])
+def test_launch_spec_covers_the_rows_per_cta(n, d, p, kind):
+    assert route(n, d, p) == kind
+    spec = launch_spec(n, d, p)
+    shape, tile = coverage(n, d, p)
+    rows = rows_per_cta(n, d, p)
+    assert shape == (n, d, 1) and tile[0] == rows and tile[2] == 1
+    assert (spec.grid[0] - 1) * rows < n <= spec.grid[0] * rows
+    if kind == "columns":
+        assert spec.block == (128, 1, 1) and spec.smem_bytes == 0 and rows == 64
+        assert tile[1] == 128 and (spec.grid[1] - 1) * 128 < d <= spec.grid[1] * 128
+    else:
+        assert spec.block == (256, 1, 1) and spec.grid[1:] == (1, 1)
+        assert rows % PASS == 0 and tile[1] == d == 1
+        assert spec.smem_bytes == (4 * p if kind == "bins" else 0)
+    assert validate_launch("seg_combine", spec, shape, tile) == []
+
+
+# ------------------------------------------------ reduce_plan (the CPU mirror)
+
+def _plan_ids(rng, n, p, order):
+    """Ids for ``order``: sorted, unsorted, skewed (half of the rows in 64
+    hot keys, unsorted, as the wordcount map emits them), or dropped and
+    dropped_unsorted (ids < 0 and >= P among them, sorted or not)."""
+    if order == "dropped":
+        return np.sort(rng.integers(-3, p + 3, n)).astype(np.int32)
+    if order == "dropped_unsorted":
+        return rng.integers(-3, p + 3, n).astype(np.int32)
+    ids = rng.integers(0, p, n)
+    if order == "skewed":
+        ids = np.where(rng.random(n) < 0.5, rng.integers(0, 64, n), ids)
+    return (np.sort(ids) if order == "sorted" else ids).astype(np.int32)
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted", "skewed", "dropped",
+                                   "dropped_unsorted"])
+@pytest.mark.parametrize("n,d,p,kind", [
+    (5_003, 1, 300, "bins"),                   # N off the 8-row vector width
+    (5_003, 1, 300, "global"),
+    (1_001, 3, 70, "columns"),
+])
+def test_reduce_plan_matches_pallas_and_plain(n, d, p, kind, order):
+    rng = np.random.default_rng(n + p + len(order))
+    vals = rng.standard_normal((n, d)).astype(np.float32)
+    ids = _plan_ids(rng, n, p, order)
+    v, i = torch.from_numpy(vals), torch.from_numpy(ids)
+    plan = reduce_plan(v, i, p, kind)
+    assert plan.route == kind and plan.out.shape == (p, d)
+    pallas = np.asarray(j_seg_combine(jnp.asarray(vals), jnp.asarray(ids), p))
+    np.testing.assert_allclose(plan.out.numpy(), pallas, rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(plan.out.numpy(), seg_combine_torch(v, i, p).numpy(),
+                               rtol=1e-4, atol=1e-3)
+    ones = torch.ones((n, d))
+    assert torch.equal(reduce_plan(ones, i, p, kind).out, seg_combine_torch(ones, i, p))
+
+
+def _engine_spill(n_records=20_000, reducers=8):
+    """A spill as the engine's ``_combine`` gets it: the wordcount map's
+    pairs, hash-partitioned, lexsorted by (partition, key), and
+    ``np.unique``'s inverse of the (partition, key) pairs."""
+    job = JOBS["wordcount"]
+    keys, values = make_input(job, n_records, seed=3)
+    okeys, _ = job.map_fn(keys, values)
+    part = _hash_partition(okeys, reducers)
+    order = np.lexsort((okeys, part))
+    uniq, inverse = np.unique(np.stack([part[order], okeys[order]], 1), axis=0,
+                              return_inverse=True)
+    return torch.from_numpy(inverse.reshape(-1).astype(np.int32)), len(uniq)
+
+
+@pytest.mark.parametrize("kind", ["bins", "global"])
+def test_a_sorted_spill_needs_at_most_p_plus_ctas_atomics(kind):
+    ids, p = _engine_spill()
+    n = ids.numel()
+    plan = reduce_plan(torch.ones((n, 1)), ids, p, kind)
+    assert plan.passes == plan.ctas * rows_per_cta(n, 1, p, kind) // PASS
+    assert plan.atomics <= p + plan.passes
+    # a sorted spill leaves a few chains a pass: every pass adds to out
+    assert plan.bins_passes == 0
+    assert torch.equal(plan.out[:, 0], torch.bincount(ids.long(), minlength=p).float())
+
+
+def test_bins_flush_each_id_once_per_cta_on_unsorted_ids():
+    # the distributed caller's ids: words mod 8,192, unsorted, half of them
+    # in 64 hot keys; straight to global memory the scan's sums would add
+    # about once a row
+    job = JOBS["wordcount"]
+    words, _ = job.map_fn(*make_input(job, 50_000, seed=4))
+    ids = torch.from_numpy((words % 8_192).astype(np.int32))
+    ones = torch.ones((ids.numel(), 1))
+    binned = reduce_plan(ones, ids, 8_192)
+    direct = reduce_plan(ones, ids, 8_192, "global")
+    assert binned.route == "bins" and binned.bins_passes == binned.passes > 0
+    assert binned.atomics <= 8_192 * binned.ctas
+    assert binned.atomics < direct.atomics // 2
+    for plan in (binned, direct):
+        assert torch.equal(plan.out, seg_combine_torch(ones, ids, 8_192))
 
 
 # ------------------------------------------- fixture_copy (_bad_pallas_probe)
@@ -199,3 +309,15 @@ def test_fixture_copy_rejects_what_the_kernel_does_not_take(case):
         kw = {"out": torch.ones((4, 8), dtype=torch.float64)}
     with pytest.raises(ValueError):
         fixture_copy(x, tile, **kw)
+
+
+@pytest.mark.parametrize("shape,tile,ptrs,path", [
+    ((16_384, 4096), (16, 512), (0, 1 << 20), "vector"),   # the timing shape
+    ((4, 1000), (1, 300), (256, 512), "vector"),           # the fixture's
+    ((333, 1001), (8, 100), (0, 0), "scalar"),             # C off 4
+    ((64, 1024), (3, 30), (0, 0), "scalar"),               # tile_c off 4
+    ((64, 1024), (16, 512), (4, 0), "scalar"),             # x off 16 bytes
+    ((64, 1024), (16, 512), (0, 8), "scalar"),             # out off 16 bytes
+])
+def test_fixture_copy_route(shape, tile, ptrs, path):
+    assert fixture_route(*shape, tile, *ptrs) == path
