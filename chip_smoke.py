@@ -28,14 +28,26 @@ over the port's job model and kernel launches:
      hold it against the numpy combiner; time the engine's whole combine
      call for its first spill beside the part of it on the card (copies in,
      wrapper, copy out);
-  3. profile three probe runs and fit the Table-3 cost factors;
+  3. profile three probe runs and fit the Table-3 cost factors by least
+     squares, then refine them by autograd through the job model on the
+     card (``fit_cost_factors_autodiff``, float64): the calibration report,
+     steps per second, one calibration step's device time and kernels
+     (``torch.profiler``), and both fits' relative error on the fit runs;
+     the fitted factors finite and in-domain, the loss no worse than at
+     the start;
   4. search a >= 10^5-config grid with the chunked evaluator on the card
      (chunked == unchunked bit for bit; top-10 == the CPU run's), then
-     coordinate descent;
+     coordinate descent beside gradient descent on the card (best cost,
+     evaluator calls and rows, wall time): gradient descent's reported cost
+     equals ``evaluate`` of its assignment bit for bit, the same search on
+     the CPU gives the same int/bool axes (float axes and cost at rtol
+     1e-6), and ``api.tune(strategy="gradient")`` equals the direct call;
   5. answer the four what-if query kinds through the async service (bit
      for bit equal to sequential ``evaluate`` calls);
   6. verify the default and tuned configs on the engine and simulate the
-     tuned job on a cluster;
+     tuned job on a cluster; fit on phase 3's runs and predict these two
+     with both fits (``prediction_error_from_runs``, lstsq and autodiff),
+     printing the gap and claiming nothing from it;
   7. hold ``flash_attention`` (both kernels: bf16 on ``wgmma``, fp32 on the
      CUDA cores) and ``decode_attention`` against their plain versions on the
      card, at the test shapes, the bf16 kernel's edges (G = 3, hd 72 and 96,
@@ -73,7 +85,14 @@ over the port's job model and kernel launches:
      its scalar path (an odd width), each as ``route`` predicts and the
      launcher reports, and time it (wrapper and device) beside ``copy_``;
      and launch the faulty fixture grid into a NaN-filled output, where
-     exactly the elements the checker names must stay NaN.
+     exactly the elements the checker names must stay NaN;
+ 10. run the distributed pipeline (``make_pipeline``: map -> ``seg_combine``
+     -> ``all_to_all_single`` -> reduce) on an NCCL process group of one
+     rank, over the wordcount words of one 128 MiB split (1,342,176 words,
+     ``key_space`` 8,192): equal to the plain ``index_add_`` pipeline and to
+     the engine's dense sums; every ``seg_combine`` launch on the ``bins``
+     route, ``reduce_plan`` sending all but a few passes into shared bins;
+     its wall time, device time and kernels, and the collective's time.
 
 Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
@@ -83,7 +102,9 @@ phase 8 (the graphed ``throughput_batch`` and ``generate``)
 ``flash_attention`` exactly 42 x 4 prefills, all on the bf16 ``wgmma``
 kernel, and ``gqa_decode_attention`` exactly 42 x (31 + 21) decode steps (a
 graph replay adds the launches its capture recorded), and
-``fixture_copy`` over the analyzer's run of phase 9 (> 0).  Before the
+``fixture_copy`` over the analyzer's run of phase 9 (> 0), and
+``seg_combine`` again over phase 10's pipeline (> 0, all on ``bins``),
+added to its count.  Before the
 last line it prints one ``{"kernels": [...]}`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -961,7 +982,7 @@ def _phase9_analysis(timings, builds, torch):
         assert not new and baseline == set()
         assert not report.coverage_gaps, report.coverage_gaps
         assert set(report.skipped) == {t.name for t in analysis.iter_targets()} \
-            - {"hadoop-model", "hadoop-grad"}
+            - {"hadoop-model", "hadoop-grad", "calib-loss", "tuner-objective"}
         for name, why in report.skipped.items():
             print(f"   skipped target {name}: {why}")
         print(f"   selftest on the card: {self_s:.2f} s, "
@@ -1033,6 +1054,200 @@ def _phase9_analysis(timings, builds, torch):
     return copy
 
 
+class _Counted:
+    """An evaluator that counts its ``evaluate`` calls and passes everything
+    else through."""
+
+    def __init__(self, ev):
+        self.ev, self.calls = ev, 0
+
+    def __getattr__(self, name):
+        return getattr(self.ev, name)
+
+    def evaluate(self, overrides):
+        self.calls += 1
+        return self.ev.evaluate(overrides)
+
+
+def _calibrate_on_card(runs, costs, dev) -> dict:
+    """Phase 3's autodiff fit: ``fit_cost_factors_autodiff`` on the card
+    (float64), one calibration step under ``torch.profiler``, and both
+    fits' relative error on the fit runs.  Returns the readings."""
+    import numpy as np
+    import torch
+
+    from repro_torch.calib import Observation
+    from repro_torch.calib.fit import _stack_configs, build_loss_fn, build_step
+    from repro_torch.mapreduce.profiler import (_FIT_COLS,
+                                                fit_cost_factors_autodiff,
+                                                predict)
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.spec import JobSpec, hadoop_space
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    costs_ad, report = fit_cost_factors_autodiff(runs)
+    secs = time.perf_counter() - t0
+    print("   autodiff refinement on the card: " + report.summary().replace(
+        "\n", "\n      "))
+    space = hadoop_space()
+    for name, v in report.fitted.items():
+        ok = space[name].bounds_mask(np.asarray([v]))
+        assert np.isfinite(v) and (ok is None or ok.all()), (name, v)
+    assert report.loss <= report.initial_loss, (report.loss, report.initial_loss)
+
+    # one step, as calibrate takes it, under the profiler
+    obs = [Observation(spec=JobSpec(r.hp, r.stats, costs), cost=r.wall_s)
+           for r in runs]
+    cols = _stack_configs(obs, dtype=torch.float64, device=dev)
+    y = torch.tensor([o.cost for o in obs], dtype=torch.float64, device=dev)
+    loss_fn = build_loss_fn(cols, _FIT_COLS, y, torch.ones_like(y))
+    u = {n: torch.tensor(float(space[n].relax(getattr(costs, n))),
+                         dtype=torch.float64, device=dev) for n in _FIT_COLS}
+    step = build_step(loss_fn, _FIT_COLS, AdamWConfig(
+        peak_lr=0.05, warmup_steps=12, total_steps=250, weight_decay=0.0,
+        grad_clip_norm=10.0))
+    state = adamw_init(u)
+    wall, dev_ms, n_k, top, _ = _step_profile(lambda: step(u, state))
+    errs = {}
+    for label, c in (("lstsq", costs), ("autodiff", costs_ad)):
+        errs[label] = [abs(predict(r.hp, r.stats, c) - r.wall_s) / r.wall_s
+                       for r in runs]
+    steps_per_s = report.steps / secs
+    print(f"   {report.steps} steps + 2 loss evaluations in {secs:.3f} s "
+          f"({steps_per_s:.1f} steps/s); one step: {wall:.3f} ms wall, "
+          f"{dev_ms:.3f} ms of device time in {n_k} CUDA kernels (device idle "
+          f"{100 * (1 - dev_ms / wall):.1f} %)")
+    for label, e in errs.items():
+        print(f"   {label} fit, relative error on the 3 fit runs: "
+              + ", ".join(f"{x:.4f}" for x in e) + f" (mean {np.mean(e):.4f})")
+    return {"summary": report.summary(), "steps": report.steps,
+            "loss": report.loss, "initial_loss": report.initial_loss,
+            "seconds": secs, "steps_per_s": steps_per_s,
+            "step_wall_ms": wall, "step_device_ms": dev_ms,
+            "step_kernels": n_k, "fit_rel_err": errs}
+
+
+def _gradient_search(counted, ev, ev_cpu, space, spec, np) -> dict:
+    """Phase 4's gradient descent on the card beside the CPU's, and through
+    ``api.tune``.  Returns the readings."""
+    import repro_torch.api as api
+    from repro_torch.search import gradient_descent_ev
+
+    t0 = time.perf_counter()
+    grad = gradient_descent_ev(counted, space)
+    t_gd = time.perf_counter() - t0
+    calls, counted.calls = counted.calls, 0
+    again = ev.evaluate({k: [v] for k, v in grad.best_assignment.items()})
+    assert grad.best_cost == float(again.total_cost[0]), "cost not the evaluator's"
+    t0 = time.perf_counter()
+    grad_cpu = gradient_descent_ev(ev_cpu, space)
+    t_cpu = time.perf_counter() - t0
+    ps = ev.param_space
+    gap = 0.0
+    for k, v in grad_cpu.best_assignment.items():
+        got = grad.best_assignment[k]
+        if ps[k].kind in ("int", "bool"):
+            assert got == v, (k, got, v)
+        else:
+            np.testing.assert_allclose(got, v, rtol=1e-6)
+            gap = max(gap, abs(got - v) / abs(v))
+    np.testing.assert_allclose(grad.best_cost, grad_cpu.best_cost, rtol=1e-6)
+    gap = max(gap, abs(grad.best_cost - grad_cpu.best_cost) / grad_cpu.best_cost)
+    assert grad.evaluations == grad_cpu.evaluations
+    via_api = api.tune(spec, space, strategy="gradient")
+    assert (via_api.best_assignment, via_api.best_cost, via_api.evaluations) == \
+        (grad.best_assignment, grad.best_cost, grad.evaluations)
+    print(f"   gradient descent: {grad.best_assignment} {grad.best_cost:.3f} s, "
+          f"{grad.evaluations} evals in {calls} evaluator call(s), "
+          f"{t_gd:.3f} s on the card ({t_cpu:.3f} s on the host CPU; largest "
+          f"relative gap card vs CPU over the float axes and cost {gap:.3e}); "
+          "api.tune(strategy='gradient') equal")
+    return {"gradient_best_s": grad.best_cost, "gradient_rows": grad.evaluations,
+            "gradient_calls": calls, "gradient_wall_s": t_gd,
+            "gradient_cpu_wall_s": t_cpu, "card_vs_cpu_max_rel_gap": gap}
+
+
+def _phase10_distributed(timings, split, dev, torch, np) -> dict:
+    """Phase 10: the distributed pipeline over one NCCL rank, the words of
+    one split.  Returns the readings (``launches``: the pipeline's
+    ``seg_combine`` launches)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core.hadoop.params import HadoopParams
+    from repro_torch.kernels import seg_combine
+    from repro_torch.kernels.seg_combine import reduce_plan
+    from repro_torch.mapreduce import JOBS, MapReduceEngine, make_pipeline, wordcount_map
+
+    with _phase("10_distributed_shuffle", timings):
+        torch.cuda.set_device(dev)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                world_size=1, rank=0, device_id=dev)
+        try:
+            keys = torch.from_numpy(split[0].astype(np.int32)).to(dev)
+            values = torch.from_numpy(split[1]).to(dev)
+            pipe = make_pipeline(key_space=DIST_PARTS)
+            plain = make_pipeline(key_space=DIST_PARTS, use_kernel=False)
+            seg_combine.launches = 0
+            seg_combine.launches_by_variant = dict.fromkeys(
+                seg_combine.launches_by_variant, 0)
+            got = pipe(keys, values)
+            torch.cuda.synchronize()
+            launches = seg_combine.launches
+            by_route = dict(seg_combine.launches_by_variant)
+            assert launches > 0 and by_route["bins"] == launches, by_route
+            want = plain(keys, values)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+            job = JOBS["wordcount"]
+            n = keys.shape[0]
+            hp = HadoopParams(pNumMappers=1, pNumReducers=8, pUseCombine=True,
+                              pSplitSize=n * job.pair_width)
+            jc = MapReduceEngine(hp, job, use_kernel_combine=False).run_job(*split)
+            ok, ov = jc.output
+            dense = np.zeros(DIST_PARTS, np.float32)
+            np.add.at(dense, ok % DIST_PARTS, ov)
+            np.testing.assert_allclose(got.cpu().numpy(), dense, rtol=1e-5)
+
+            words, ones = wordcount_map(keys.cpu(), values.cpu(),
+                                        key_space=DIST_PARTS)
+            plan = reduce_plan(ones[:, None], words, DIST_PARTS)
+            assert plan.route == "bins" and plan.passes - plan.bins_passes <= 2, plan
+
+            # timings (their launches are not the pipeline run's)
+            counts = (seg_combine.launches, dict(seg_combine.launches_by_variant))
+            wall_ms = _host_median_ms(lambda: pipe(keys, values).sum().item())
+            plain_ms = _host_median_ms(lambda: plain(keys, values).sum().item())
+            p_wall, p_dev, p_k, top, _ = _step_profile(lambda: pipe(keys, values))
+            blocks = torch.ones((1, DIST_PARTS), device=dev)
+            recv = torch.empty_like(blocks)
+            a2a_ms = _median_ms(lambda: dist.all_to_all_single(recv, blocks))
+            seg_combine.launches, seg_combine.launches_by_variant = counts
+        finally:
+            dist.destroy_process_group()
+        print(f"   {n} records -> {ones.numel()} words, key_space {DIST_PARTS}, "
+              f"one NCCL rank: {launches} seg_combine launch(es), routes "
+              f"{by_route}; reduce_plan: {plan.bins_passes} of {plan.passes} "
+              f"passes into shared-memory bins, {plan.atomics} global atomics; "
+              "equal to index_add_ (rtol 1e-5) and the engine's dense sums")
+        print(f"   pipeline {wall_ms:.3f} ms on the host clock (median of 20; "
+              f"index_add_ pipeline {plain_ms:.3f} ms); under the profiler "
+              f"{p_wall:.3f} ms wall, {p_dev:.4f} ms of device time in {p_k} "
+              f"CUDA kernels: {top}; all_to_all_single of one (1, "
+              f"{DIST_PARTS}) fp32 block {a2a_ms:.4f} ms (CUDA events, median "
+              "of 50)")
+    return {"launches": launches, "routes": by_route, "passes": plan.passes,
+            "bins_passes": plan.bins_passes, "atomics": plan.atomics,
+            "wall_ms": wall_ms, "plain_wall_ms": plain_ms,
+            "profiled_wall_ms": p_wall, "device_ms": p_dev, "kernels": p_k,
+            "top_kernels": top, "all_to_all_ms": a2a_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1054,7 +1269,9 @@ def main() -> int:
     from repro_torch.kernels._build import build
     from repro_torch.kernels.seg_combine import seg_combine_torch
     from repro_torch.mapreduce import JOBS, MapReduceEngine, make_input
-    from repro_torch.mapreduce.profiler import fit_cost_factors, predict, run_measured
+    from repro_torch.mapreduce.profiler import (fit_cost_factors, predict,
+                                                prediction_error_from_runs,
+                                                run_measured)
     from repro_torch.search import (
         ChunkedEvaluator,
         WhatIfService,
@@ -1064,9 +1281,11 @@ def main() -> int:
         space_block,
         space_size,
     )
+    from repro_torch.spec import JobSpec
 
     dev = torch.device("cuda")
     timings: dict[str, float] = {}
+    readings: dict[str, dict] = {}
     kernel = {"name": "seg_combine", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/seg_combine.cu",
               "replaces": "src/repro/kernels/seg_combine.py:37"}
@@ -1238,6 +1457,7 @@ def main() -> int:
             print(f"   {f} = {v:.3e} s/unit")
         print(f"   sMapPairsSel={stats.sMapPairsSel:.3f} "
               f"sCombinePairsSel={stats.sCombinePairsSel:.4f}")
+        readings["calibration"] = _calibrate_on_card(runs, costs, dev)
 
     with _phase("4_search", timings):
         space = {
@@ -1274,9 +1494,11 @@ def main() -> int:
         assert [e.index for e in top.entries] == [e.index for e in top_cpu.entries]
         np.testing.assert_allclose([e.cost for e in top.entries],
                                    [e.cost for e in top_cpu.entries], rtol=1e-12)
+        counted = _Counted(ev)
         t0 = time.perf_counter()
-        tuned = coordinate_descent_ev(ev, space)
+        tuned = coordinate_descent_ev(counted, space)
         t_cd = time.perf_counter() - t0
+        cd_calls, counted.calls = counted.calls, 0
         assert tuned.best_cost >= top.best().cost * (1 - 1e-12)
         print(f"   grid {n_grid} configs: top-k median {rates[2]:,.0f} "
               f"configs/s on the card over 5 runs (min {rates[0]:,.0f}, max "
@@ -1284,7 +1506,14 @@ def main() -> int:
               f"host CPU; best {top.best().cost:.3f} s")
         print(f"   coordinate descent: {tuned.best_assignment} "
               f"{tuned.best_cost:.3f} s, {tuned.evaluations} evals in "
-              f"{t_cd:.3f} s ({tuned.evaluations / t_cd:,.0f} configs/s)")
+              f"{cd_calls} evaluator calls, {t_cd:.3f} s "
+              f"({tuned.evaluations / t_cd:,.0f} configs/s)")
+        readings["gradient_search"] = _gradient_search(
+            counted, ev, ev_cpu, space, JobSpec(hp, stats, costs), np)
+        readings["gradient_search"].update(
+            coordinate_best_s=tuned.best_cost, coordinate_rows=tuned.evaluations,
+            coordinate_calls=cd_calls, coordinate_wall_s=t_cd,
+            grid_best_s=top.best().cost)
 
     with _phase("5_service", timings):
         best = tuned.best_assignment
@@ -1321,6 +1550,26 @@ def main() -> int:
         print(f"   default: measured {before.wall_s:.3f} s, predicted "
               f"{pred_before:.3f} s; tuned: measured {after.wall_s:.3f} s, "
               f"predicted {pred_after:.3f} s")
+        fits = {}
+        for fit in ("lstsq", "autodiff"):
+            t0 = time.perf_counter()
+            fits[fit] = prediction_error_from_runs(runs, [before, after], fit=fit)
+            secs = time.perf_counter() - t0
+            rows = fits[fit]["rows"]
+            print(f"   {fit} fit on phase 3's runs: predicted "
+                  f"{rows[0]['predicted_s']:.3f} s (default) and "
+                  f"{rows[1]['predicted_s']:.3f} s (tuned) against measured "
+                  f"{before.wall_s:.3f} / {after.wall_s:.3f} s: mean relative "
+                  f"error {fits[fit]['mean_rel_err']:.4f}, max "
+                  f"{fits[fit]['max_rel_err']:.4f} ({secs:.2f} s)")
+        gap = fits["autodiff"]["mean_rel_err"] - fits["lstsq"]["mean_rel_err"]
+        print(f"   held-out mean relative error, autodiff - lstsq: {gap:+.4f} "
+              "(two runs; a reading, not a claim)")
+        readings["held_out"] = {
+            fit: {"mean_rel_err": r["mean_rel_err"], "max_rel_err": r["max_rel_err"],
+                  "predicted_s": [row["predicted_s"] for row in r["rows"]]}
+            for fit, r in fits.items()}
+        readings["held_out"]["measured_s"] = [before.wall_s, after.wall_s]
         sim_hp = hp_tuned.replace(pNumNodes=8, pNumMappers=64, pNumReducers=16)
         for label, sc in [
             ("clean", SimConfig(seed=7)),
@@ -1338,7 +1587,13 @@ def main() -> int:
     flash, decode = _phase7_attention(timings, builds, torch, np)
     _phase8_serving(timings, flash, decode, torch, np)
     copy = _phase9_analysis(timings, builds, torch)
+    readings["distributed"] = _phase10_distributed(timings, split,
+                                                   torch.device("cuda", 0), torch, np)
+    kernel["main_path_launches"] = kernel["launches"]
+    kernel["distributed_launches"] = readings["distributed"]["launches"]
+    kernel["launches"] += kernel["distributed_launches"]
 
+    print(json.dumps({"readings": readings}))
     print(json.dumps({"phases_s": timings}))
     print(json.dumps({"kernels": [kernel, flash, decode, copy]}))
     print(json.dumps({"ok": True, "device": {

@@ -441,6 +441,31 @@ class _Interp:
             return AbsValue(out, node)
         return AbsValue(FINITE_TOP, node)
 
+    def op_exp(self, node):
+        return AbsValue(self.read(node.args[0]).ival.monotone(math.exp), node)
+
+    def op_sigmoid(self, node):
+        a = self.read(node.args[0]).ival
+        return AbsValue(Interval(0.0, 1.0, True, True, a.maybe_nan), node)
+
+    def op_clamp(self, node):
+        a = self.read(node.args[0]).ival
+        lo, hi = (list(node.args[1:3]) + [None, None])[:2]
+        lo = node.kwargs.get("min", lo)
+        hi = node.kwargs.get("max", hi)
+        if lo is not None:
+            a = a.max_(Interval.point(float(lo)))
+        if hi is not None:
+            a = a.min_(Interval.point(float(hi)))
+        return AbsValue(a, node)
+
+    def op_sum(self, node):
+        # an n-term reduction: the hull of k * x for k in 0..n
+        src, out = node.args[0], node.meta.get("val")
+        n_in = src.meta["val"].numel() if self._is_node(src) else 1
+        n = n_in // max(out.numel(), 1) if out is not None else n_in
+        return AbsValue(self.read(src).ival.scale_by_count(n), node)
+
     # ---- domain-restricted unary ops ----
 
     def _domain_unary(self, node, kind, lo_bad, fn, nan_at=None):

@@ -15,10 +15,17 @@ Targets, the reference's (``repro/analysis/targets.py``):
   domain of :func:`repro_torch.spec.hadoop_space`.
 * ``hadoop-grad``   — the same graph cut to its ``j_totalCost`` output
   (``eliminate_dead_code``): the path gradient search differentiates.
-* ``calib-loss``, ``tuner-objective``, ``cluster-rollout``,
-  ``cloud-rollout``, ``cloud-pricing``, ``network-model`` — registered with
-  ``traceable=False``: the modules they trace are not ported yet, and each
-  ``skip_reason`` names the ``ROADMAP.md`` item it waits for.
+* ``calib-loss``    — :func:`repro_torch.calib.fit.build_loss_fn` over two
+  canonical observations, every Table-3 factor in its unconstrained space
+  (grad mode).
+* ``tuner-objective`` — the relaxed cost
+  :func:`repro_torch.search.strategies.build_relaxed_objective` gives
+  gradient search, over three axes in their unconstrained space (grad
+  mode).
+* ``cluster-rollout``, ``cloud-rollout``, ``cloud-pricing``,
+  ``network-model`` — registered with ``traceable=False``: the modules they
+  trace are not ported yet, and each ``skip_reason`` names the
+  ``ROADMAP.md`` item it waits for.
 * ``tpu-model``     — a pure-numpy table model, not traceable at all, as in
   the reference.
 """
@@ -31,7 +38,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from .interval import BOOL, Interval
+from .interval import BOOL, FINITE_TOP, Interval
 
 __all__ = ["TraceTarget", "Traced", "iter_targets", "trace_target",
            "cut_to_outputs"]
@@ -125,6 +132,63 @@ def _build_hadoop_grad(device):
     return cut, intervals, ("j_totalCost",), args
 
 
+def _canonical_observations():
+    from repro_torch.calib import Observation
+    from repro_torch.spec import JobSpec
+
+    return [Observation(spec=JobSpec(), cost=100.0 + 10.0 * i) for i in range(2)]
+
+
+def _build_calib_loss(device):
+    import torch
+
+    from repro_torch.calib.fit import COST_FACTOR_NAMES, _stack_configs, build_loss_fn
+
+    from .absint import trace
+
+    obs = _canonical_observations()
+    cols = _stack_configs(obs, dtype=torch.float64, device=device)
+    y = torch.tensor([o.cost for o in obs], dtype=torch.float64, device=device)
+    w = torch.tensor([o.weight for o in obs], dtype=torch.float64, device=device)
+    names = list(COST_FACTOR_NAMES)
+    loss = build_loss_fn(cols, names, y, w)
+
+    def fn(*us):
+        return loss(dict(zip(names, us)))
+
+    args = tuple(torch.zeros((), dtype=torch.float64, device=device)
+                 for _ in names)
+    # the unconstrained optimizer space
+    return trace(fn, *args), [FINITE_TOP for _ in names], ("loss",), args
+
+
+def _build_tuner_objective(device):
+    import torch
+
+    from repro_torch.core.hadoop.params import (CostFactors, HadoopParams,
+                                                ProfileStats)
+    from repro_torch.search.evaluator import ChunkedEvaluator
+    from repro_torch.search.strategies import build_relaxed_objective
+
+    from .absint import trace
+
+    ev = ChunkedEvaluator(HadoopParams(), ProfileStats(), CostFactors(),
+                          chunk=16, device=device)
+    space = {
+        "pSortMB": [50.0, 100.0, 200.0],
+        "pSortFactor": [5.0, 10.0, 50.0],
+        "pSpillPerc": [0.5, 0.8, 0.95],
+    }
+    raw_cost, _axes, keys = build_relaxed_objective(ev, space)
+
+    def fn(*us):
+        return raw_cost(dict(zip(keys, us)))
+
+    args = tuple(torch.zeros((), dtype=torch.float64, device=device)
+                 for _ in keys)
+    return trace(fn, *args), [FINITE_TOP for _ in keys], ("cost",), args
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -148,20 +212,15 @@ def iter_targets() -> list[TraceTarget]:
         ),
         TraceTarget(
             name="calib-loss",
-            doc="build_loss_fn over canonical observations",
+            doc="repro_torch.calib.build_loss_fn over canonical observations",
+            build=_build_calib_loss,
             grad_mode=True,
-            traceable=False,
-            skip_reason=_WAITS + "slice 1 deferred item 2: calib/ "
-                        "(build_loss_fn, calibrate) is not ported yet",
         ),
         TraceTarget(
             name="tuner-objective",
             doc="build_relaxed_objective raw cost (gradient_descent_ev)",
+            build=_build_tuner_objective,
             grad_mode=True,
-            traceable=False,
-            skip_reason=_WAITS + "slice 1 deferred item 1: "
-                        "build_relaxed_objective and gradient_descent_ev are "
-                        "not ported yet",
         ),
         TraceTarget(
             name="cluster-rollout",

@@ -6,8 +6,10 @@
   evaluation on one device (bit-for-bit equal to the unchunked path) + the
   ``valid == 0`` -> exact-simulator escape hatch.
 * :mod:`~repro_torch.search.topk`       — streaming top-k merging.
-* :mod:`~repro_torch.search.strategies` — grid / random / coordinate-descent
-  search over any evaluator.
+* :mod:`~repro_torch.search.strategies` — grid / random / coordinate-descent /
+  gradient-descent search over any evaluator (gradient descent relaxes the
+  space continuously and differentiates the model itself, falling back
+  loudly on non-differentiable backends).
 * :mod:`~repro_torch.search.service`    — async what-if query service:
   concurrent probes/sweeps/grids coalesced into shared evaluator chunks.
 """
@@ -18,8 +20,10 @@ from .evaluator import (
     Evaluator,
     ExactCostUnavailable,
     InvalidGridError,
+    NotDifferentiableError,
     SearchResult,
     apply_assignment,
+    cached_evaluator,
     evaluate_unchunked,
     masked_total,
     sanitize_costs,
@@ -28,8 +32,12 @@ from .grid import assignment_at, iter_blocks, sample_space, space_block, space_s
 from .service import PhaseQueryResult, QueryResult, QueryStats, WhatIfService
 from .strategies import (
     TuningResult,
+    coordinate_descent,
     coordinate_descent_ev,
+    gradient_descent_ev,
+    grid_search,
     grid_search_ev,
+    random_search,
     random_search_ev,
     search_topk,
 )
@@ -38,10 +46,12 @@ from .topk import TopKAccumulator, TopKEntry, TopKResult
 __all__ = [
     "ExactCostUnavailable",
     "InvalidGridError",
+    "NotDifferentiableError",
     "SearchResult",
     "BlockTopK",
     "Evaluator",
     "ChunkedEvaluator",
+    "cached_evaluator",
     "evaluate_unchunked",
     "apply_assignment",
     "sanitize_costs",
@@ -56,11 +66,17 @@ __all__ = [
     "TopKAccumulator",
     "TuningResult",
     "search_topk",
+    "grid_search",
     "grid_search_ev",
+    "random_search",
     "random_search_ev",
+    "coordinate_descent",
     "coordinate_descent_ev",
+    "gradient_descent_ev",
     "WhatIfService",
     "QueryResult",
     "QueryStats",
     "PhaseQueryResult",
 ]
+# The reference also exports its TPU step model (TpuEvaluator, mesh_space,
+# tune_tpu); that waits for ROADMAP.md queue 1, item 19.

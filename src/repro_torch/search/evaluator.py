@@ -21,13 +21,18 @@ Differences from the reference package's evaluator: PyTorch runs eagerly,
 so there is no compiled executable to cache and no compile counter
 (``eval_cache_size`` / ``topk_cache_size`` and the "xla compile" trace
 instants have no counterpart); chunks run on one device (splitting them
-across several CUDA devices is later work).  The gradient-search hooks of
-the reference's evaluators (``grad_objective``, ``param_space``) come with
-gradient search.
+across several CUDA devices is ``ROADMAP.md`` queue 1, item 5).
+
+Every evaluator exposes ``param_space`` and ``grad_objective``, the hooks of
+gradient search (:func:`repro_torch.search.gradient_descent_ev`): the
+Hadoop evaluator's objective is the job model under autograd, on the
+evaluator's own device and dtype; a backend without a differentiable cost
+raises :class:`NotDifferentiableError`.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping
@@ -40,16 +45,18 @@ from repro_torch.core.hadoop.model import job_model_torch, pack_config
 from repro_torch.core.hadoop.params import CostFactors, HadoopParams, ProfileStats
 from repro_torch.core.hadoop.simulator import SimConfig, simulate_job
 from repro_torch.obs import current as _obs_current
-from repro_torch.spec import CostReport, JobSpec, hadoop_space
+from repro_torch.spec import CostReport, JobSpec, ParamSpace, hadoop_space
 from repro_torch.spec.report import VALIDITY_CONSTRAINTS
 
 __all__ = [
     "InvalidGridError",
     "ExactCostUnavailable",
+    "NotDifferentiableError",
     "SearchResult",
     "BlockTopK",
     "Evaluator",
     "ChunkedEvaluator",
+    "cached_evaluator",
     "evaluate_unchunked",
     "apply_assignment",
     "split_overrides",
@@ -61,6 +68,15 @@ __all__ = [
 
 class InvalidGridError(ValueError):
     """Every configuration in the evaluated grid was invalid (no finite cost)."""
+
+
+class NotDifferentiableError(TypeError):
+    """This backend's cost is not a differentiable function of its knobs.
+
+    Raised by :meth:`Evaluator.grad_objective` on backends whose cost comes
+    from a simulation or table lookup.  Gradient-based strategies catch it
+    and fall back — loudly — to a zeroth-order strategy.
+    """
 
 
 class ExactCostUnavailable(ValueError):
@@ -180,6 +196,31 @@ class Evaluator:
         ``None`` for backends without a phase decomposition."""
         return None
 
+    @property
+    def param_space(self) -> ParamSpace | None:
+        """Declarative description of this backend's searchable axes
+        (:class:`repro_torch.spec.ParamSpace`), or ``None`` if undeclared."""
+        return None
+
+    def grad_objective(self):
+        """Differentiable objective, for gradient strategies.
+
+        Returns ``fn({key: tensor}) -> (cost, valid)`` where ``cost`` is
+        the *raw* (unmasked) model cost — differentiable w.r.t. every float
+        override under autograd — and ``valid`` the model's validity flag
+        (0/1, no useful gradient).  The overrides may be 0-d or share one
+        length B (rows of one batched call: the model is row-wise, so the
+        gradient of the summed cost is each row's own), on the evaluator's
+        ``device`` in its ``dtype``, which a backend with an objective
+        declares.  Backends whose cost is not a differentiable function of
+        the knobs raise :class:`NotDifferentiableError` instead; callers
+        must catch it and fall back loudly.
+        """
+        raise NotDifferentiableError(
+            f"{type(self).__name__} does not expose a differentiable "
+            "objective; use a zeroth-order strategy (grid/random/descent)"
+        )
+
     def chunk_topk(self, overrides: Mapping[str, np.ndarray], k: int) -> "BlockTopK":
         """Top-k of one block: the k cheapest valid configs and the k
         cheapest invalid configs (ranked by raw model cost)."""
@@ -290,11 +331,23 @@ class ChunkedEvaluator(Evaluator):
         #: typed view of the base configuration (repro_torch.spec.JobSpec)
         self.spec = JobSpec(p, s, c)
         self.device = resolve_device(device)
+        self.dtype = dtype
         #: packed base config (flat key -> 0-d tensor on ``device``); public
         #: so callers can drive evaluate_unchunked against the same base
         self.base_cfg = pack_config(p, s, c, dtype=dtype, device=self.device)
         self._model_fn = model_fn
         self.chunk = max(chunk, 1)
+
+    @classmethod
+    def from_spec(cls, spec: JobSpec, **kw) -> "ChunkedEvaluator":
+        """Construct from a typed :class:`repro_torch.spec.JobSpec` — the
+        typed spelling of ``ChunkedEvaluator(p, s, c)``."""
+        return cls(spec.params, spec.stats, spec.costs, **kw)
+
+    @property
+    def param_space(self) -> ParamSpace:
+        """The paper's Tables-1-3 axes (:func:`repro_torch.spec.hadoop_space`)."""
+        return hadoop_space()
 
     def _split(self, overrides: Mapping[str, Any]):
         return split_overrides(self.base_cfg, overrides)
@@ -398,9 +451,41 @@ class ChunkedEvaluator(Evaluator):
             {name: int(c) for name, c in zip(names, counts[1:]) if c},
         )
 
+    def grad_objective(self):
+        """The job model as a differentiable objective: the branch-free
+        equations with straight-through round counts, on the base config
+        plus the given overrides (tensors on this evaluator's device, in
+        its dtype).  Same ``model_fn`` as the chunked path, so the value at
+        any point agrees with :meth:`evaluate`."""
+        base = self.base_cfg
+        model_fn = self._model_fn
+        cost_key = self.cost_key
+
+        def objective(overrides: Mapping[str, torch.Tensor]):
+            out = model_fn({**base, **overrides})
+            return out[cost_key], out["valid"]
+
+        return objective
+
     def exact_cost(self, assignment: Mapping[str, float]) -> float:
         """Escape hatch for ``valid == 0``: exact task-scheduler simulation
         (paper §5 way (i)); its per-task merge accounting uses the exact
         merge simulation, so it has no closed-form domain restriction."""
         p2, s2, c2 = apply_assignment(*self._psc, assignment)
         return float(simulate_job(p2, s2, c2, SimConfig()).makespan)
+
+
+# The parameter dataclasses are frozen (hashable), so repeated calls through
+# the whatif/tuner/api paths with the same base config, device and dtype
+# reuse one evaluator.
+@functools.lru_cache(maxsize=16)
+def cached_evaluator(
+    p: HadoopParams,
+    s: ProfileStats,
+    c: CostFactors,
+    chunk: int | None = None,
+    device=None,
+    dtype: torch.dtype = torch.float64,
+) -> ChunkedEvaluator:
+    kw = {} if chunk is None else {"chunk": chunk}
+    return ChunkedEvaluator(p, s, c, device=device, dtype=dtype, **kw)

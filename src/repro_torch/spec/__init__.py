@@ -8,7 +8,12 @@
   from the flat ``pack_config`` dict.
 * :mod:`~repro_torch.spec.report` — :class:`PhaseBreakdown` /
   :class:`CostReport`: the model's flat outputs lifted into typed per-phase
-  costs with disaggregated validity.
+  costs with disaggregated validity; :class:`CalibrationReport`: one fit of
+  :func:`repro_torch.calib.calibrate`.
+
+The public surface of this package and of :mod:`repro_torch.api` is frozen
+in ``manifest.json`` beside this file and guarded by
+``tests/test_torch_tuning.py``.
 """
 
 from .axes import Axis, ParamSpace, Predicate, hadoop_space
@@ -16,6 +21,7 @@ from .job import JobSpec
 from .report import (
     PHASES,
     VALIDITY_CONSTRAINTS,
+    CalibrationReport,
     CostReport,
     PhaseBreakdown,
     invalid_reason_counts,
@@ -30,6 +36,7 @@ __all__ = [
     "JobSpec",
     "PhaseBreakdown",
     "CostReport",
+    "CalibrationReport",
     "PHASES",
     "VALIDITY_CONSTRAINTS",
     "invalid_reason_counts",

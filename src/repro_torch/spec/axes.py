@@ -19,8 +19,10 @@ of truth for
   knobs, and is surfaced by :class:`repro_torch.spec.report.CostReport`
   instead.)
 
-The continuous relaxation of the reference package (``Axis.relax`` /
-``Axis.project``) comes with its consumers, gradient search and calibration.
+Each axis also carries a continuous relaxation (:meth:`Axis.relax` /
+:meth:`Axis.project`): the unconstrained space that calibration
+(:mod:`repro_torch.calib`) and gradient search
+(:func:`repro_torch.search.gradient_descent_ev`) descend in.
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ from dataclasses import dataclass
 from typing import Callable, Iterator, Mapping, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.core.hadoop.merge_math import ste_round
 from repro_torch.core.hadoop.params import CostFactors, HadoopParams, ProfileStats
 
 __all__ = ["Axis", "Predicate", "ParamSpace", "hadoop_space"]
@@ -93,6 +97,60 @@ class Axis:
         if self.upper is not None:
             ok &= v <= self.upper
         return ok
+
+    # ---------------- continuous relaxation ----------------
+
+    def _relax_bounds(self) -> tuple[float | None, float | None]:
+        # Boolean axes carry no declared bounds; their relaxation lives on
+        # (0, 1) and rounds straight-through back to {0, 1}.
+        if self.kind == "bool":
+            return 0.0, 1.0
+        lo = None if self.lower is None else float(self.lower)
+        hi = None if self.upper is None else float(self.upper)
+        return lo, hi
+
+    def relax(self, value) -> np.ndarray:
+        """Physical value -> unconstrained real (host-side, numpy).
+
+        Inverse of :meth:`project` up to rounding: two-sided bounds use the
+        logit, one-sided bounds the log offset (well-conditioned for cost
+        factors spanning 1e-9..1e-7), unbounded axes the identity.  Values
+        at a closed bound are nudged into the interior so the inverse stays
+        finite.
+        """
+        v = np.asarray(value, dtype=np.float64)
+        lo, hi = self._relax_bounds()
+        if lo is not None and hi is not None:
+            frac = np.clip((v - lo) / (hi - lo), 1e-9, 1.0 - 1e-9)
+            return np.log(frac) - np.log1p(-frac)
+        if lo is not None:
+            return np.log(np.maximum(v - lo, 1e-30))
+        if hi is not None:
+            return np.log(np.maximum(hi - v, 1e-30))
+        return v
+
+    def project(self, u: torch.Tensor) -> torch.Tensor:
+        """Unconstrained real -> differentiable in-domain value (a tensor).
+
+        The forward map of the relaxation: sigmoid for two-sided bounds,
+        ``bound +/- exp(u)`` for one-sided, identity when unbounded.
+        ``int``/``bool`` axes additionally round straight-through
+        (:func:`repro_torch.core.hadoop.merge_math.ste_round`): the forward
+        value is an exact integer while the gradient treats the axis as
+        continuous.
+        """
+        lo, hi = self._relax_bounds()
+        if lo is not None and hi is not None:
+            v = lo + (hi - lo) * torch.sigmoid(u)
+        elif lo is not None:
+            v = lo + torch.exp(u)
+        elif hi is not None:
+            v = hi - torch.exp(u)
+        else:
+            v = u
+        if self.kind in ("int", "bool"):
+            v = ste_round(v)
+        return v
 
     def check_values(self, values: Sequence[float]) -> None:
         """Raise ``ValueError`` on candidate values outside the axis domain."""

@@ -22,9 +22,12 @@ their metadata:
 Leaves are numpy arrays or torch tensors, whichever the outputs were; a
 batched report is a report whose leaves are ``(B,)`` columns.
 ``total_cost`` is the model's ``j_totalCost`` *by reference* — the typed
-path is bit-for-bit the dict path.  The reference package's
-``ProvisioningReport``, ``DagReport`` and ``CalibrationReport`` come with
-their consumers.
+path is bit-for-bit the dict path.
+
+:class:`CalibrationReport` decomposes one model *fit*
+(:func:`repro_torch.calib.calibrate`).  The reference package's
+``ProvisioningReport`` and ``DagReport`` come with the cluster and cloud
+layers (``ROADMAP.md`` queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 __all__ = [
     "PhaseBreakdown",
     "CostReport",
+    "CalibrationReport",
     "PHASES",
     "VALIDITY_CONSTRAINTS",
     "invalid_reason_counts",
@@ -250,6 +254,64 @@ class CostReport:
                 + "; ".join(self.invalid_reasons())
             )
         return int(np.argmin(cost))
+
+
+@dataclass(frozen=True)
+class CalibrationReport:
+    """Result of one gradient-calibration run (:mod:`repro_torch.calib`).
+
+    The calibration counterpart of :class:`CostReport`: where a cost report
+    decomposes one model *evaluation*, a calibration report decomposes one
+    model *fit* — which parameters moved, from where to where, and how much
+    of the observation error the fit removed.  Host-side values (plain
+    floats): a report is what a fit returns, not what flows through the
+    model.
+    """
+
+    fitted: dict[str, float]          # parameter name -> fitted value
+    initial: dict[str, float]         # parameter name -> starting value
+    loss: float                       # final loss (mean squared rel. error)
+    initial_loss: float               # loss at the starting point
+    steps: int                        # optimizer steps taken
+    n_observations: int               # (JobSpec, cost) pairs fitted against
+    loss_history: tuple[float, ...] = ()   # sampled loss trace
+    #: grad-norm trace sampled at the same cadence as ``loss_history``
+    #: (without the initial-point entry loss_history leads with)
+    grad_norm_history: tuple[float, ...] = ()
+    #: model evaluations the fit spent (loss/grad calls, incl. endpoints)
+    n_model_evals: int = 0
+
+    @property
+    def param_names(self) -> tuple[str, ...]:
+        return tuple(self.fitted)
+
+    def improvement(self) -> float:
+        """Fraction of the initial loss removed by the fit (0..1)."""
+        if self.initial_loss <= 0.0:
+            return 0.0
+        return 1.0 - self.loss / self.initial_loss
+
+    def delta(self, name: str) -> float:
+        """Relative movement of one parameter from its starting value."""
+        init = self.initial[name]
+        if init == 0.0:
+            return float("inf") if self.fitted[name] != 0.0 else 0.0
+        return self.fitted[name] / init - 1.0
+
+    def summary(self, top: int = 5) -> str:
+        """A short human-readable fit digest (for logs and benchmarks)."""
+        moved = sorted(
+            self.fitted, key=lambda k: abs(self.delta(k)), reverse=True)
+        lines = [
+            f"calibrated {len(self.fitted)} parameter(s) over "
+            f"{self.n_observations} observation(s) in {self.steps} steps: "
+            f"loss {self.initial_loss:.3e} -> {self.loss:.3e} "
+            f"({100.0 * self.improvement():.1f}% improvement)"
+        ]
+        for k in moved[:top]:
+            lines.append(
+                f"  {k}: {self.initial[k]:.4g} -> {self.fitted[k]:.4g}")
+        return "\n".join(lines)
 
 
 def invalid_reason_counts(

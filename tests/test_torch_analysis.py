@@ -367,8 +367,15 @@ def test_no_coverage_gaps_on_the_traced_models(full_report):
 def test_report_covers_the_reference_targets_and_says_why_it_skips(full_report):
     names = [t.name for t in t_an.iter_targets()]
     assert names == [t.name for t in j_an.iter_targets()]
-    traced = {"hadoop-model", "hadoop-grad"}
+    traced = {"hadoop-model", "hadoop-grad", "calib-loss", "tuner-objective"}
     assert set(full_report.skipped) == set(names) - traced
+    # calibration's loss and gradient search's relaxed cost trace, in grad
+    # mode, with no finding and no coverage gap
+    by_name = {t.name: t for t in t_an.iter_targets()}
+    for name in ("calib-loss", "tuner-objective"):
+        assert by_name[name].traceable and by_name[name].grad_mode
+        assert not [f for f in full_report.findings if f.target == name], name
+        assert name not in full_report.coverage_gaps
     for name, why in full_report.skipped.items():
         assert "ROADMAP.md" in why and "item" in why, (name, why)
 

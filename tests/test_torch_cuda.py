@@ -209,3 +209,72 @@ def test_fixture_copy_faulty_grid_leaves_400_nan_on_the_card(cuda_device):
     from repro_torch.analysis.fixtures import bad_launch_probes, confirm_unwritten
 
     assert confirm_unwritten(bad_launch_probes()[0], cuda_device) == 400
+
+
+# ------------------------------------------------- calibration, shuffle
+
+@pytest.mark.cuda
+def test_one_calibration_step_on_the_card_equals_the_cpu_step(cuda_device):
+    # the loss, its gradient and one AdamW step through the job model in
+    # float64, on the card against the CPU, at rtol 1e-9
+    from repro_torch.calib import COST_FACTOR_NAMES, Observation
+    from repro_torch.calib.fit import _stack_configs, build_loss_fn
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.spec import JobSpec, hadoop_space
+
+    base = JobSpec().replace(pNumNodes=8, pNumMappers=64, pNumReducers=16)
+    obs = [Observation(spec=base.replace(pSortMB=mb), cost=cost)
+           for mb, cost in ((32.0, 300.0), (64.0, 280.0), (128.0, 260.0))]
+    names = list(COST_FACTOR_NAMES)
+    space = hadoop_space()
+    cfg = AdamWConfig(peak_lr=0.1, warmup_steps=1, total_steps=10,
+                      weight_decay=0.0, grad_clip_norm=10.0)
+    results = []
+    for dev in (torch.device("cpu"), cuda_device):
+        cols = _stack_configs(obs, dtype=torch.float64, device=dev)
+        y = torch.tensor([o.cost for o in obs], dtype=torch.float64, device=dev)
+        loss_fn = build_loss_fn(cols, names, y, torch.ones_like(y))
+        u = {n: torch.tensor(float(space[n].relax(obs[0].spec[n])),
+                             dtype=torch.float64, device=dev, requires_grad=True)
+             for n in names}
+        loss = loss_fn(u)
+        grads = dict(zip(names, torch.autograd.grad(loss, [u[n] for n in names])))
+        plain = {n: v.detach() for n, v in u.items()}
+        new_u, _, _ = adamw_update(grads, adamw_init(plain), plain, cfg)
+        results.append((float(loss.detach()), [float(grads[n]) for n in names],
+                        [float(new_u[n]) for n in names]))
+    (l_cpu, g_cpu, u_cpu), (l_gpu, g_gpu, u_gpu) = results
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-9)
+    np.testing.assert_allclose(g_gpu, g_cpu, rtol=1e-9, atol=1e-300)
+    np.testing.assert_allclose(u_gpu, u_cpu, rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_nccl_pipeline_combines_into_shared_bins(cuda_device):
+    # one NCCL rank: the shuffle's collective really runs; the combine of
+    # one 128 MiB split's words (unsorted, P 8,192) takes the bins route and
+    # sends all but a few of its passes into shared-memory bins
+    import torch.distributed as dist
+
+    from repro_torch.mapreduce import JOBS, make_input, make_pipeline, wordcount_map
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=cuda_device)
+    try:
+        keys, values = make_input(JOBS["wordcount"], 335_544)
+        keys = keys.astype(np.int32)
+        before = dict(seg_combine.launches_by_variant)
+        got = make_pipeline(key_space=8192)(keys, values)
+        plain = make_pipeline(key_space=8192, use_kernel=False)(keys, values)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    after = seg_combine.launches_by_variant
+    assert after["bins"] == before["bins"] + 1
+    assert {k: after[k] - before[k] for k in after if k != "bins"} == \
+        {k: 0 for k in after if k != "bins"}
+    torch.testing.assert_close(got.cpu(), plain.cpu(), rtol=1e-5, atol=0)
+    words, ones = wordcount_map(torch.from_numpy(keys), torch.from_numpy(values),
+                                key_space=8192)
+    plan = reduce_plan(ones[:, None], words, 8192)
+    assert plan.route == "bins" and plan.passes - plan.bins_passes <= 2

@@ -8,7 +8,7 @@ the CPU):
 keys exact, values at rtol 1e-5, the twin of the reference's
 ``test_combiner_pallas_equals_numpy``.  The least-squares fit gives the
 reference's factors at rtol 1e-12 on runs with identical counters and
-phase times.
+phase times; the autodiff refinement gives the reference's at rtol 1e-6.
 """
 
 import dataclasses
@@ -151,9 +151,23 @@ def test_prediction_error_from_runs_equal_reference():
         [j for _, j in fit], [j for _, j in test], fit="lstsq")
     assert got["mean_rel_err"] == pytest.approx(want["mean_rel_err"], rel=1e-9)
     assert got["calibration"] is None
+    # the autodiff fit on the same runs: factors, calibration and held-out
+    # error at rtol 1e-6 (AdamW's float32 arithmetic, as in the reference)
+    got = t_profiler.prediction_error_from_runs(
+        [t for t, _ in fit], [t for t, _ in test], fit="autodiff", steps=60,
+        device="cpu")
+    want = j_profiler.prediction_error_from_runs(
+        [j for _, j in fit], [j for _, j in test], fit="autodiff", steps=60)
+    assert got["fit"] == "autodiff" and got["calibration"].steps == 60
+    for f, v in dataclasses.asdict(want["costs"]).items():
+        assert getattr(got["costs"], f) == pytest.approx(v, rel=1e-6, abs=0), f
+    assert got["calibration"].loss == pytest.approx(want["calibration"].loss,
+                                                    rel=1e-6)
+    assert got["calibration"].loss <= got["calibration"].initial_loss
+    assert got["mean_rel_err"] == pytest.approx(want["mean_rel_err"], rel=1e-6)
     with pytest.raises(ValueError, match="lstsq"):
         t_profiler.prediction_error_from_runs(
-            [t for t, _ in fit], [t for t, _ in test], fit="autodiff")
+            [t for t, _ in fit], [t for t, _ in test], fit="newton")
 
 
 def test_prediction_error_combines_on_the_requested_device():
