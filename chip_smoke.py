@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three paths once on one CUDA card.
+"""Drive the PyTorch port's four paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 The job-tuning path, through the port's own entry points, at Hadoop's
 default sizes (``dfs.block.size`` 128 MiB splits of 400-byte wordcount
 records, ``io.sort.mb`` 100, so each map task spills 262,144-pair buffers),
-the LM serving path at gemma2-9b's published width, and the static analyzer
-over the port's job model and kernel launches:
+the LM serving path at gemma2-9b's published width, the static analyzer
+over the port's job model and kernel launches, and the capacity planner
+with cloud provisioning at the reference benchmarks' full settings:
 
   0. print the card (``nvidia-smi``) and build the five CUDA sources
      (``seg_combine``, ``flash_attention_wgmma`` (bf16) and
@@ -92,7 +93,24 @@ over the port's job model and kernel launches:
      ``key_space`` 8,192): equal to the plain ``index_add_`` pipeline and to
      the engine's dense sums; every ``seg_combine`` launch on the ``bins``
      route, ``reduce_plan`` sending all but a few passes into shared bins;
-     its wall time, device time and kernels, and the collective's time.
+     its wall time, device time and kernels, and the collective's time;
+ 11. drive the capacity planner and cloud provisioning (64 Poisson jobs over
+     the 4-class mix, seed 3): the DES<->wave agreement rows (finish times at
+     rtol 1e-3 without contention and for the big/small preemption rows, p95
+     within 15 % on the contended mixes and the rack incast bursts); a
+     planner batch of 2,048 scenarios in two policy groups on the card
+     (scenarios/s, host clock, median of 3, beside the DES's over 6; rounds
+     against ``n_steps``; one batch under ``torch.profiler`` for kernels a
+     round, device time and idle share), every row converged; the same
+     knobs under all four schedulers with heterogeneous fleets, 64 of the
+     rows equal to the port's CPU rollout at rtol 1e-9; ``api.tune
+     ("cluster")`` over the capacity example's grid (top-k, chunk 256), its
+     winner re-costed on the DES; ``CloudEvaluator`` at batch 256 (configs/s,
+     the Pareto front) and wave dollars against DES dollars at rtol 1e-3;
+     and ``ChunkedEvaluator(devices=[cuda:0, cuda:0])`` over phase 4's first
+     chunk, equal to one device bit for bit.  Slice 4 launches no kernel:
+     the four counts are zeroed before it, must read 0 after, and are put
+     back.
 
 Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
@@ -982,7 +1000,8 @@ def _phase9_analysis(timings, builds, torch):
         assert not new and baseline == set()
         assert not report.coverage_gaps, report.coverage_gaps
         assert set(report.skipped) == {t.name for t in analysis.iter_targets()} \
-            - {"hadoop-model", "hadoop-grad", "calib-loss", "tuner-objective"}
+            - {"hadoop-model", "hadoop-grad", "calib-loss", "tuner-objective",
+               "network-model", "cloud-pricing"}
         for name, why in report.skipped.items():
             print(f"   skipped target {name}: {why}")
         print(f"   selftest on the card: {self_s:.2f} s, "
@@ -1246,6 +1265,406 @@ def _phase10_distributed(timings, split, dev, torch, np) -> dict:
             "wall_ms": wall_ms, "plain_wall_ms": plain_ms,
             "profiled_wall_ms": p_wall, "device_ms": p_dev, "kernels": p_k,
             "top_kernels": top, "all_to_all_ms": a2a_ms}
+
+# phase 11: the capacity planner's settings (the reference's cluster and cloud
+# benchmarks, full mode): 64 Poisson jobs over the 4-class mix, seed 3; a
+# planner batch of 2,048 scenarios over these knobs; the cloud batch of 256
+PLANNER_BATCH = 2048
+PLANNER_JOBS = 64
+CLOUD_BATCH = 256
+
+
+def _wave_rows(cols, nodes, mpn, rpn, policy, slowstart, rate, *, fast=None,
+               speedup=None, queue_frac=None, topo=None):
+    """(B,)-arrays of cluster knobs + one packed trace -> a wave scenario
+    batch; ``fast``/``speedup`` describe a two-class fleet (fast nodes +
+    baseline remainder), ``topo`` a (racks, cross_bw, oversub) row each."""
+    import numpy as np
+
+    b = len(nodes)
+    tile = lambda a: np.tile(a, (b, 1))
+    frac = (nodes - 1.0) / nodes
+    scen = {
+        "arrival": tile(cols["arrival"]) / rate[:, None],
+        "n_maps": tile(cols["n_maps"]), "n_reds": tile(cols["n_reds"]),
+        "map_cost": tile(cols["map_cost"]), "red_work": tile(cols["red_work"]),
+        "shuffle": tile(cols["shuffle"]) * frac[:, None],
+        "queue": tile(cols["queue"]), "policy": policy, "slowstart": slowstart,
+    }
+    if topo is not None:
+        scen["topo_racks"], scen["topo_cross_bw"], scen["topo_oversub"] = topo
+    if fast is None:
+        scen["map_slots"] = nodes * mpn
+        scen["red_slots"] = nodes * rpn
+    else:
+        speedup = np.ones(b) if speedup is None else speedup
+        scen["map_slots"] = np.stack([fast * mpn, (nodes - fast) * mpn], 1)
+        scen["red_slots"] = np.stack([fast * rpn, (nodes - fast) * rpn], 1)
+        scen["speedup"] = np.stack([speedup, np.ones(b)], 1)
+    if queue_frac is not None:
+        scen["queue_frac"] = np.tile(np.asarray(queue_frac), (b, 1))
+    return scen
+
+
+def _take_rows(scen, idx):
+    return {k: v[idx] for k, v in scen.items()}
+
+
+def _phase11_cluster_cloud(timings, search, torch, np) -> dict:
+    """Phase 11: the capacity planner and cloud provisioning on the card
+    (slice 4; no TPU kernel on its path).  ``search`` is phase 4's
+    (evaluator, space, HadoopParams, ProfileStats, CostFactors), for the
+    split-chunk check.  Returns the readings."""
+    from repro_torch import api
+    from repro_torch.cloud import (CloudEvaluator, ElasticFleet, bill_workload,
+                                   pareto_front, wave_columns)
+    from repro_torch.cluster import (ClusterConfig, JobArrival, JobClass,
+                                     NodeClass, Topology, WorkloadTrace,
+                                     default_job_classes, estimate_steps,
+                                     pack_trace, poisson_trace, rescale,
+                                     simulate_batch, simulate_workload)
+    from repro_torch.core.hadoop.params import (CostFactors, HadoopParams,
+                                                ProfileStats)
+    from repro_torch.core.hadoop.simulator import SimConfig
+    from repro_torch.kernels import (fixture_copy, flash_attention,
+                                     gqa_decode_attention, seg_combine)
+    from repro_torch.obs import observe
+    from repro_torch.search import ChunkedEvaluator, space_block
+
+    dev = torch.device("cuda", 0)
+    clean = SimConfig(speculative_execution=False)
+    wrappers = (seg_combine, flash_attention, gqa_decode_attention, fixture_copy)
+    r: dict = {}
+    with _phase("11_cluster_and_cloud", timings):
+        saved = [w.launches for w in wrappers]
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        classes = default_job_classes()
+        by_name = {c.name: c for c in classes}
+        trace = poisson_trace(classes, PLANNER_JOBS, rate=1.0, seed=3)
+        cols = pack_trace(trace)
+        one = lambda x: np.array([float(x)])
+
+        # -- agreement with the port's DES (the reference's gates) --
+        def fleet(n, mpn, rpn, pol, ss, fast=0, spd=1.0, topo=None):
+            nc = ()
+            if fast > 0 and spd > 1.0:
+                nc = (NodeClass(fast, spd),) + (
+                    (NodeClass(n - fast, 1.0),) if n > fast else ())
+            return ClusterConfig(
+                num_nodes=n, map_slots_per_node=mpn, reduce_slots_per_node=rpn,
+                scheduler=("fifo", "fair", "fair_preempt", "capacity")[pol],
+                reduce_slowstart=ss, node_classes=nc, preempt_timeout=0.0,
+                topology=topo)
+
+        big = JobClass("batch", HadoopParams(pNumMappers=64, pNumReducers=8,
+                                             pSplitSize=64 * 1024 * 1024),
+                       ProfileStats(), CostFactors())
+        small = JobClass("adhoc", HadoopParams(pNumMappers=4, pNumReducers=1,
+                                               pSplitSize=64 * 1024 * 1024),
+                         ProfileStats(), CostFactors())
+        big_small = WorkloadTrace((JobArrival(0, big, 0.0),
+                                   JobArrival(1, small, 30.0)))
+        tight = Topology(num_racks=4, cross_rack_bw=0.5, oversub=2.0)
+        burst = WorkloadTrace((JobArrival(0, by_name["sort"], 0.0),
+                               JobArrival(1, by_name["filter"], 2.0)))
+        fair_burst = WorkloadTrace(tuple(
+            JobArrival(i, by_name["filter"], 0.0) for i in range(3)))
+        one_sort = WorkloadTrace((JobArrival(0, by_name["sort"], 0.0),))
+        # (label, trace, nodes, mpn, rpn, policy, rate, fast, speedup,
+        #  queue_frac, topology, gate): gate "rtol" = finish at rtol 1e-3,
+        #  "p95" = p95 within 15 %, None = reported
+        rows = [
+            ("serialized", trace, 4, 2, 2, 0, 0.002, 0, 1.0, None, None, "rtol"),
+            ("uncontended", trace, 64, 2, 2, 0, 0.1, 0, 1.0, None, None, "rtol"),
+            ("het uncontended", trace, 64, 2, 2, 0, 0.1, 32, 2.0, None, None,
+             "rtol"),
+            ("contended", trace, 4, 2, 2, 0, 0.1, 0, 1.0, None, None, None),
+            ("het contended", trace, 4, 2, 2, 0, 0.1, 2, 2.0, None, None, None),
+            ("fair_preempt big/small", big_small, 2, 2, 2, 2, 1.0, 0, 1.0,
+             [0.5, 0.5], None, "rtol"),
+            ("capacity big/small", big_small, 2, 2, 2, 3, 1.0, 0, 1.0,
+             [0.5, 0.5], None, "rtol"),
+            ("fair_preempt mixed", trace, 4, 2, 2, 2, 0.02, 0, 1.0, [0.25] * 4,
+             None, "p95"),
+            ("capacity mixed", trace, 4, 2, 2, 3, 0.02, 0, 1.0, [0.25] * 4,
+             None, "p95"),
+            ("topo columns, flat", trace, 8, 2, 2, 0, 1.0, 0, 1.0, None,
+             Topology.flat(), "rtol"),
+            ("topo columns, uncontended", trace, 8, 2, 2, 0, 1.0, 0, 1.0, None,
+             Topology(num_racks=2, cross_rack_bw=1e9), "rtol"),
+            ("single incast job", one_sort, 8, 2, 2, 0, 1.0, 0, 1.0, None,
+             tight, "rtol"),
+            ("contended incast burst", burst, 8, 2, 4, 0, 1.0, 0, 1.0, None,
+             tight, "p95"),
+            ("contended fair-share incast", fair_burst, 8, 2, 4, 1, 1.0, 0, 1.0,
+             None, tight, "p95"),
+        ]
+        agree = []
+        t0 = time.perf_counter()
+        for (label, tr, n, mpn, rpn, pol, rate, fast, spd, qf, topo,
+             gate) in rows:
+            cc = fleet(n, mpn, rpn, pol, 0.05, fast, spd,
+                       None if topo is None or topo.is_flat else topo)
+            des = simulate_workload(rescale(tr, rate) if rate != 1.0 else tr,
+                                    cc, clean)
+            if "big/small" in label:
+                assert des.num_preempted > 0, f"{label}: preemption did not fire"
+            topo_cols = None if topo is None else (
+                one(topo.num_racks), one(topo.cross_rack_bw), one(topo.oversub))
+            out = simulate_batch(_wave_rows(
+                cols if tr is trace else pack_trace(tr), one(n), one(mpn),
+                one(rpn), one(pol), one(0.05), one(rate),
+                fast=one(fast) if fast else None, speedup=one(spd) if fast else None,
+                queue_frac=qf, topo=topo_cols))
+            assert out["converged"][0] == 1.0, f"{label}: rollout truncated"
+            des_fin = np.array([j.finish for j in des.jobs])
+            rel = float(np.max(np.abs(out["finish"][0] - des_fin)
+                               / np.maximum(des_fin, 1e-9)))
+            p95_rel = abs(float(out["p95_latency"][0]) - des.p95_latency) \
+                / max(des.p95_latency, 1e-9)
+            if gate == "rtol":
+                assert rel < 1e-3, f"{label}: DES<->wave mismatch {rel:.2e}"
+            elif gate == "p95":
+                assert p95_rel < 0.15, f"{label}: p95 drifted {p95_rel:.2%}"
+            agree.append([label, gate, rel, p95_rel])
+        agree_s = time.perf_counter() - t0
+        print(f"   DES <-> wave on the card, {len(rows)} rows in {agree_s:.2f} s "
+              "(finish rel. error, p95 rel. error; gates: rtol 1e-3 / p95 15 %):")
+        for label, gate, rel, p95_rel in agree:
+            print(f"      {label:28s} {rel:.3e}  {p95_rel:.3e}  {gate or 'reported'}")
+
+        # -- the planner batch: 2,048 scenarios, one group per policy --
+        rng = np.random.default_rng(0)
+        b = PLANNER_BATCH
+        nodes = rng.choice([8.0, 16.0, 32.0, 64.0], b)
+        mpn = rng.choice([2.0, 4.0], b)
+        rpn = rng.choice([2.0, 4.0], b)
+        fair = (rng.random(b) > 0.5).astype(np.float64)
+        slow = rng.choice([0.05, 0.8], b)
+        rates = rng.choice([0.05, 0.1, 0.2], b)
+        groups = []
+        for mask in (fair < 0.5, fair >= 0.5):
+            scen = _wave_rows(cols, nodes[mask], mpn[mask], rpn[mask],
+                              fair[mask], slow[mask], rates[mask])
+            groups.append((scen, estimate_steps(scen)))
+
+        def planner_batch():
+            return [simulate_batch(sc, n_steps=ns) for sc, ns in groups]
+
+        outs = planner_batch()                           # warm-up
+        for out in outs:
+            assert float(out["converged"].mean()) == 1.0, "unconverged rows"
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            planner_batch()
+            times.append(time.perf_counter() - t0)
+        batch_s = float(np.median(times))
+        vec_rate = b / batch_s
+        with observe() as ob:
+            planner_batch()
+        rounds = ob.registry.snapshot()["vector_sim.rounds"]
+        steps = sum(ns for _, ns in groups)
+        # one batch under the profiler: kernels a round, device time, idle
+        p_dev, p_k, p_wall = _device_profile(planner_batch, 1)
+        per_round = p_k / rounds
+        t0 = time.perf_counter()
+        n_des = 6
+        for i in range(n_des):
+            cc = ClusterConfig(num_nodes=int(nodes[i]),
+                               map_slots_per_node=int(mpn[i]),
+                               reduce_slots_per_node=int(rpn[i]),
+                               scheduler="fair" if fair[i] else "fifo",
+                               reduce_slowstart=float(slow[i]))
+            simulate_workload(rescale(trace, float(rates[i])), cc, clean)
+        des_rate = n_des / (time.perf_counter() - t0)
+        print(f"   planner batch: {b} scenarios x {PLANNER_JOBS} jobs in 2 policy "
+              f"groups: {batch_s:.3f} s (host clock, median of 3; "
+              f"{sorted(round(t, 3) for t in times)}) = {vec_rate:,.1f} "
+              f"scenarios/s; the DES {des_rate:.2f} scenarios/s over {n_des}; "
+              f"ratio {vec_rate / des_rate:.1f} (a reading, not a gate)")
+        print(f"   rounds run {rounds} against n_steps {steps} "
+              f"({[ns for _, ns in groups]}); one batch under torch.profiler: "
+              f"{p_wall:.1f} ms wall, {p_dev:.1f} ms of device time in {p_k} "
+              f"CUDA kernels over its {rounds} rounds ({per_round:.1f} kernels "
+              f"a round), device idle {100 * (1 - p_dev / p_wall):.1f} %")
+
+        # -- the policy mix: all four schedulers, heterogeneous fleets --
+        pols = rng.choice([0.0, 1.0, 2.0, 3.0], b)
+        fasts = np.minimum(rng.choice([0.0, 4.0, 8.0], b), nodes)
+        spds = np.where(fasts > 0, rng.choice([1.5, 2.0], b), 1.0)
+        mix = []
+        for pcode in (0.0, 1.0, 2.0, 3.0):
+            mask = pols == pcode
+            scen = _wave_rows(cols, nodes[mask], mpn[mask], rpn[mask],
+                              pols[mask], slow[mask], rates[mask],
+                              fast=fasts[mask], speedup=spds[mask],
+                              queue_frac=[0.25] * 4)
+            mix.append((scen, estimate_steps(scen)))
+        t0 = time.perf_counter()
+        mix_outs = [simulate_batch(sc, n_steps=ns) for sc, ns in mix]
+        mix_s = time.perf_counter() - t0
+        for out in mix_outs:
+            assert float(out["converged"].mean()) == 1.0, "unconverged mix rows"
+        # the card against the port's CPU rollout: 16 rows of each group
+        worst = 0.0
+        t0 = time.perf_counter()
+        for (scen, ns), out in zip(mix, mix_outs):
+            idx = np.arange(min(16, len(scen["policy"])))
+            host = simulate_batch(_take_rows(scen, idx), n_steps=ns, device="cpu")
+            for k, v in host.items():
+                got = out[k][idx]
+                assert got.dtype == v.dtype, k
+                np.testing.assert_allclose(got, v, rtol=1e-9, err_msg=k)
+                if k != "converged":
+                    fin = np.isfinite(v) & (v != 0)
+                    if fin.any():
+                        worst = max(worst, float(np.max(
+                            np.abs(got[fin] - v[fin]) / np.abs(v[fin]))))
+        cpu_s = time.perf_counter() - t0
+        print(f"   policy mix: {b} scenarios (fifo/fair/fair_preempt/capacity "
+              f"{[len(sc['policy']) for sc, _ in mix]}, fleets with 0/4/8 fast "
+              f"nodes) in {mix_s:.3f} s, all converged; 64 of its rows equal the "
+              f"port's CPU rollout (worst rel. difference {worst:.2e}, rtol 1e-9; "
+              f"the CPU took {cpu_s:.2f} s)")
+
+        # -- api.tune("cluster"): the capacity-planning example's grid --
+        today = ClusterConfig(num_nodes=8, map_slots_per_node=2,
+                              reduce_slots_per_node=2)
+        cl_kw = dict(n_jobs=32, n_seeds=2, base=today, base_rate=0.08,
+                     objective="p95", chunk=256)
+        space = {
+            "pNumNodes": [4.0, 8.0, 16.0], "pNumFastNodes": [0.0, 4.0],
+            "fastSpeedup": [2.0], "pMaxMapsPerNode": [2.0, 4.0],
+            "pMaxRedPerNode": [2.0, 4.0], "schedPolicy": [0.0, 1.0, 2.0, 3.0],
+            "pReduceSlowstart": [0.05, 0.8],
+        }
+        t0 = time.perf_counter()
+        top = api.tune("cluster", space, strategy="topk", k=5, **cl_kw)
+        tune_s = time.perf_counter() - t0
+        best = top.best()
+        ev_c = api.get_evaluator("cluster", **cl_kw)
+        exact = ev_c.exact_cost(best.assignment)
+        assert np.isfinite(best.cost) and np.isfinite(exact)
+        print(f"   api.tune('cluster', topk, chunk 256): {top.n_evaluated} configs "
+              f"x 2 seeds in {tune_s:.2f} s; best p95 {best.cost:.2f} s at "
+              f"{best.assignment}; the DES re-costs it at {exact:.2f} s "
+              f"({100 * abs(best.cost - exact) / exact:.1f} % apart)")
+
+        # -- the cloud evaluator at batch 256 --
+        n_cloud = 12
+        ctrace = poisson_trace(classes, n_cloud, rate=1.0, seed=3)
+        ccols = pack_trace(ctrace)
+        for label, cc, el in [
+            ("predicted autoscale",
+             ClusterConfig(num_nodes=2, node_classes=(NodeClass(2, 1.0, 0.40),)),
+             ElasticFleet(policy="predicted", max_extra_nodes=2, high_water=2.0,
+                          provision_latency=5.0)),
+            ("fixed spot mix",
+             ClusterConfig(num_nodes=4, node_classes=(
+                 NodeClass(2, 1.0, 0.10, spot=True), NodeClass(2, 1.0, 0.40))),
+             ElasticFleet()),
+        ]:
+            des = simulate_workload(rescale(ctrace, 0.002), cc, clean, elastic=el)
+            wc = wave_columns(el, cc)
+            scen = _wave_rows(ccols, one(cc.num_nodes), one(2), one(2), one(0),
+                              one(0.05), one(0.002),
+                              fast=one(cc.node_classes[0].count)
+                              if len(cc.node_classes) > 1 else None)
+            if len(cc.node_classes) == 1:
+                scen["map_slots"] = scen["map_slots"][:, None]
+                scen["red_slots"] = scen["red_slots"][:, None]
+            scen.update({k: np.atleast_1d(v)[None] if k == "reclaim_rate"
+                         else np.array([v]) for k, v in wc.items()})
+            out = simulate_batch(scen)
+            fleet_rate = sum(nc.count * nc.hourly_price for nc in cc.node_classes)
+            n_extra = el.max_extra_nodes if el.policy_code > 0 else 0
+            wave_usd = (fleet_rate * float(out["makespan"][0])
+                        + cc.node_classes[-1].hourly_price * n_extra
+                        * float(out.get("extra_billed_s", np.zeros(1))[0])) / 3600
+            window = (min(j.submit_time for j in des.jobs), des.makespan)
+            des_usd = bill_workload(des, cc, elastic=el, window=window)
+            usd_rel = abs(wave_usd - des_usd) / des_usd
+            assert usd_rel < 1e-3, f"{label}: dollars mismatch {usd_rel:.2e}"
+            print(f"   cloud agreement, {label}: wave ${wave_usd:.6f} vs DES "
+                  f"${des_usd:.6f} (rel. {usd_rel:.2e}, rtol 1e-3)")
+        ev_d = CloudEvaluator(classes, n_jobs=8, n_seeds=1, chunk=8, sim=clean,
+                              base_rate=0.02, on_demand_price=0.36,
+                              spot_price=0.09)
+        w = ev_d.evaluate({"pOnDemandNodes": one(2), "pSpotNodes": one(2)})
+        ex = ev_d.exact_cost({"pOnDemandNodes": 2, "pSpotNodes": 2})
+        ev_rel = abs(float(w.outputs["c_dollarsPerJob"][0]) - ex) / ex
+        assert ev_rel < 1e-3, f"evaluator dollars mismatch {ev_rel:.2e}"
+        ptrace = poisson_trace(classes, n_cloud, seed=5)
+        ev_t = CloudEvaluator(classes, traces=[ptrace], n_seeds=1, sim=clean,
+                              chunk=CLOUD_BATCH, base_rate=0.05,
+                              on_demand_price=0.40, spot_price=0.10,
+                              slo_target=0.9)
+        od_vals, sp_vals = [1.0, 2.0, 4.0], [0.0, 2.0, 4.0]
+        rng_c = np.random.default_rng(0)
+        grid = {"pOnDemandNodes": rng_c.choice(od_vals, CLOUD_BATCH),
+                "pSpotNodes": rng_c.choice(sp_vals, CLOUD_BATCH),
+                "spotReclaimRate": rng_c.choice([0.0, 5e-3], CLOUD_BATCH),
+                "autoscalePolicy": rng_c.choice([0.0, 1.0], CLOUD_BATCH),
+                "autoscaleHighWater": np.full(CLOUD_BATCH, 2.0)}
+        ev_t.evaluate(grid)                               # warm-up
+        t0 = time.perf_counter()
+        res = ev_t.evaluate(grid)
+        cloud_s = time.perf_counter() - t0
+        # valid = converged, except where a reclaim rate has no spot node
+        # to act on (the declared predicate masks those rows)
+        masked = (grid["spotReclaimRate"] > 0) & (grid["pSpotNodes"] == 0)
+        assert np.array_equal(res.outputs["valid"] > 0, ~masked), \
+            "unconverged cloud rows"
+        slo = float(np.percentile(
+            [j.finish - j.submit_time for j in simulate_workload(
+                rescale(ptrace, 0.05),
+                ClusterConfig(num_nodes=3,
+                              node_classes=(NodeClass(3, 1.0, 0.40),)),
+                clean).jobs], 97.0))
+        pr = ev_t.evaluate({
+            "pOnDemandNodes": np.repeat(od_vals, len(sp_vals)),
+            "pSpotNodes": np.tile(sp_vals, len(od_vals)),
+            "sloLatency": np.full(len(od_vals) * len(sp_vals), slo)})
+        front = pareto_front(pr.outputs["c_dollarsPerJob"],
+                             -pr.outputs["c_sloAttain"])
+        assert front.any(), "empty Pareto front"
+        print(f"   CloudEvaluator, batch {CLOUD_BATCH}: {cloud_s:.3f} s "
+              f"({CLOUD_BATCH / cloud_s:,.1f} configs/s); Pareto front "
+              f"{int(front.sum())} of {front.size} fleets at SLO {slo:.1f} s; "
+              f"wave $/job vs DES at light load rel. {ev_rel:.2e} (rtol 1e-3)")
+        peak = torch.cuda.max_memory_allocated(dev)
+        launched = [w.launches for w in wrappers]
+        assert launched == [0, 0, 0, 0], launched        # no TPU kernel here
+        for wr, n in zip(wrappers, saved):
+            wr.launches = n
+
+        # -- queue 1 item 5 on the card: one chunk split over [cuda:0, cuda:0] --
+        ev, sp, hp, stats, costs = search
+        split_ev = ChunkedEvaluator(hp, stats, costs, chunk=ev.chunk,
+                                    devices=[dev, dev])
+        block = space_block(sp, 0, ev.chunk)
+        a, b2 = ev.evaluate(block), split_ev.evaluate(block)
+        for k, v in a.outputs.items():
+            assert b2.outputs[k].tobytes() == v.tobytes(), k
+        x, y = ev.chunk_topk(block, 10), split_ev.chunk_topk(block, 10)
+        assert y.idx.tolist() == x.idx.tolist() and y.n_valid == x.n_valid
+        print(f"   peak device memory {peak / 2**20:.1f} MiB; no TPU kernel "
+              f"launched ({launched}); ChunkedEvaluator over [cuda:0, cuda:0] "
+              f"equals one device bit for bit on phase 4's first chunk "
+              f"({ev.chunk} rows)")
+    r.update(agreement=agree, planner_batch_s=batch_s, planner_batch_times_s=times,
+             scenarios_per_s=vec_rate, des_scenarios_per_s=des_rate,
+             ratio=vec_rate / des_rate, rounds=rounds, n_steps=steps,
+             profiled_wall_ms=p_wall, device_ms=p_dev, kernels=p_k,
+             kernels_per_round=per_round, idle_share=1 - p_dev / p_wall,
+             mix_s=mix_s, cpu_subset_worst_rel=worst, tune_s=tune_s,
+             tune_best_p95_s=best.cost, tune_des_p95_s=exact,
+             cloud_batch_s=cloud_s, pareto=int(front.sum()),
+             peak_mib=peak / 2**20)
+    return r
 
 
 def main() -> int:
@@ -1589,6 +2008,8 @@ def main() -> int:
     copy = _phase9_analysis(timings, builds, torch)
     readings["distributed"] = _phase10_distributed(timings, split,
                                                    torch.device("cuda", 0), torch, np)
+    readings["cluster_cloud"] = _phase11_cluster_cloud(
+        timings, (ev, space, hp, stats, costs), torch, np)
     kernel["main_path_launches"] = kernel["launches"]
     kernel["distributed_launches"] = readings["distributed"]["launches"]
     kernel["launches"] += kernel["distributed_launches"]

@@ -444,6 +444,9 @@ class _Interp:
     def op_exp(self, node):
         return AbsValue(self.read(node.args[0]).ival.monotone(math.exp), node)
 
+    def op_expm1(self, node):
+        return AbsValue(self.read(node.args[0]).ival.monotone(math.expm1), node)
+
     def op_sigmoid(self, node):
         a = self.read(node.args[0]).ival
         return AbsValue(Interval(0.0, 1.0, True, True, a.maybe_nan), node)

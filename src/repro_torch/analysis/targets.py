@@ -22,10 +22,18 @@ Targets, the reference's (``repro/analysis/targets.py``):
   :func:`repro_torch.search.strategies.build_relaxed_objective` gives
   gradient search, over three axes in their unconstrained space (grad
   mode).
-* ``cluster-rollout``, ``cloud-rollout``, ``cloud-pricing``,
-  ``network-model`` — registered with ``traceable=False``: the modules they
-  trace are not ported yet, and each ``skip_reason`` names the
-  ``ROADMAP.md`` item it waits for.
+* ``cloud-pricing`` — the differentiable dollar path
+  (:func:`repro_torch.cloud.pricing.spot_inflation` x
+  :func:`~repro_torch.cloud.pricing.dollars_for`), traced with a concrete
+  zero billing quantum so it stays ceil-free (grad mode).
+* ``network-model`` — :func:`repro_torch.cluster.network.effective_bandwidth`,
+  the incast-contention factor the job model's topology hook divides
+  Eq. 91's netCost by (grad mode).
+* ``cluster-rollout``, ``cloud-rollout`` — registered with
+  ``traceable=False``: the wave rollout is a loop over scheduling rounds,
+  and a trace of one round, without the reference's loop fixpoint with
+  widening, would report a false "clean"; each ``skip_reason`` names the
+  ``ROADMAP.md`` item that adds the fixpoint.
 * ``tpu-model``     — a pure-numpy table model, not traceable at all, as in
   the reference.
 """
@@ -189,6 +197,83 @@ def _build_tuner_objective(device):
     return trace(fn, *args), [FINITE_TOP for _ in keys], ("cost",), args
 
 
+def _build_cloud_pricing(device):
+    import torch
+
+    from repro_torch.cloud.pricing import dollars_for, spot_inflation
+
+    from .absint import trace
+
+    C = 2
+    f64 = dict(dtype=torch.float64, device=device)
+    a = {
+        "counts": torch.ones((C,), **f64),
+        "prices": torch.full((C,), 0.4, **f64),
+        "rate": torch.full((C,), 1e-4, **f64),
+        "span": torch.tensor(3600.0, **f64),
+        "task_s": torch.tensor(30.0, **f64),
+    }
+    ivals = {
+        "counts": Interval(0.0, math.inf, False, True),
+        "prices": Interval(0.0, math.inf, False, True),
+        "rate": Interval(0.0, math.inf, False, True),
+        "span": Interval(0.0, math.inf, False, True),
+        "task_s": Interval(0.0, math.inf, True, True),
+    }
+    keys = sorted(a)
+    eye = torch.eye(C, **f64)
+
+    # the expected dollar cost of a spot fleet: the wall-clock span
+    # inflates by the reclamation model, the fleet rate prices it.  A
+    # concrete billing_quantum=0 keeps the path ceil-free — exactly the
+    # differentiable surface spot_planning sensitivity studies use.
+    def fn(*xs):
+        arg = dict(zip(keys, xs))
+        infl = spot_inflation(arg["rate"], arg["task_s"])
+        # per-class: counts[c] * prices[c] * span * infl[c] / 3600
+        per_class = dollars_for(
+            arg["span"] * infl, arg["counts"] * eye, arg["prices"])
+        return per_class.sum()
+
+    args = tuple(a[k] for k in keys)
+    return trace(fn, *args), [ivals[k] for k in keys], ("dollars",), args
+
+
+def _build_network_model(device):
+    import torch
+
+    from repro_torch.cluster.network import effective_bandwidth
+
+    from .absint import trace
+
+    f64 = dict(dtype=torch.float64, device=device)
+    a = {
+        "pNumRacks": torch.tensor(4.0, **f64),
+        "crossRackBw": torch.tensor(2.0, **f64),
+        "oversubscription": torch.tensor(2.0, **f64),
+        "nFlows": torch.tensor(8.0, **f64),
+    }
+    ivals = {
+        "pNumRacks": Interval(1.0, math.inf, False, True),
+        "crossRackBw": Interval(0.0, math.inf, True, True),
+        "oversubscription": Interval(1.0, math.inf, False, True),
+        "nFlows": Interval(0.0, math.inf, False, True),
+    }
+    keys = sorted(a)
+
+    # the effective shuffle bandwidth dividing Eq. 91's netCost in the
+    # closed-form topology hook — the surface pNumRacks / crossRackBw /
+    # oversubscription gradients flow through
+    def fn(*xs):
+        arg = dict(zip(keys, xs))
+        return effective_bandwidth(
+            arg["pNumRacks"], arg["crossRackBw"],
+            arg["oversubscription"], arg["nFlows"])
+
+    args = tuple(a[k] for k in keys)
+    return trace(fn, *args), [ivals[k] for k in keys], ("bandwidth",), args
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -226,34 +311,31 @@ def iter_targets() -> list[TraceTarget]:
             name="cluster-rollout",
             doc="the wave simulator's rollout, all policies compiled in",
             traceable=False,
-            skip_reason=_WAITS + "item 13: cluster/vector_sim.py is not "
-                        "ported yet (its loop also needs while recursion in "
-                        "absint)",
+            skip_reason=_WAITS + "item 22, the absint loop fixpoint for "
+                        "the wave rollout: a trace of one round without the "
+                        "reference's fixpoint with widening would report a "
+                        "false clean",
         ),
         TraceTarget(
             name="cloud-rollout",
             doc="the wave rollout with the elastic-fleet path compiled in",
             traceable=False,
-            skip_reason=_WAITS + "items 13-14: cluster/vector_sim.py and "
-                        "cloud/ are not ported yet",
+            skip_reason=_WAITS + "item 22, the absint loop fixpoint for "
+                        "the wave rollout (as cluster-rollout)",
         ),
         TraceTarget(
             name="cloud-pricing",
             doc="the differentiable spot-pricing path (spot_inflation x "
-                "dollars_for)",
+                "dollars_for), quantum-free so grad stays clean",
+            build=_build_cloud_pricing,
             grad_mode=True,
-            traceable=False,
-            skip_reason=_WAITS + "item 14: cloud/pricing.py is not ported "
-                        "yet",
         ),
         TraceTarget(
             name="network-model",
             doc="the topology-aware effective shuffle bandwidth dividing "
-                "Eq. 91's netCost",
+                "Eq. 91's netCost (incast contention, differentiable)",
+            build=_build_network_model,
             grad_mode=True,
-            traceable=False,
-            skip_reason=_WAITS + "item 12: cluster/network.py "
-                        "(effective_bandwidth) is not ported yet",
         ),
         TraceTarget(
             name="tpu-model",

@@ -15,11 +15,12 @@ The port of the reference's ``repro.api``:
 Backends register under a name (``register_model``).  A *target* below is
 a :class:`~repro_torch.spec.JobSpec` (the Hadoop model), a registered
 backend name plus its constructor kwargs, or an already-built evaluator.
-The Hadoop model, ``"hadoop"``, is the one registered backend; it runs on
-``device=None`` (the CUDA card, raising without one) unless a verb is given
-``device="cpu"``.  The reference's ``"tpu"``, ``"cluster"`` and ``"cloud"``
-backends are not ported yet: asking for one raises ``NotImplementedError``
-naming the ``ROADMAP.md`` item that ports it.
+Three backends are registered: the Hadoop job model (``"hadoop"``), the
+multi-job capacity planner (``"cluster"``) and dollar-cost elastic
+provisioning (``"cloud"``).  Each runs on ``device=None`` (the CUDA card,
+raising without one) unless a verb is given ``device="cpu"``.  The
+reference's ``"tpu"`` backend is not ported yet: asking for it raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
 
 Every evaluator behind the facade satisfies the :class:`CostModel`
 protocol: a ``param_space`` describing its searchable axes (``tune``
@@ -89,9 +90,6 @@ _REGISTRY: dict[str, tuple[Callable[..., Any], str]] = {}
 _PENDING: dict[str, str] = {
     "tpu": "queue 1 item 19 (the TPU step model, core/tpu_model.py and "
            "search/tpu.py)",
-    "cluster": "queue 1 item 14 (cluster/evaluator.py, after the DES and "
-               "wave simulator of items 12-13)",
-    "cloud": "queue 1 item 14 (cloud/)",
 }
 
 
@@ -121,9 +119,31 @@ def _hadoop_factory(spec: JobSpec | None = None, **kw):
     return cached_evaluator(spec.params, spec.stats, spec.costs, chunk, device)
 
 
+def _cluster_factory(classes=None, **kw):
+    from repro_torch.cluster.evaluator import ClusterEvaluator
+
+    return ClusterEvaluator(classes, **kw)
+
+
+def _cloud_factory(classes=None, **kw):
+    from repro_torch.cloud import CloudEvaluator
+
+    return CloudEvaluator(classes, **kw)
+
+
 register_model(
     "hadoop", _hadoop_factory,
     doc="the paper's closed-form MapReduce job model (Eqs. 2-98), chunked",
+)
+register_model(
+    "cluster", _cluster_factory,
+    doc="multi-job capacity planner (nodes + fast/slow fleet mix, slots, "
+        "fifo/fair/fair_preempt/capacity policies, slowstart, arrival rate)",
+)
+register_model(
+    "cloud", _cloud_factory,
+    doc="dollar-cost elastic provisioning (on-demand/spot fleet mix, "
+        "reclaim rate, autoscaler policy, dollars-per-job under an SLO)",
 )
 
 

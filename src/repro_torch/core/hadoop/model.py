@@ -26,8 +26,9 @@ w.r.t. the Table-1/2/3 inputs is non-degenerate.  ``torch.maximum`` /
 ``torch.minimum`` split the gradient evenly at ties, as ``jnp.maximum`` /
 ``jnp.minimum`` do, which keeps gradients equal to the reference's.
 
-The reference's rack-topology hook on Eq. 91 (``pNumRacks`` in the config)
-belongs to the cluster layer and is not ported yet.
+With ``pNumRacks`` in the config, Eq. 91 takes the rack-topology hook of
+the cluster layer: the transfer runs at the incast-contended effective
+bandwidth of :func:`repro_torch.cluster.network.effective_bandwidth`.
 """
 
 from __future__ import annotations
@@ -470,9 +471,6 @@ def _reduce_model(cfg: dict, m: dict) -> dict:
 
 def job_model_torch(cfg: dict) -> dict:
     """Whole-job analytic model (Eqs. 92-98) over batched tensor leaves."""
-    if "pNumRacks" in cfg:
-        raise NotImplementedError(
-            "the rack-topology hook on Eq. 91 comes with the cluster layer")
     cfg = _initializations(cfg)
     has_red = cfg["pNumReducers"] > 0
 
@@ -499,6 +497,27 @@ def job_model_torch(cfg: dict) -> dict:
     net_size = m["intermDataSize"] * cfg["pNumMappers"] * frac             # Eq. 90
     out["j_netTransferSize"] = torch.where(has_red, net_size, 0.0)
     out["j_netCost"] = out["j_netTransferSize"] * cfg["cNetworkCost"]      # Eq. 91
+    if "pNumRacks" in cfg:
+        # topology hook: Eq. 91 priced a flat network; with declared racks
+        # the transfer runs at the incast-contended effective bandwidth of
+        # repro_torch.cluster.network (pNumReducers concurrent flows unless
+        # the caller supplies nFlows).  Deferred import — repro_torch.core
+        # cannot depend on repro_torch.cluster at module scope; network
+        # sits below both.
+        from repro_torch.cluster.network import effective_bandwidth
+
+        net = out["j_netCost"]
+        bw = effective_bandwidth(
+            cfg["pNumRacks"],
+            cfg.get("crossRackBw", net.new_tensor(float("inf"))),
+            cfg.get("oversubscription", net.new_tensor(1.0)),
+            cfg.get("nFlows", cfg["pNumReducers"]),
+        )
+        # double-where: bw > 0 always (it is clamped to (0, 1]), but a
+        # where-guarded divide keeps the gradient NaN-free at bw -> 0
+        bw_ok = bw > 0.0
+        bw_safe = torch.where(bw_ok, bw, torch.ones_like(bw))
+        out["j_netCost"] = torch.where(bw_ok, net / bw_safe, net)
 
     out["j_ioJobCost"] = out["j_ioAllMaps"] + out["j_ioAllReducers"]       # Eq. 96
     out["j_cpuJobCost"] = out["j_cpuAllMaps"] + out["j_cpuAllReducers"]    # Eq. 97

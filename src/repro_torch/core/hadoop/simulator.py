@@ -25,9 +25,8 @@ the reference package's runtime mirrors (``repro.runtime.stragglers``):
 Determinism: all randomness comes from a seeded ``random.Random``; repeated
 runs with the same seed are bit-identical (tested).
 
-The reference package's multi-job cluster simulator (``repro.cluster.sched``)
-extends the same mechanics to a shared cluster of concurrent jobs; it is not
-ported yet.
+The multi-job cluster simulator (:mod:`repro_torch.cluster.sched`) extends
+the same mechanics to a shared cluster of concurrent jobs.
 """
 
 from __future__ import annotations
@@ -107,10 +106,13 @@ def simulate_job(
     map_cost = jm.map.ioCost + jm.map.cpuCost
     red_cost = jm.reduce.ioCost + jm.reduce.cpuCost if p.pNumReducers else 0.0
     # Per-reducer share of the network transfer (Eqs. 90-91), serialized per
-    # reducer: each reducer pulls its partition across the network.  This is
-    # the flat-pipe term of the reference's ``cluster.network.per_reducer_shuffle``,
-    # inlined until the cluster layer is ported.
-    shuffle_net = jm.netCost / p.pNumReducers if p.pNumReducers else 0.0
+    # reducer: each reducer pulls its partition across the network.  The
+    # import is deferred: repro_torch.core cannot depend on
+    # repro_torch.cluster at module scope (repro_torch.cluster.sched imports
+    # this module), but repro_torch.cluster.network sits below both packages.
+    from repro_torch.cluster.network import per_reducer_shuffle
+
+    shuffle_net = per_reducer_shuffle(jm.netCost, p.pNumReducers)
 
     rng = random.Random(sim.seed)
     res = SimResult(

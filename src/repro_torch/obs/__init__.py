@@ -107,3 +107,13 @@ def observe(
         _current = prev
         if trace is not None:
             ob.tracer.write(trace)
+
+
+def __getattr__(name: str):
+    # Lazy: destrace pulls in repro_torch.cluster, which does not belong in
+    # the stdlib-only import path above.
+    if name == "workload_trace":
+        from repro_torch.obs.destrace import workload_trace
+
+        return workload_trace
+    raise AttributeError(f"module 'repro_torch.obs' has no attribute {name!r}")

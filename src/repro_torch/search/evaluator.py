@@ -20,8 +20,11 @@ the batched model:
 Differences from the reference package's evaluator: PyTorch runs eagerly,
 so there is no compiled executable to cache and no compile counter
 (``eval_cache_size`` / ``topk_cache_size`` and the "xla compile" trace
-instants have no counterpart); chunks run on one device (splitting them
-across several CUDA devices is ``ROADMAP.md`` queue 1, item 5).
+instants have no counterpart).  ``devices=[...]`` splits each chunk's model
+body over several devices (:func:`repro_torch.compat.split_rows`, the
+reference's ``shard_map`` over a ``"search"`` mesh); the top-k reduction
+then runs on the first device over the joined outputs.  One device (the
+default) takes the unsplit path.
 
 Every evaluator exposes ``param_space`` and ``grad_objective``, the hooks of
 gradient search (:func:`repro_torch.search.gradient_descent_ev`): the
@@ -40,7 +43,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
-from repro_torch.compat import resolve_device
+from repro_torch.compat import resolve_device, search_devices, split_rows
 from repro_torch.core.hadoop.model import job_model_torch, pack_config
 from repro_torch.core.hadoop.params import CostFactors, HadoopParams, ProfileStats
 from repro_torch.core.hadoop.simulator import SimConfig, simulate_job
@@ -223,8 +226,24 @@ class Evaluator:
 
     def chunk_topk(self, overrides: Mapping[str, np.ndarray], k: int) -> "BlockTopK":
         """Top-k of one block: the k cheapest valid configs and the k
-        cheapest invalid configs (ranked by raw model cost)."""
-        raise NotImplementedError
+        cheapest invalid configs (ranked by raw model cost), on the host
+        over :meth:`evaluate`'s outputs — the default for backends without
+        a device reduction (the cluster and cloud planners)."""
+        from repro_torch.spec.report import invalid_reason_counts
+
+        res = self.evaluate(overrides)
+        valid = res.outputs["valid"] > 0
+        raw = sanitize_costs(res.outputs[self.cost_key])
+        cost = np.where(valid, raw, np.inf)
+        inv = np.where(~valid, raw, np.inf)
+        kk = min(k, cost.size)
+        idx = np.argsort(cost, kind="stable")[:kk]
+        inv_idx = np.argsort(inv, kind="stable")[:kk]
+        # merged cfg gates reduce-side constraints off for map-only rows,
+        # matching ChunkedEvaluator.chunk_topk's on-device counts
+        cfg = {**getattr(self, "base_cfg", {}), **overrides}
+        return BlockTopK(cost[idx], idx, inv[inv_idx], inv_idx, int(valid.sum()),
+                         invalid_reason_counts(res.outputs, cfg or None))
 
     @property
     def cost_key(self) -> str:
@@ -308,9 +327,14 @@ class ChunkedEvaluator(Evaluator):
     Parameters
     ----------
     p, s, c : the base configuration (any field may be overridden per-row).
-    chunk   : rows per model call; every call is padded to this length.
+    chunk   : rows per model call; every call is padded to this length
+              (rounded up to a multiple of the device count).
     device  : where the model runs (default CUDA, see
               :func:`repro_torch.compat.resolve_device`).
+    devices : split each chunk's rows over these devices
+              (:func:`repro_torch.compat.search_devices`; the first one
+              holds the base config and runs the top-k reduction).  Default:
+              ``[device]``, the unsplit path.
     dtype   : float type of the packed config, default float64.
     model_fn: batched model, flat cfg dict -> flat outputs dict; must emit
               ``j_totalCost`` and ``valid``.
@@ -324,19 +348,27 @@ class ChunkedEvaluator(Evaluator):
         *,
         chunk: int = 1 << 13,
         device=None,
+        devices=None,
         dtype: torch.dtype = torch.float64,
         model_fn: Callable[[dict], dict] = job_model_torch,
     ):
         self._psc = (p, s, c)
         #: typed view of the base configuration (repro_torch.spec.JobSpec)
         self.spec = JobSpec(p, s, c)
-        self.device = resolve_device(device)
+        if devices is None:
+            self.devices = (resolve_device(device),)
+        else:
+            self.devices = tuple(search_devices(devices))
+            if device is not None and resolve_device(device) != self.devices[0]:
+                raise ValueError("device must be the first of devices")
+        self.device = self.devices[0]
+        self.num_devices = len(self.devices)
         self.dtype = dtype
         #: packed base config (flat key -> 0-d tensor on ``device``); public
         #: so callers can drive evaluate_unchunked against the same base
         self.base_cfg = pack_config(p, s, c, dtype=dtype, device=self.device)
         self._model_fn = model_fn
-        self.chunk = max(chunk, 1)
+        self.chunk = -(-max(chunk, 1) // self.num_devices) * self.num_devices
 
     @classmethod
     def from_spec(cls, spec: JobSpec, **kw) -> "ChunkedEvaluator":
@@ -351,6 +383,18 @@ class ChunkedEvaluator(Evaluator):
 
     def _split(self, overrides: Mapping[str, Any]):
         return split_overrides(self.base_cfg, overrides)
+
+    def _run(self, static, cols) -> dict[str, torch.Tensor]:
+        """The model over one padded chunk: on one device as is, else one
+        contiguous block of rows per device, joined on the first."""
+        if self.num_devices == 1:
+            return _run_model(self._model_fn, static, cols, self.chunk)
+
+        def block(part, dev):
+            st = {k: v.to(dev) for k, v in static.items()}
+            return _run_model(self._model_fn, st, part, self.chunk // self.num_devices)
+
+        return split_rows(block, cols, self.devices)
 
     # ---------------- public API ----------------
 
@@ -368,7 +412,7 @@ class ChunkedEvaluator(Evaluator):
             for start in range(0, n, self.chunk):
                 stop = min(start + self.chunk, n)
                 cols, _ = pad_block(batched, start, stop, self.chunk)
-                out = _run_model(self._model_fn, static, cols, self.chunk)
+                out = self._run(static, cols)
                 if ob.enabled:
                     ob.registry.counter("evaluator.chunks").inc()
                 for k, v in out.items():
@@ -418,7 +462,7 @@ class ChunkedEvaluator(Evaluator):
         kk = min(k, self.chunk)
         ob = _obs_current()
         with ob.tracer.span("evaluator.chunk_topk", rows=n, k=kk):
-            out = _run_model(self._model_fn, static, cols, self.chunk)
+            out = self._run(static, cols)
             raw = sanitize_costs(out[self.cost_key], xp=torch)
             ok = out["valid"] > 0
             cost = torch.where(ok & live, raw, torch.inf)

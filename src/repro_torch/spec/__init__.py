@@ -9,7 +9,8 @@
 * :mod:`~repro_torch.spec.report` — :class:`PhaseBreakdown` /
   :class:`CostReport`: the model's flat outputs lifted into typed per-phase
   costs with disaggregated validity; :class:`CalibrationReport`: one fit of
-  :func:`repro_torch.calib.calibrate`.
+  :func:`repro_torch.calib.calibrate`; :class:`ProvisioningReport` /
+  :class:`DagReport`: the cloud and cluster layers' typed results.
 
 The public surface of this package and of :mod:`repro_torch.api` is frozen
 in ``manifest.json`` beside this file and guarded by
@@ -23,7 +24,9 @@ from .report import (
     VALIDITY_CONSTRAINTS,
     CalibrationReport,
     CostReport,
+    DagReport,
     PhaseBreakdown,
+    ProvisioningReport,
     invalid_reason_counts,
     invalid_reasons,
 )
@@ -37,6 +40,8 @@ __all__ = [
     "PhaseBreakdown",
     "CostReport",
     "CalibrationReport",
+    "ProvisioningReport",
+    "DagReport",
     "PHASES",
     "VALIDITY_CONSTRAINTS",
     "invalid_reason_counts",

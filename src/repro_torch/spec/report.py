@@ -25,9 +25,10 @@ batched report is a report whose leaves are ``(B,)`` columns.
 path is bit-for-bit the dict path.
 
 :class:`CalibrationReport` decomposes one model *fit*
-(:func:`repro_torch.calib.calibrate`).  The reference package's
-``ProvisioningReport`` and ``DagReport`` come with the cluster and cloud
-layers (``ROADMAP.md`` queue 1, item 14).
+(:func:`repro_torch.calib.calibrate`), :class:`ProvisioningReport` one
+priced-fleet evaluation (:class:`repro_torch.cloud.CloudEvaluator`) and
+:class:`DagReport` the critical path of a simulated multi-stage workload
+(:func:`repro_torch.cluster.workload.dag_report`).
 """
 
 from __future__ import annotations
@@ -254,6 +255,121 @@ class CostReport:
                 + "; ".join(self.invalid_reasons())
             )
         return int(np.argmin(cost))
+
+
+@dataclass(frozen=True)
+class ProvisioningReport:
+    """Typed view of one (or a batch of) priced-fleet evaluation(s).
+
+    The :class:`CostReport` of the economic layer
+    (:class:`repro_torch.cloud.CloudEvaluator`): dollars and SLO attainment
+    instead of per-phase seconds.  Leaves are numpy arrays or tensors, as
+    the outputs were; a batched report has ``(B,)`` columns.
+    """
+
+    dollars_per_job: object      # workload bill / jobs served ($/job)
+    dollar_makespan: object      # the whole workload's bill ($)
+    slo_attainment: object       # fraction of jobs with latency <= sloLatency
+    mean_latency: object         # seconds (submit -> finish)
+    p95_latency: object          # seconds (latency_quantile(95) rule)
+    utilization: object          # busy slot-seconds / online slot-seconds
+    valid: object                # axis mask & simulator convergence
+
+    @classmethod
+    def from_outputs(cls, outputs: Mapping[str, object]
+                     ) -> "ProvisioningReport":
+        """Lift a :meth:`repro_torch.cloud.CloudEvaluator.evaluate` output
+        dict (the ``c_*`` columns) into the typed view, leaves by reference."""
+        return cls(
+            dollars_per_job=outputs["c_dollarsPerJob"],
+            dollar_makespan=outputs["c_dollarMakespan"],
+            slo_attainment=outputs["c_sloAttain"],
+            mean_latency=outputs["c_meanLat"],
+            p95_latency=outputs["c_p95Lat"],
+            utilization=outputs["c_util"],
+            valid=outputs["valid"],
+        )
+
+
+@dataclass(frozen=True)
+class DagReport:
+    """Critical-path decomposition of a measured multi-stage (DAG) run.
+
+    Built from the cluster DES's per-stage times
+    (:func:`repro_torch.cluster.workload.dag_report`); numpy leaves.
+    ``critical_path_s <= makespan_s`` always: the path chains *measured*
+    stage service times through the dependency edges, so
+    scheduling/queueing slack can only add on top of it — equality means a
+    serial (width-1) DAG ran back-to-back, and ``slack_s`` is the headroom
+    a better schedule (or more slots) could recover.
+    """
+
+    critical_path_s: object    # longest dependency-respecting work chain (s)
+    makespan_s: object         # first submit -> last stage finish (s)
+    slack_s: object            # makespan - critical path
+    stage_runtime_s: object    # (n,) measured per-stage service time
+    stage_finish_s: object     # (n,) absolute per-stage finish time
+    critical_stage: object     # index of the stage the critical path ends in
+
+    @classmethod
+    def from_times(cls, submit, first_launch, map_finish, finish, edges
+                   ) -> "DagReport":
+        """Build from measured per-stage times plus dependency edges.
+
+        ``submit`` is each stage's *release* time (the DES overwrites a DAG
+        child's submit with it), ``edges`` is ``(child, parent, kind)``
+        triples with kind ``"barrier"`` or ``"slowstart"``.  The recurrence
+        anchors each stage's measured runtime ``finish - first_launch`` at
+        the latest of its release and its parents' path ends — a slowstart
+        parent hands off at its path end minus its own post-map tail
+        (``finish - map_finish``), since the child only needed the map
+        phase.  Each anchor is <= the stage's actual first launch, which is
+        what makes ``critical_path_s <= makespan_s`` an invariant rather
+        than a tendency.
+        """
+        submit = np.asarray(submit, dtype=np.float64)
+        first_launch = np.asarray(first_launch, dtype=np.float64)
+        map_finish = np.asarray(map_finish, dtype=np.float64)
+        finish = np.asarray(finish, dtype=np.float64)
+        n = submit.shape[0]
+        run = finish - first_launch
+        parents: dict[int, list[tuple[int, str]]] = {}
+        children: dict[int, list[int]] = {}
+        indeg = [0] * n
+        for child, parent, kind in edges:
+            parents.setdefault(int(child), []).append((int(parent), kind))
+            children.setdefault(int(parent), []).append(int(child))
+            indeg[int(child)] += 1
+        order = [i for i in range(n) if indeg[i] == 0]
+        for i in order:                       # Kahn: parents precede children
+            for ch in children.get(i, ()):
+                indeg[ch] -= 1
+                if indeg[ch] == 0:
+                    order.append(ch)
+        if len(order) != n:
+            raise ValueError("dependency edges contain a cycle")
+        cp_end = np.zeros(n, dtype=np.float64)
+        for i in order:
+            anchor = submit[i]
+            for parent, kind in parents.get(i, ()):
+                hand = cp_end[parent]
+                if kind == "slowstart":
+                    hand = hand - (finish[parent] - map_finish[parent])
+                anchor = max(anchor, hand)
+            cp_end[i] = anchor + run[i]
+        t0 = submit.min() if n else 0.0
+        span = finish.max() - t0 if n else 0.0
+        cp = cp_end.max() - t0 if n else 0.0
+        if n and not np.isfinite(finish).all():
+            cp = span = float("inf")
+        return cls(
+            critical_path_s=np.asarray(cp),
+            makespan_s=np.asarray(span),
+            slack_s=np.asarray(span - cp if np.isfinite(span) else 0.0),
+            stage_runtime_s=run,
+            stage_finish_s=finish,
+            critical_stage=np.asarray(int(np.argmax(cp_end)) if n else 0),
+        )
 
 
 @dataclass(frozen=True)

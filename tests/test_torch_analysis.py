@@ -367,17 +367,23 @@ def test_no_coverage_gaps_on_the_traced_models(full_report):
 def test_report_covers_the_reference_targets_and_says_why_it_skips(full_report):
     names = [t.name for t in t_an.iter_targets()]
     assert names == [t.name for t in j_an.iter_targets()]
-    traced = {"hadoop-model", "hadoop-grad", "calib-loss", "tuner-objective"}
+    traced = {"hadoop-model", "hadoop-grad", "calib-loss", "tuner-objective",
+              "network-model", "cloud-pricing"}
     assert set(full_report.skipped) == set(names) - traced
-    # calibration's loss and gradient search's relaxed cost trace, in grad
-    # mode, with no finding and no coverage gap
+    # calibration's loss, gradient search's relaxed cost, the topology hook's
+    # bandwidth and the spot-pricing path trace, in grad mode, with no
+    # finding and no coverage gap
     by_name = {t.name: t for t in t_an.iter_targets()}
-    for name in ("calib-loss", "tuner-objective"):
+    for name in ("calib-loss", "tuner-objective", "network-model",
+                 "cloud-pricing"):
         assert by_name[name].traceable and by_name[name].grad_mode
         assert not [f for f in full_report.findings if f.target == name], name
         assert name not in full_report.coverage_gaps
     for name, why in full_report.skipped.items():
         assert "ROADMAP.md" in why and "item" in why, (name, why)
+    # the rollouts wait for the loop fixpoint, not for an unported module
+    for name in ("cluster-rollout", "cloud-rollout"):
+        assert "loop fixpoint" in full_report.skipped[name], name
 
 
 def test_hadoop_grad_is_the_model_graph_cut_to_the_total_cost():

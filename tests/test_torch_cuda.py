@@ -278,3 +278,60 @@ def test_nccl_pipeline_combines_into_shared_bins(cuda_device):
                                 key_space=8192)
     plan = reduce_plan(ones[:, None], words, 8192)
     assert plan.route == "bins" and plan.passes - plan.bins_passes <= 2
+
+
+def _wave_batch(b=16, n_jobs=8, seed=0):
+    """A planner-shaped wave batch (fleet mix, all four policies)."""
+    from repro_torch.cluster import default_job_classes, pack_trace, poisson_trace
+
+    rng = np.random.default_rng(seed)
+    cols = pack_trace(poisson_trace(default_job_classes(), n_jobs, rate=1.0,
+                                    seed=3))
+    nodes = rng.choice([2.0, 4.0, 8.0], b)
+    fast = np.minimum(rng.choice([0.0, 2.0], b), nodes)
+    rate = rng.choice([0.05, 0.2], b)
+    tile = lambda a: np.tile(a, (b, 1))
+    return {
+        "arrival": tile(cols["arrival"]) / rate[:, None],
+        "n_maps": tile(cols["n_maps"]), "n_reds": tile(cols["n_reds"]),
+        "map_cost": tile(cols["map_cost"]), "red_work": tile(cols["red_work"]),
+        "shuffle": tile(cols["shuffle"]) * ((nodes - 1) / nodes)[:, None],
+        "queue": tile(cols["queue"]),
+        "policy": rng.choice([0.0, 1.0, 2.0, 3.0], b),
+        "slowstart": rng.choice([0.05, 0.8], b),
+        "map_slots": np.stack([fast * 2, (nodes - fast) * 2], 1),
+        "red_slots": np.stack([fast * 2, (nodes - fast) * 2], 1),
+        "speedup": np.stack([np.where(fast > 0, 2.0, 1.0), np.ones(b)], 1),
+    }
+
+
+@pytest.mark.cuda
+def test_wave_rollout_on_the_card_equals_the_cpu(cuda_device):
+    # float64 on both; the card's elementwise ops and per-row reductions
+    # round as the CPU's do, up to summation order
+    from repro_torch.cluster import simulate_batch
+
+    scen = _wave_batch()
+    card = simulate_batch(scen, devices=[cuda_device])
+    host = simulate_batch(scen, device="cpu")
+    for k, v in host.items():
+        assert card[k].dtype == v.dtype, k
+        np.testing.assert_allclose(card[k], v, rtol=1e-9, err_msg=k)
+    assert card["converged"].all()
+
+
+@pytest.mark.cuda
+def test_split_rows_over_the_same_card_twice(cuda_device):
+    from repro_torch.cluster import simulate_batch
+    from repro_torch.compat import split_rows
+
+    scen = _wave_batch(b=9, seed=1)
+    one = simulate_batch(scen, devices=[cuda_device])
+    two = simulate_batch(scen, devices=[cuda_device, cuda_device])
+    for k, v in one.items():
+        assert two[k].tobytes() == v.tobytes(), k
+    x = torch.arange(7.0, device=cuda_device)
+    out = split_rows(lambda blk, dev: {"y": blk["x"] * 2},
+                     {"x": x}, [cuda_device, cuda_device])
+    assert out["y"].device == cuda_device
+    torch.testing.assert_close(out["y"], x * 2, rtol=0, atol=0)

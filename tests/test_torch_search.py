@@ -230,3 +230,61 @@ def test_instrumented_evaluator_is_bit_identical_and_counts():
     assert reg.counter("evaluator.topk_blocks").value == -(-n // 64)
     assert reg.counter("evaluator.rows").value == 2 * n
     assert any(e.get("name") == "evaluator.chunk_topk" for e in ob.tracer.events())
+
+
+# ------------------------------------------- chunks split across devices
+
+
+@pytest.mark.parametrize("chunk", [8, 30, 1 << 13])
+def test_chunks_split_over_four_devices_equal_one_device_bit_for_bit(chunk):
+    # 397 rows, not a multiple of 4; chunk 30 rounds up to 32 over 4 devices
+    one = port_ev(chunk=chunk)
+    four = port_ev(chunk=chunk, devices=["cpu"] * 4)
+    assert four.num_devices == 4 and four.chunk % 4 == 0
+    cols = {k: v[:397] for k, v in full_grid(SPACE).items()}
+    a, b = one.evaluate(cols), four.evaluate(cols)
+    for k, v in a.outputs.items():
+        assert b.outputs[k].tobytes() == v.tobytes(), k
+    assert b.total_cost.tobytes() == a.total_cost.tobytes()
+    t1 = search_topk(one, SPACE, k=5)
+    t4 = search_topk(four, SPACE, k=5)
+    assert [e.index for e in t4.entries] == [e.index for e in t1.entries]
+    assert [e.cost for e in t4.entries] == [e.cost for e in t1.entries]
+    odd = {"pSortMB": np.array([25.0, 50.0, 100.0, 200.0, 400.0, 75.0, 30.0]),
+           "pNumReducers": 16.0}
+    x, y = one.chunk_topk(odd, 3), four.chunk_topk(odd, 3)
+    assert y.idx.tolist() == x.idx.tolist() and y.costs.tobytes() == x.costs.tobytes()
+    assert y.n_valid == x.n_valid and y.reason_counts == x.reason_counts
+
+
+def test_split_evaluator_keeps_the_reference_contract():
+    cols = full_grid(SPACE)
+    got = port_ev(chunk=64, devices=["cpu"] * 4).evaluate(cols)
+    want = JChunkedEvaluator(P, S, C, chunk=64).evaluate(cols)
+    for k in want.outputs:
+        np.testing.assert_allclose(got.outputs[k], want.outputs[k],
+                                   rtol=1e-12, atol=0, err_msg=k)
+    with pytest.raises(ValueError, match="first of devices"):
+        port_ev(devices=["meta", "cpu"])
+
+
+def test_search_devices_and_split_rows():
+    from repro_torch.compat import search_devices, split_rows
+
+    assert search_devices(["cpu"] * 3) == [torch.device("cpu")] * 3
+    with pytest.raises(ValueError, match="empty"):
+        search_devices([])
+    if not has_cuda():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            search_devices()
+    rows = {"x": torch.arange(10.0), "y": torch.arange(20.0).reshape(10, 2)}
+    seen = []
+
+    def fn(block, dev):
+        seen.append((block["x"].shape[0], dev))
+        return {"s": block["x"] + block["y"].sum(-1), "y": block["y"] * 2}
+
+    out = split_rows(fn, rows, search_devices(["cpu"] * 4))
+    assert sorted(n for n, _ in seen) == [3, 3, 3, 3]      # 10 padded to 12
+    np.testing.assert_array_equal(out["s"].numpy(), np.arange(10.0) * 5 + 1)
+    np.testing.assert_array_equal(out["y"].numpy(), rows["y"].numpy() * 2)

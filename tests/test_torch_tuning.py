@@ -278,24 +278,41 @@ def test_cached_evaluator_keys_on_device_and_dtype():
 
 
 def test_api_surface_matches_the_port_manifest():
+    import repro_torch.cloud as cloud
+    import repro_torch.cluster.network as network
     import repro_torch.spec as spec
+    from repro_torch.cloud import cloud_space
+    from repro_torch.cluster import cluster_space
 
     manifest = json.loads(MANIFEST.read_text())
     assert sorted(api.__all__) == manifest["repro_torch.api"]
     assert sorted(spec.__all__) == manifest["repro_torch.spec"]
-    for mod in (api, spec):
+    assert sorted(cloud.__all__) == manifest["repro_torch.cloud"]
+    assert sorted(network.__all__) == manifest["repro_torch.cluster.network"]
+    for mod in (api, spec, cloud, network):
         for name in mod.__all__:
             assert getattr(mod, name, None) is not None, name
     assert list(spec.hadoop_space().names) == manifest["axes"]["hadoop"]
-    # the reference's verbs, every one of them
+    assert list(cluster_space().names) == manifest["axes"]["cluster"]
+    assert list(cloud_space().names) == manifest["axes"]["cloud"]
+    # the reference's verbs, every one of them, and its spec, cloud and
+    # network surfaces
+    j_manifest = json.loads((MANIFEST.parents[2] / "repro/spec/manifest.json")
+                            .read_text())
     assert manifest["repro_torch.api"] == sorted(j_api.__all__)
+    for name in ("spec", "cloud", "cluster.network"):
+        assert manifest[f"repro_torch.{name}"] == j_manifest[f"repro.{name}"], name
+    for name in ("cluster", "cloud"):
+        assert manifest["axes"][name] == j_manifest["axes"][name], name
 
 
 def test_api_registers_only_hadoop_and_names_the_roadmap_for_the_rest():
-    assert list(api.available_models()) == ["hadoop"]
-    for name in ("tpu", "cluster", "cloud"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item"):
-            api.get_evaluator(name)
+    # "the rest" is the TPU step model alone now: the cluster and cloud
+    # planners are registered beside the Hadoop model
+    assert list(api.available_models()) == ["cloud", "cluster", "hadoop"]
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md queue 1 item 19"):
+        api.get_evaluator("tpu")
     with pytest.raises(KeyError, match="unknown cost model"):
         api.get_evaluator("nope")
     ev = api.get_evaluator(JobSpec(), device=CPU)
