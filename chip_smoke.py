@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's four paths once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 The job-tuning path, through the port's own entry points, at Hadoop's
 default sizes (``dfs.block.size`` 128 MiB splits of 400-byte wordcount
 records, ``io.sort.mb`` 100, so each map task spills 262,144-pair buffers),
-the LM serving path at gemma2-9b's published width, the static analyzer
-over the port's job model and kernel launches, and the capacity planner
-with cloud provisioning at the reference benchmarks' full settings:
+the LM serving path at the published width of the five dense configs, LM
+training at stablelm-1.6b's, the static analyzer over the port's job model,
+wave rollout and kernel launches, and the capacity planner with cloud
+provisioning at the reference benchmarks' full settings:
 
   0. print the card (``nvidia-smi``) and build the five CUDA sources
      (``seg_combine``, ``flash_attention_wgmma`` (bf16) and
@@ -78,8 +79,9 @@ with cloud provisioning at the reference benchmarks' full settings:
      1024);
   9. run the static analyzer on the card as ``python -m repro_torch.analysis``
      runs it: ``run_all()`` (no finding beyond the empty
-     ``analysis_baseline_torch.json``, no coverage gap, each skipped target
-     with its reason) and ``selftest()`` (all five checkers fire; the
+     ``analysis_baseline_torch.json``, no coverage gap, only ``tpu-model``
+     skipped, with its reason; the two wave-rollout targets walked to their
+     loop fixpoint) and ``selftest()`` (all five checkers fire; the
      ``coverage`` launch fixture runs on the card); check every launch
      geometry the wrappers recorded in phases 1-8; hold ``fixture_copy``
      against ``x.clone()`` exactly on its vector path (the timing shape) and
@@ -110,7 +112,27 @@ with cloud provisioning at the reference benchmarks' full settings:
      and ``ChunkedEvaluator(devices=[cuda:0, cuda:0])`` over phase 4's first
      chunk, equal to one device bit for bit.  Slice 4 launches no kernel:
      the four counts are zeroed before it, must read 0 after, and are put
-     back.
+     back;
+ 12. serve starcoder2-7b, granite-3-8b and stablelm-1.6b at published width
+     and depth (bf16, seeded weights on the card, one model at a time)
+     through ``Server.throughput_batch`` (4 prompts of 512 tokens, 16 new
+     tokens), eager and with the decode step replayed as a CUDA graph (the
+     graphed tokens equal to the eager ones), and internvl2-26b through
+     ``LM.prefill`` with 256 patch rows before each of the 4 prompts, then
+     16 greedy decode steps, eager and graphed; hold a 2-layer fp32 cut of
+     each at full width against the plain attention (prefill and first
+     decode logits at 1e-4); train stablelm-1.6b at published width and
+     depth (fp32 master weights, bf16 compute, ``TokenPipeline`` batches of
+     8 x 2,048 in the 2 microbatches ``pick_microbatches`` gives, 5 AdamW
+     steps, every loss finite; step time, tokens/s, peak memory, and one
+     step under ``torch.profiler``, its device time split by the step's
+     profiler ranges: forward, the recomputation under remat, the flash
+     backward); hold a 2-layer fp32 cut's loss and every gradient through
+     the kernel forward against the plain attention at rtol 1e-4, and its
+     accumulated gradients at 2 microbatches against 1 at the same
+     tolerance; and check the launch geometries this phase recorded.
+     Phase 7 checks and times both attention kernels at these four
+     configs' serving geometries, and flash at the training step's.
 
 Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
@@ -120,9 +142,15 @@ phase 8 (the graphed ``throughput_batch`` and ``generate``)
 ``flash_attention`` exactly 42 x 4 prefills, all on the bf16 ``wgmma``
 kernel, and ``gqa_decode_attention`` exactly 42 x (31 + 21) decode steps (a
 graph replay adds the launches its capture recorded), and
-``fixture_copy`` over the analyzer's run of phase 9 (> 0), and
+``fixture_copy`` over the analyzer's run of phase 9 (> 0),
 ``seg_combine`` again over phase 10's pipeline (> 0, all on ``bins``),
-added to its count.  Before the
+added to its count, and over each path of phase 12 (the graphed serving
+run of each config, then the 5 training steps) ``flash_attention`` exactly
+layers x 1 prefill, all on ``bf16_wgmma`` (training: 5 steps x 2
+microbatches x 24 layers x 2, the forward and its recomputation under
+remat, and no backward launch) and ``gqa_decode_attention`` exactly layers
+x decode steps, each added to its kernel's count (``launches_by_path``).
+Before the
 last line it prints one ``{"kernels": [...]}`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -199,6 +227,27 @@ DECODE_TEST = [(2, 8, 2, 512, 64, 256, None, None, False),
 DECODE_MAIN = (4, 16, 8, 1024, 256, 1023, None, 50.0, False)
 DECODE_STEP = (4, 16, 8, 1024, 256, 527, None, 50.0, False)   # the serving step
 DECODE_RING = (1, 16, 8, 4096, 256, 4610, 4096, 50.0, True)
+# phase 12's serving geometries, (flash, decode) per config: prefill of 4
+# prompts of 512 tokens (internvl2-26b: 256 patch rows, then 512 tokens) and
+# decode at the serving step with caches of 1,024 (pos 527; internvl2-26b's
+# last step, 783: its steps read 25 tiles of 32 slots, not 17); no softcap,
+# no window
+SERVE_GEOMETRIES = {
+    "starcoder2-7b": ((4, 36, 4, 512, 512, 128, True, None, None, 0),
+                      (4, 36, 4, 1024, 128, 527, None, None, False)),
+    "granite-3-8b": ((4, 32, 8, 512, 512, 128, True, None, None, 0),
+                     (4, 32, 8, 1024, 128, 527, None, None, False)),
+    "stablelm-1.6b": ((4, 32, 32, 512, 512, 64, True, None, None, 0),
+                      (4, 32, 32, 1024, 64, 527, None, None, False)),
+    "internvl2-26b": ((4, 48, 8, 768, 768, 128, True, None, None, 0),
+                      (4, 48, 8, 1024, 128, 783, None, None, False)),
+}
+# the flash kernel as stablelm-1.6b's training step runs it (bf16, one
+# microbatch of 4 x 2,048): forward and recomputation under remat
+FLASH_TRAIN = (4, 32, 32, 2048, 2048, 64, True, None, None, 0)
+SERVE_PROMPT, SERVE_NEW, SERVE_CACHE = 512, 16, 1024
+VISION_ROWS = 256                 # one 448-px tile's patch embeddings
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
 
 
 def _phase(name, timings):
@@ -550,7 +599,8 @@ def _phase7_attention(timings, builds, torch, np):
 
         for dtype in (torch.float32, torch.bfloat16):
             variant = VARIANTS[dtype]
-            for shape in FLASH_TEST + [FLASH_MAIN, FLASH_MAIN_LOCAL, FLASH_LONG]:
+            for shape in FLASH_TEST + [FLASH_MAIN, FLASH_MAIN_LOCAL, FLASH_LONG] \
+                    + [f for f, _ in SERVE_GEOMETRIES.values()] + [FLASH_TRAIN]:
                 q, k, v = flash_inputs(shape, dtype)
                 before = flash_attention.launches
                 on_variant = flash_attention.launches_by_variant[variant]
@@ -559,7 +609,8 @@ def _phase7_attention(timings, builds, torch, np):
                 held("flash", got, flash_attention_torch(q, k, v, **flash_kw(shape)),
                      dtype, flash_attention.launches == before + 1
                      and flash_attention.launches_by_variant[variant] == on_variant + 1)
-            for shape in DECODE_TEST + [DECODE_MAIN, DECODE_STEP, DECODE_RING]:
+            for shape in DECODE_TEST + [DECODE_MAIN, DECODE_STEP, DECODE_RING] \
+                    + [d for _, d in SERVE_GEOMETRIES.values()]:
                 q, kc, vc, sp, p = decode_inputs(shape, dtype)
                 B, H, KV, _, hd = shape[:5]
                 want = decode_attention_torch(q.view(B, KV, H // KV, hd), kc, vc, sp,
@@ -597,7 +648,7 @@ def _phase7_attention(timings, builds, torch, np):
         else:
             raise AssertionError("gqa_decode_attention took a misaligned CUDA tensor")
         assert gqa_decode_attention.launches == before
-        n_flash = len(FLASH_TEST) + 3
+        n_flash = len(FLASH_TEST) + 4 + len(SERVE_GEOMETRIES)
         print(f"   max |kernel - plain|: flash {errs['flash']:.3e}, "
               f"decode {errs['decode']:.3e} over {2 * n_flash} and "
               f"{n_decode_checks} checks")
@@ -644,17 +695,21 @@ def _phase7_attention(timings, builds, torch, np):
                 lambda: flash_attention_torch(q, k, v, **kw), 5)
             bound, by, n_bytes, flop = _flash_bound(shape, 2, BF16_OPS_PER_S)
             tflops = flop / (k_dev * 1e-3) / 1e12
+            sdpa_what = "SDPA without softcap" if shape[8] else "SDPA (the same function)"
             print(f"   flash {label} {shape[:6]} bf16: kernel {k_ms:.4f} ms "
-                  f"(device {k_dev:.4f} ms, back to back, {tflops:.1f} TFLOP/s), "
+                  f"(device {k_dev:.4f} ms, back to back, {tflops:.1f} TFLOP/s, "
+                  f"{100 * bound / k_dev:.0f} % of the bound), "
                   f"plain {p_ms:.4f} ms (device {p_dev:.4f} ms in {p_n} kernels), "
-                  f"SDPA without softcap {l_ms:.4f} ms (kernel / SDPA "
+                  f"{sdpa_what} {l_ms:.4f} ms (kernel / SDPA "
                   f"{k_ms / l_ms:.2f}); bound {bound:.4f} ms ({by}: {n_bytes} B, "
                   f"{flop:.4g} FLOP)")
+            times = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                         plain_device_ms=p_dev, library_ms=l_ms, bound_ms=bound,
+                         bound_by=by, tflop_per_s=tflops)
             if record is not None:
-                record.update(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
-                              plain_device_ms=p_dev, library_ms=l_ms,
-                              library="F.scaled_dot_product_attention, without softcap",
-                              bound_ms=bound, bound_by=by, tflop_per_s=tflops)
+                record.update(times, library="F.scaled_dot_product_attention, "
+                                             "without softcap")
+            return times
 
         def time_decode(shape, label) -> dict:
             """Times with the cache cold in L2, as a decode step finds it (the
@@ -725,6 +780,16 @@ def _phase7_attention(timings, builds, torch, np):
             decode.update({f"{key}_{k}": v for k, v in time_decode(shape, label).items()
                            if k in ("ms", "device_ms", "warm_device_ms", "plain_ms",
                                     "library_ms", "bound_ms")})
+        # the other dense configs' serving geometries (no softcap: SDPA
+        # computes the same function)
+        keep = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        flash["serving_geometries"], decode["serving_geometries"] = {}, {}
+        for name, (fshape, dshape) in SERVE_GEOMETRIES.items():
+            flash["serving_geometries"][name] = time_flash(fshape, f"{name} prefill")
+            decode["serving_geometries"][name] = {
+                k: v for k, v in time_decode(dshape, f"{name} serving step").items()
+                if k in keep}
+        flash["training_geometry"] = time_flash(FLASH_TRAIN, "stablelm-1.6b training")
         flash["max_abs_err"] = errs["flash"]
         decode["max_abs_err"] = errs["decode"]
     return flash, decode
@@ -999,9 +1064,7 @@ def _phase9_analysis(timings, builds, torch):
                   f"{f.message}")
         assert not new and baseline == set()
         assert not report.coverage_gaps, report.coverage_gaps
-        assert set(report.skipped) == {t.name for t in analysis.iter_targets()} \
-            - {"hadoop-model", "hadoop-grad", "calib-loss", "tuner-objective",
-               "network-model", "cloud-pricing"}
+        assert set(report.skipped) == {"tpu-model"}, report.skipped
         for name, why in report.skipped.items():
             print(f"   skipped target {name}: {why}")
         print(f"   selftest on the card: {self_s:.2f} s, "
@@ -1017,7 +1080,7 @@ def _phase9_analysis(timings, builds, torch):
             if t.traceable:
                 tr = trace_target(t, dev)
                 print(f"   trace {t.name} on the card: {tr.seconds:.3f} s, "
-                      f"{len(tr.graph.graph.nodes)} graph nodes")
+                      f"{tr.n_nodes} graph nodes")
 
         coverage = bad_launch_probes()[0]
         n_nan = confirm_unwritten(coverage, dev)
@@ -1667,6 +1730,350 @@ def _phase11_cluster_cloud(timings, search, torch, np) -> dict:
     return r
 
 
+def _zero_attention_counts():
+    from repro_torch.kernels import flash_attention, gqa_decode_attention
+
+    flash_attention.launches = 0
+    flash_attention.launches_by_variant = dict.fromkeys(
+        flash_attention.launches_by_variant, 0)
+    gqa_decode_attention.launches = 0
+
+
+def _hold_cut(cfg, prompts, extra, dev, torch):
+    """A 2-layer cut of ``cfg`` at full width in fp32: its prefill and first
+    decode logits through the kernels held against the plain attention at
+    1e-4 (TF32 off).  Returns the largest |kernels - plain| of each."""
+    from repro_torch.launch.steps import init_params
+    from repro_torch.models import attention
+
+    cut = cfg.replace(n_layers=2, dtype="float32")
+    model = init_params(torch.Generator(device=dev).manual_seed(1), cut)
+    toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+    runs = {}
+    for impl in ("kernel", "torch"):
+        attention.set_attention_impl(impl)
+        try:
+            logits, caches, pos = model.prefill(toks, SERVE_CACHE, extra_embeds=extra)
+            nxt = torch.argmax(logits[:, -1:], dim=-1)
+            logits2, _ = model.decode_step(nxt, caches, pos)
+            runs[impl] = (logits.float(), logits2.float())
+        finally:
+            attention.set_attention_impl("kernel")
+    errs = []
+    for got, want in zip(runs["kernel"], runs["torch"]):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        errs.append(float((got - want).abs().max()))
+    del model
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _phase12_dense(timings, flash, decode, torch, np):
+    """Phase 12: the other four dense configs served at full width and
+    depth through the kernels, stablelm-1.6b trained at full width and
+    depth, and the fp32 2-layer cuts held against the plain attention."""
+    from repro_torch.analysis.checkers import launch_geometry
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, gqa_decode_attention
+    from repro_torch.launch.steps import init_params
+    from repro_torch.runtime.decode_graph import GreedyDecoder
+    from repro_torch.runtime.serve_loop import Server
+
+    dev = torch.device("cuda")
+    out = {"serving": {}, "cuts": {}}
+    before_geo = {(p.kernel, p.spec, p.shape, p.tile)
+                  for p in launch_geometry.recorded()}
+    with _phase("12_dense_configs_and_training", timings):
+        rng = np.random.default_rng(12)
+        for name in SERVE_GEOMETRIES:
+            cfg = get_config(name)
+            t0 = time.perf_counter()
+            model = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+            torch.cuda.synchronize()
+            seed_s = time.perf_counter() - t0
+            L = len(model.layers)
+            n_params = sum(p.numel() for p in model.parameters())
+            n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+            prompts = rng.integers(2, cfg.vocab_size, (4, SERVE_PROMPT))
+            torch.cuda.reset_peak_memory_stats()
+            rec = {"layers": L, "parameters": n_params, "weights_gb": n_bytes / 1e9,
+                   "seed_s": seed_s}
+            if cfg.frontend == "vision":
+                # LM.prefill with 256 patch rows before each prompt, then the
+                # decode steps (the Server takes no extra_embeds)
+                extra = (torch.randn((4, VISION_ROWS, cfg.d_model),
+                                     generator=torch.Generator(device=dev).manual_seed(3),
+                                     device=dev) * 0.02).to(torch.bfloat16)
+                toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+
+                def run(graphed):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, caches, pos = model.prefill(toks, SERVE_CACHE,
+                                                        extra_embeds=extra)
+                    assert int(pos) == VISION_ROWS + SERVE_PROMPT
+                    dec = GreedyDecoder(model, caches, torch.argmax(logits[:, -1:], dim=-1),
+                                        pos, cuda_graph=graphed)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    outs = [dec.step().clone() for _ in range(SERVE_NEW)]
+                    torch.cuda.synchronize()
+                    return {"prefill_s": t1 - t0,
+                            "decode_s": time.perf_counter() - t1 - dec.capture_s,
+                            "output": torch.cat(outs, dim=1).cpu().numpy()}
+
+                n_steps = SERVE_NEW
+                eager = run(False)
+                _zero_attention_counts()
+                graphed = run(True)
+            else:
+                server = Server(cfg, model, max_len=SERVE_CACHE)
+                n_steps = SERVE_NEW - 1
+                eager = server.throughput_batch(prompts, SERVE_NEW, cuda_graph=False)
+                _zero_attention_counts()
+                graphed = server.throughput_batch(prompts, SERVE_NEW, cuda_graph=True)
+                del server
+            n_flash, n_decode = flash_attention.launches, gqa_decode_attention.launches
+            by_variant = dict(flash_attention.launches_by_variant)
+            same = float((graphed["output"] == eager["output"]).mean())
+            assert graphed["output"].shape == (4, SERVE_NEW)
+            assert ((graphed["output"] >= 0) & (graphed["output"] < cfg.vocab_size)).all()
+            print(f"   {name}: {L} layers, {n_params:,} parameters, {n_bytes / 1e9:.2f} GB "
+                  f"of bf16 weights seeded on the card in {seed_s:.2f} s; B 4 x "
+                  f"{SERVE_PROMPT}{' after 256 patch rows' if cfg.frontend else ''} + "
+                  f"{SERVE_NEW}: prefill {graphed['prefill_s'] * 1e3:.1f} ms, decode "
+                  f"{graphed['decode_s'] * 1e3 / n_steps:.2f} ms a step graphed "
+                  f"({eager['decode_s'] * 1e3 / n_steps:.2f} eager) over {n_steps} "
+                  f"steps; graphed tokens equal to eager: {same * 100:.1f} %; "
+                  f"launches flash {n_flash} (want {L}, one prefill) by kernel "
+                  f"{by_variant}, decode {n_decode} (want {L} x {n_steps}); peak "
+                  f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            assert same == 1.0, name
+            assert n_flash == L, (name, n_flash)
+            assert by_variant == {"f32_cuda_cores": 0, "bf16_wgmma": L}
+            assert n_decode == L * n_steps, (name, n_decode)
+            rec.update(flash_launches=n_flash, decode_launches=n_decode,
+                       prefill_ms=graphed["prefill_s"] * 1e3,
+                       decode_step_ms=graphed["decode_s"] * 1e3 / n_steps,
+                       eager_decode_step_ms=eager["decode_s"] * 1e3 / n_steps,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            out["serving"][name] = rec
+            del model, eager, graphed
+            torch.cuda.empty_cache()
+
+            # the 2-layer cut at full width in fp32, through the kernels and
+            # through the plain attention
+            extra = None
+            if cfg.frontend == "vision":
+                extra = torch.randn((4, VISION_ROWS, cfg.d_model), device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(4)) * 0.02
+            errs = _hold_cut(cfg, prompts, extra, dev, torch)
+            print(f"   {name} 2-layer cut, fp32: prefill / first-decode logits, max "
+                  f"|kernels - plain| {errs[0]:.3e} / {errs[1]:.3e} (held at 1e-4)")
+            out["cuts"][name] = errs
+        # each path's launches: phase 8's gemma2-9b, then this phase's
+        flash["launches_by_path"] = {"gemma2-9b serving": flash["launches"], **{
+            f"{n} serving": r["flash_launches"] for n, r in out["serving"].items()}}
+        decode["launches_by_path"] = {"gemma2-9b serving": decode["launches"], **{
+            f"{n} serving": r["decode_launches"] for n, r in out["serving"].items()}}
+
+        out["training"] = _train_stablelm(flash, torch, np)
+        new_geo = [p for p in launch_geometry.recorded()
+                   if (p.kernel, p.spec, p.shape, p.tile) not in before_geo]
+        found = launch_geometry.probe_kernels(new_geo)
+        print(f"   launch geometries phase 12 recorded: {len(new_geo)} new, "
+              f"{len(found)} finding(s)")
+        assert new_geo and not found, [f.message for f in found]
+    for rec in (flash, decode):
+        rec["launches"] = sum(rec["launches_by_path"].values())
+    return out
+
+
+# the profiler ranges of a train step (launch/steps.py, models/lm.py,
+# kernels/ops.py)
+RANGES = ("train_step.forward", "train_step.backward", "lm.layer",
+          "flash_attention.backward")
+
+
+def _kernel_us(e) -> float:
+    """Device time (us) of the kernels launched under the profiler event
+    ``e`` and its descendants on its thread."""
+    own = sum(k.duration for k in e.kernels if k.name not in RANGES)
+    return own + sum(_kernel_us(c) for c in e.cpu_children)
+
+
+def _range_device_ms(events) -> dict:
+    """Device ms under a train step's ranges: ``train_step.forward``,
+    ``lm.layer`` started inside a ``train_step.backward`` (the recomputation
+    under remat, run on autograd's thread) and ``flash_attention.backward``,
+    with the number of each range."""
+    cpu = [e for e in events if e.device_type.name == "CPU"]
+    fwd = [e for e in cpu if e.name == "train_step.forward"]
+    bwd = [(e.time_range.start, e.time_range.end) for e in cpu
+           if e.name == "train_step.backward"]
+    rec = [e for e in cpu if e.name == "lm.layer"
+           and any(a <= e.time_range.start <= b for a, b in bwd)]
+    fb = [e for e in cpu if e.name == "flash_attention.backward"]
+    return {"forward": sum(map(_kernel_us, fwd)) / 1e3, "n_forward": len(fwd),
+            "recompute": sum(map(_kernel_us, rec)) / 1e3, "n_recompute": len(rec),
+            "flash_backward": sum(map(_kernel_us, fb)) / 1e3,
+            "n_flash_backward": len(fb)}
+
+
+def _train_stablelm(flash, torch, np):
+    """stablelm-1.6b at full width and depth: fp32 master weights, bf16
+    compute, TRAIN_STEPS AdamW steps on the token pipeline; then a 2-layer
+    fp32 cut held against the plain attention and its accumulated
+    gradients at 2 microbatches against 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention, gqa_decode_attention
+    from repro_torch.launch.steps import (accumulate_grads, init_params, make_train_step,
+                                          micro_depth)
+    from repro_torch.models import attention
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    cfg = get_config("stablelm-1.6b")
+    pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=0))
+    n_micro = micro_depth(TRAIN_BATCH, TRAIN_SEQ, 1)
+    assert n_micro == 2, n_micro
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                        param_dtype=torch.float32)
+    L = len(model.layers)
+    state = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(cfg, AdamWConfig(), n_micro)
+    batches = [pipe.batch(i) for i in range(TRAIN_STEPS + 1)]
+    _zero_attention_counts()
+    retries0 = torch.cuda.memory_stats()["num_alloc_retries"]
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, metrics = step(model, state, batches[i])
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    n_flash, n_decode = flash_attention.launches, gqa_decode_attention.launches
+    by_variant = dict(flash_attention.launches_by_variant)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    retries = torch.cuda.memory_stats()["num_alloc_retries"] - retries0
+    # forward and the per-layer recomputation under remat, per microbatch
+    want = TRAIN_STEPS * n_micro * L * 2
+    print(f"   stablelm-1.6b training, {L} layers at full width, fp32 master "
+          f"weights, bf16 compute, batch {TRAIN_BATCH} x {TRAIN_SEQ} in {n_micro} "
+          f"microbatches: losses {[round(x, 4) for x in losses]}; step "
+          f"{[round(t, 3) for t in times]} s ({TRAIN_BATCH * TRAIN_SEQ / np.median(times):,.0f} "
+          f"tokens/s at the median); peak device memory {peak:.2f} GB ({retries} "
+          f"allocator retries, each a cudaFree of the cache); flash launches "
+          f"{n_flash} (want {TRAIN_STEPS} steps x {n_micro} x {L} layers x 2, forward "
+          f"and recomputation; 0 backward) by kernel {by_variant}, decode {n_decode}")
+    assert all(np.isfinite(losses)), losses
+    assert n_flash == want and by_variant["bf16_wgmma"] == want, (n_flash, by_variant)
+    assert n_decode == 0
+    flash["launches_by_path"]["stablelm-1.6b training"] = n_flash
+
+    # one more step under torch.profiler: device time, idle share, and the
+    # device time under each of the step's profiler ranges
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, state, metrics = step(model, state, batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    kern = [e for e in events if e.device_type.name == "CUDA" and e.name not in RANGES]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name: dict[str, float] = {}
+    for e in kern:
+        by_name[e.name[:50]] = by_name.get(e.name[:50], 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda t: -t[1])[:6]
+    split = _range_device_ms(events)
+    flash_ms = sum(e.time_range.elapsed_us() for e in kern if "flash" in e.name) / 1e3
+    rest = dev_ms - split["forward"] - split["recompute"] - split["flash_backward"]
+    print(f"   one training step under torch.profiler: {wall:.1f} ms wall, {dev_ms:.1f} ms "
+          f"of device time in {len(kern)} CUDA kernels (device idle "
+          f"{100 * (1 - dev_ms / wall):.1f} %); most device time "
+          f"{[(n, round(ms, 1)) for n, ms in top]}")
+    print(f"   its device time by profiler range: forward {split['forward']:.1f} ms "
+          f"({split['n_forward']} ranges), the layers' recomputation under remat "
+          f"{split['recompute']:.1f} ms ({split['n_recompute']} ranges), "
+          f"flash_attention.backward (plain, chunked) {split['flash_backward']:.1f} ms "
+          f"({split['n_flash_backward']} ranges), the rest (the other backward ops, "
+          f"accumulation, AdamW) {rest:.1f} ms; the flash kernel itself {flash_ms:.1f} "
+          f"ms (forward and recomputation)")
+    assert split["n_forward"] == n_micro and split["n_recompute"] == n_micro * L
+    assert split["n_flash_backward"] == n_micro * L
+    rec = {"losses": losses, "step_s": times, "peak_gb": peak, "alloc_retries": retries,
+           "flash_launches": n_flash,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(np.median(times)),
+           "profiled_wall_ms": wall, "profiled_device_ms": dev_ms,
+           "profiled_kernels": len(kern), "profiled_flash_kernel_ms": flash_ms,
+           "profiled_rest_ms": rest,
+           **{f"profiled_{k}_ms": v for k, v in split.items() if not k.startswith("n_")}}
+    del model, state, metrics
+    torch.cuda.empty_cache()
+
+    # the 2-layer cut in fp32: loss and every gradient through the kernel
+    # forward against the plain attention; then its step at 2 microbatches
+    # against 1
+    cut = cfg.replace(n_layers=2, dtype="float32")
+    small = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                         global_batch=4, seed=1)).batch(0)
+    model = init_params(torch.Generator(device=dev).manual_seed(1), cut,
+                        param_dtype=torch.float32)
+    dbatch = {k: torch.as_tensor(v).to(dev) for k, v in small.items()}
+    grads = {}
+    for impl in ("kernel", "torch"):
+        attention.set_attention_impl(impl)
+        try:
+            total, _ = model.loss_fn(dbatch)
+            grads[impl] = [total.detach(), *torch.autograd.grad(
+                total, list(model.parameters()))]
+        finally:
+            attention.set_attention_impl("kernel")
+    worst = scaled = 0.0
+    for got, want in zip(grads["kernel"], grads["torch"]):
+        # rtol 1e-4 elementwise, atol 1e-4 of the tensor's largest element
+        tol = 1e-4 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=tol)
+        worst = max(worst, float(((got - want).abs() / (want.abs() + tol)).max()))
+        scaled = max(scaled, float((got - want).abs().max()) / (tol * 1e4))
+    print(f"   stablelm-1.6b 2-layer cut, fp32, batch 4 x {TRAIN_SEQ}: loss "
+          f"{float(grads['kernel'][0]):.6f} through the kernels, "
+          f"{float(grads['torch'][0]):.6f} plain; loss and {len(grads['kernel']) - 1} "
+          f"gradients held at rtol 1e-4 (atol 1e-4 of each tensor's largest "
+          f"element); largest |kernels - plain| / (|plain| + atol) {worst:.2e}, "
+          f"largest max |kernels - plain| / max |plain| of a tensor {scaled:.2e}")
+    del grads
+    # 2 microbatches against 1: the accumulated fp32 gradients before the
+    # update (Adam's g / (|g| + eps) would amplify rounding where g is near
+    # eps), held as the kernel-vs-plain gradients are
+    after = {n: accumulate_grads(model, small, n) for n in (1, 2)}
+    g_worst = g_scaled = 0.0
+    for k, want in after[1][0].items():
+        got = after[2][0][k]
+        tol = 1e-4 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=tol, msg=k)
+        g_worst = max(g_worst, float(((got - want).abs() / (want.abs() + tol)).max()))
+        g_scaled = max(g_scaled, float((got - want).abs().max()) / (tol * 1e4))
+    l1, l2 = float(after[1][1]), float(after[2][1])
+    print(f"   its accumulated gradients at 2 microbatches against 1: loss {l2:.6f} / "
+          f"{l1:.6f} (held at rtol 1e-5); {len(after[1][0])} fp32 gradients held at "
+          f"rtol 1e-4 (atol 1e-4 of each tensor's largest element), largest "
+          f"|2 - 1| / (|1| + atol) {g_worst:.2e}, largest max |2 - 1| / max |1| of "
+          f"a tensor {g_scaled:.2e}")
+    assert abs(l2 - l1) <= 1e-5 * abs(l1)
+    rec.update(cut_worst=worst, cut_scaled=scaled, micro_grad_worst=g_worst,
+               micro_grad_scaled=g_scaled)
+    del after, model
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2010,6 +2417,7 @@ def main() -> int:
                                                    torch.device("cuda", 0), torch, np)
     readings["cluster_cloud"] = _phase11_cluster_cloud(
         timings, (ev, space, hp, stats, costs), torch, np)
+    readings["dense"] = _phase12_dense(timings, flash, decode, torch, np)
     kernel["main_path_launches"] = kernel["launches"]
     kernel["distributed_launches"] = readings["distributed"]["launches"]
     kernel["launches"] += kernel["distributed_launches"]

@@ -29,15 +29,25 @@ ops in place of jaxpr primitives:
   ``floor``/``ceil``/``round``/``trunc``, a float-to-integer cast or a
   ``detach`` on a differentiated path records a grad-blocker event.
 
+* **Loops reach a fixpoint.**  A host loop over a round (the wave
+  rollout's scheduling rounds) is traced as three straight-line graphs,
+  :class:`LoopGraphs`: the state before the first round, one round, and the
+  outputs of the final state.  :func:`analyze_loop` walks the round over
+  the state's intervals, joining each round's result into the state (hull)
+  and, from round :data:`MAX_LOOP_ITERS` on, widening every endpoint that
+  still moves to its infinity, until the state stops changing: the
+  reference's ``prim_while`` / ``prim_scan``.  A trace of one round alone
+  would see only the first round's values.
+
 An op without a transfer function produces
 :data:`~repro_torch.analysis.interval.FINITE_TOP` and is recorded as a
-coverage gap rather than silently trusted.  The graphs traced today are
-branch-free, so there is no loop or conditional recursion.
+coverage gap rather than silently trusted.
 """
 
 from __future__ import annotations
 
 import math
+import operator
 import os
 import sys
 from dataclasses import dataclass, field
@@ -46,10 +56,14 @@ from typing import Any, Callable
 
 from .interval import BOOL, FINITE_TOP, TOP, Interval
 
-__all__ = ["AbsValue", "Event", "Analysis", "analyze_graph", "trace",
-           "leaves", "LOCATION_KEY"]
+__all__ = ["AbsValue", "Event", "Analysis", "LoopGraphs", "analyze_graph",
+           "analyze_loop", "trace", "leaves", "LOCATION_KEY", "MAX_LOOP_ITERS"]
 
 _INF = math.inf
+
+#: rounds of a loop joined by hull before widening (the reference's
+#: ``max_while_iters``)
+MAX_LOOP_ITERS = 3
 
 #: ``node.meta`` key holding ``"file:line in function"`` of the user code
 #: that issued the op
@@ -93,6 +107,8 @@ class Analysis:
     events: list[Event] = field(default_factory=list)
     unknown_ops: set[str] = field(default_factory=set)
     out_vals: list[AbsValue] = field(default_factory=list)
+    #: a loop's state intervals at the fixpoint (:func:`analyze_loop`)
+    loop_state: list[Interval] = field(default_factory=list)
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +251,8 @@ class _Interp:
         # nodes whose value derives only from comparisons and constants
         # (validity flags): detach or an integer cast of them is benign
         self.bool_derived: set = set()
+        # abs node -> the origin of its operand (a guard on |x| bounds x)
+        self.abs_of: dict = {}
 
     # ---- values ----
 
@@ -303,6 +321,9 @@ class _Interp:
         return out
 
     def call(self, node) -> AbsValue:
+        if node.target is operator.getitem:     # one output of a multi-output op
+            src, i = node.args
+            return self.env[src][i]
         full = str(node.target)         # e.g. "aten.where.self"
         parts = full.split(".")
         ns, name = parts[0], parts[1] if len(parts) > 1 else parts[0]
@@ -368,7 +389,18 @@ class _Interp:
         a = self._alpha(node, a)
         return self._add(node, b.ival, a.ival.neg(), "rsub")
 
+    def _and_guards(self, node) -> None:
+        """``mul`` of two flags (``isfinite`` decomposes to ``(x == x) *
+        (|x| != inf)``): where both constrain the same value, their
+        conjunction holds where both do."""
+        g = [self.guards.get(a) for a in node.args[:2] if self._is_node(a)]
+        if len(g) == 2 and None not in g and g[0].origin is g[1].origin:
+            self.guards[node] = _Guard(g[0].origin,
+                                       g[0].true_ival.intersect(g[1].true_ival),
+                                       g[0].false_ival.hull(g[1].false_ival))
+
     def op_mul(self, node):
+        self._and_guards(node)
         a, b = self._two(node)
         if (a.ival.attains_inf and b.ival.attains_zero) or \
                 (a.ival.attains_zero and b.ival.attains_inf):
@@ -423,7 +455,10 @@ class _Interp:
         return AbsValue(self.read(node.args[0]).ival.neg(), node)
 
     def op_abs(self, node):
-        return AbsValue(self.read(node.args[0]).ival.abs_(), node)
+        a = self.read(node.args[0])
+        if a.origin is not None:
+            self.abs_of[node] = a.origin
+        return AbsValue(a.ival.abs_(), node)
 
     def op_pow(self, node):
         base, ex = self._two(node)
@@ -468,6 +503,74 @@ class _Interp:
         n_in = src.meta["val"].numel() if self._is_node(src) else 1
         n = n_in // max(out.numel(), 1) if out is not None else n_in
         return AbsValue(self.read(src).ival.scale_by_count(n), node)
+
+    # ---- reductions, scans, permutations and constants ----
+
+    def _dim_size(self, node, dim) -> int:
+        shape = node.args[0].meta["val"].shape if self._is_node(node.args[0]) else ()
+        return int(shape[dim]) if len(shape) else 1
+
+    def _elements(self, node) -> AbsValue:
+        """An op whose values are some of its input's elements (a new
+        origin: positions move, so a guard on the input does not apply)."""
+        return AbsValue(self.read(node.args[0]).ival, node)
+
+    op_amin = op_flip = op_select = _elements
+
+    def _values_indices(self, node, dim) -> tuple[AbsValue, AbsValue]:
+        n = self._dim_size(node, dim)
+        return (AbsValue(self.read(node.args[0]).ival, node),
+                AbsValue(Interval(0.0, float(max(n - 1, 0))), node))
+
+    def op_max(self, node):
+        if len(node.args) < 2:                  # a full reduction
+            return self._elements(node)
+        return self._values_indices(node, node.args[1])
+
+    op_min = op_max
+
+    def op_sort(self, node):
+        dim = node.args[1] if len(node.args) > 1 else node.kwargs.get("dim", -1)
+        return self._values_indices(node, dim)
+
+    def op_cumsum(self, node):
+        # the k-th partial sum is a sum of k terms: the hull of k * x, k <= n
+        n = self._dim_size(node, node.args[1])
+        return AbsValue(self.read(node.args[0]).ival.scale_by_count(n), node)
+
+    def op_mean(self, node):
+        a = self.read(node.args[0]).ival
+        nan = a.maybe_nan or (a.attains_pinf and a.attains_ninf)
+        return AbsValue(Interval(a.lo, a.hi, a.lo_open, a.hi_open, nan), node)
+
+    def op_all(self, node):
+        if all(self.is_bool_derived(a) for a in node.args if self._is_node(a)):
+            self.bool_derived.add(node)
+        return AbsValue(BOOL, node)
+
+    def _fill(self, node, value) -> AbsValue:
+        self.bool_derived.add(node)
+        return AbsValue(Interval.point(float(value)), node)
+
+    def op_full(self, node):
+        return self._fill(node, node.args[1])
+
+    def op_full_like(self, node):
+        return self._fill(node, node.args[1])
+
+    def op_zeros(self, node):
+        return self._fill(node, 0.0)
+
+    op_zeros_like = op_zeros
+
+    def op_arange(self, node):
+        a = [float(v) for v in node.args]
+        start, end = (0.0, a[0]) if len(a) == 1 else (a[0], a[1])
+        step = a[2] if len(a) > 2 else 1.0
+        n = max(math.ceil((end - start) / step), 1)
+        last = start + (n - 1) * step
+        self.bool_derived.add(node)
+        return AbsValue(Interval(min(start, last), max(start, last)), node)
 
     # ---- domain-restricted unary ops ----
 
@@ -543,7 +646,11 @@ class _Interp:
 
     def _comparison(self, node, name):
         a, b = self._two(node)
-        if a.origin is not None:
+        if a.origin in self.abs_of and name == "ne" and b.ival.lo == b.ival.hi == _INF:
+            # |x| != inf: x is finite (the other half of a decomposed isfinite)
+            self.guards[node] = _Guard(self.abs_of[a.origin],
+                                       Interval(-_INF, _INF, True, True), TOP)
+        elif a.origin is not None:
             t, f = _CMP_REFINERS[name](b.ival)
             self.guards[node] = _Guard(a.origin, t, f)
         self.bool_derived.add(node)
@@ -587,6 +694,71 @@ def leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in tree for x in leaves(tree[k])]
     return [tree]
+
+
+@dataclass
+class LoopGraphs:
+    """A host loop traced as three straight-line graphs (from :func:`trace`)
+    over the loop's inputs ``xs`` and its state ``st``, a flat list of
+    tensors in a fixed order:
+
+    * ``init(*xs) -> st``, the state before the first round;
+    * ``body(*xs, *st) -> st``, one round;
+    * ``finish(*xs, *st) -> outputs``, the outputs of the final state.
+    """
+
+    init: Any
+    body: Any
+    finish: Any
+
+    @property
+    def n_nodes(self) -> int:
+        return sum(len(g.graph.nodes) for g in (self.init, self.body, self.finish))
+
+
+def analyze_loop(loop: LoopGraphs, in_intervals: list[Interval], *,
+                 grad_mode: bool = False,
+                 max_iters: int = MAX_LOOP_ITERS) -> Analysis:
+    """Walk a :class:`LoopGraphs` with one interval per loop input.
+
+    The round is walked over the state's intervals until they stop
+    changing: the first ``max_iters`` rounds join by hull, later ones widen
+    every endpoint that still moves to its infinity (so the walk ends).
+    Events are those of ``init``, of the round at the fixpoint (its state
+    covers every round's, and the transfer functions are monotone, so it
+    records whatever an earlier round would) and of ``finish``.
+    """
+    analysis = Analysis()
+
+    def walk(gm, ivals, chain):
+        sink = Analysis()
+        outs = _Interp(gm, sink, grad_mode=grad_mode).run(ivals)
+        analysis.unknown_ops |= sink.unknown_ops
+        for e in sink.events:
+            e.chain = (chain,) + e.chain
+        return [o.ival for o in outs], sink.events
+
+    xs = list(in_intervals)
+    carry, events = walk(loop.init, xs, "loop:init")
+    analysis.events.extend(events)
+    it = 0
+    while True:
+        new, events = walk(loop.body, xs + carry, "loop:round")
+        if len(new) != len(carry):
+            raise ValueError(f"the loop round returns {len(new)} state "
+                             f"values for a state of {len(carry)}")
+        joined = [old.widen_against(n) if it >= max_iters else old.hull(n)
+                  for old, n in zip(carry, new)]
+        if joined == carry:
+            break
+        carry = joined
+        it += 1
+    analysis.events.extend(events)
+    analysis.loop_state = carry
+    outs, events = walk(loop.finish, xs + carry, "loop:finish")
+    analysis.events.extend(events)
+    analysis.out_vals = [AbsValue(iv) for iv in outs]
+    return analysis
 
 
 def analyze_graph(gm, in_intervals: list[Interval], *,

@@ -11,7 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
-from ..absint import Analysis, analyze_graph
+from ..absint import Analysis, LoopGraphs, analyze_graph, analyze_loop
 from ..targets import TraceTarget, Traced, iter_targets, trace_target
 
 __all__ = ["CHECKERS", "AnalysisContext"]
@@ -36,8 +36,10 @@ class AnalysisContext:
     def analyzed(self, t: TraceTarget) -> Analysis:
         if t.name not in self._analyzed:
             tr = self.traced(t)
-            self._analyzed[t.name] = analyze_graph(
-                tr.graph, tr.intervals, grad_mode=t.grad_mode)
+            walk = analyze_loop if isinstance(tr.graph, LoopGraphs) \
+                else analyze_graph
+            self._analyzed[t.name] = walk(tr.graph, tr.intervals,
+                                          grad_mode=t.grad_mode)
         return self._analyzed[t.name]
 
 

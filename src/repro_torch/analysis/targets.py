@@ -29,11 +29,17 @@ Targets, the reference's (``repro/analysis/targets.py``):
 * ``network-model`` — :func:`repro_torch.cluster.network.effective_bandwidth`,
   the incast-contention factor the job model's topology hook divides
   Eq. 91's netCost by (grad mode).
-* ``cluster-rollout``, ``cloud-rollout`` — registered with
-  ``traceable=False``: the wave rollout is a loop over scheduling rounds,
-  and a trace of one round, without the reference's loop fixpoint with
-  widening, would report a false "clean"; each ``skip_reason`` names the
-  ``ROADMAP.md`` item that adds the fixpoint.
+* ``cluster-rollout`` — the wave rollout
+  (:func:`repro_torch.cluster.vector_sim.rollout_program`) with every
+  scheduler branch compiled in (fair, preemptive, capacity), over the
+  reference's scenario domain.  The rollout is a host loop over scheduling
+  rounds, so it is traced as a
+  :class:`~repro_torch.analysis.absint.LoopGraphs` (the state before the
+  first round, one round with finished rows frozen, the outputs) and
+  walked to the loop's fixpoint with widening
+  (:func:`~repro_torch.analysis.absint.analyze_loop`).
+* ``cloud-rollout`` — the same with the elastic-fleet branch compiled in
+  (spot reclamation, autoscaling, episode billing).
 * ``tpu-model``     — a pure-numpy table model, not traceable at all, as in
   the reference.
 """
@@ -58,11 +64,17 @@ class Traced:
     placeholder), the output names, the example arguments as they crossed
     the trace boundary, and the seconds tracing took."""
 
-    graph: Any                      # torch.fx.GraphModule
+    graph: Any                      # torch.fx.GraphModule, or absint.LoopGraphs
     intervals: list[Interval]
     out_names: tuple[str, ...]
     args: tuple
     seconds: float = 0.0
+
+    @property
+    def n_nodes(self) -> int:
+        """Graph nodes traced (a loop's: its three graphs together)."""
+        g = self.graph
+        return g.n_nodes if hasattr(g, "n_nodes") else len(g.graph.nodes)
 
 
 @dataclass
@@ -274,12 +286,84 @@ def _build_network_model(device):
     return trace(fn, *args), [ivals[k] for k in keys], ("bandwidth",), args
 
 
+def _rollout_columns(device, cloud: bool):
+    """One scenario (B 1) of 3 jobs, 2 node classes and 2 capacity queues,
+    and each column's domain: the reference's rollout targets."""
+    import torch
+
+    J, C, Q = 3, 2, 2
+    f64 = dict(dtype=torch.float64, device=device)
+    nonneg = Interval(0.0, math.inf, False, True)
+    cols = {
+        "arrival": (torch.zeros((1, J), **f64), nonneg),
+        "n_maps": (torch.ones((1, J), **f64), nonneg),
+        "n_reds": (torch.ones((1, J), **f64), nonneg),
+        "map_cost": (torch.ones((1, J), **f64), nonneg),
+        "red_work": (torch.ones((1, J), **f64), nonneg),
+        "shuffle": (torch.ones((1, J), **f64), nonneg),
+        "queue": (torch.zeros((1, J), **f64), Interval(0.0, float(Q - 1))),
+        "map_slots": (torch.ones((1, C), **f64), nonneg),
+        "red_slots": (torch.ones((1, C), **f64), nonneg),
+        "speedup": (torch.ones((1, C), **f64), Interval(1.0, math.inf, False, True)),
+        "policy": (torch.zeros((1,), **f64), Interval(0.0, 3.0)),
+        "slowstart": (torch.full((1,), 0.05, **f64), Interval(0.0, 1.0)),
+        "queue_frac": (torch.full((1, Q), 0.5, **f64), Interval(0.0, 1.0)),
+    }
+    if cloud:
+        cols.update({
+            "reclaim_rate": (torch.full((1, C), 1e-4, **f64), nonneg),
+            "autoscale": (torch.ones((1,), **f64), Interval(0.0, 2.0)),
+            "high_water": (torch.full((1,), 2.0, **f64), nonneg),
+            "provision_latency": (torch.full((1,), 5.0, **f64), nonneg),
+            "extra_map_slots": (torch.full((1,), 2.0, **f64), nonneg),
+            "extra_red_slots": (torch.full((1,), 2.0, **f64), nonneg),
+            "billing_quantum": (torch.full((1,), 60.0, **f64), nonneg),
+        })
+    return cols
+
+
+def _build_rollout(device, *, cloud: bool):
+    from repro_torch.cluster.vector_sim import frozen_round, rollout_program
+
+    from .absint import LoopGraphs, trace
+
+    cols = _rollout_columns(device, cloud)
+    keys = sorted(cols)
+    flags = dict(with_fair=True, with_preempt=True, with_capacity=True,
+                 with_cloud=cloud, with_dag=False, with_topo=False)
+    args = tuple(cols[k][0] for k in keys)
+    state0 = rollout_program(dict(zip(keys, args)), **flags).state0
+    st_keys = sorted(state0)
+    # distinct tensors: make_fx maps each example tensor to one placeholder,
+    # and state0 shares its zeros and infs between several state entries
+    st_args = tuple(state0[k].clone() for k in st_keys)
+    n = len(keys)
+    names: list[str] = []
+
+    def program(xs):
+        return rollout_program(dict(zip(keys, xs)), **flags)
+
+    def init(*xs):
+        st = program(xs).state0
+        return [st[k] for k in st_keys]
+
+    def body(*a):
+        nxt = frozen_round(program(a[:n]), dict(zip(st_keys, a[n:])))
+        return [nxt[k] for k in st_keys]
+
+    def finish(*a):
+        out = program(a[:n]).finish(dict(zip(st_keys, a[n:])))
+        names[:] = sorted(out)
+        return [out[k] for k in names]
+
+    loop = LoopGraphs(trace(init, *args), trace(body, *args, *st_args),
+                      trace(finish, *args, *st_args))
+    return loop, [cols[k][1] for k in keys], tuple(names), args
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
-
-_WAITS = "waits for ROADMAP.md queue 1, "
-
 
 def iter_targets() -> list[TraceTarget]:
     """All analyzer targets, untraced (call :func:`trace_target` per item)."""
@@ -310,18 +394,13 @@ def iter_targets() -> list[TraceTarget]:
         TraceTarget(
             name="cluster-rollout",
             doc="the wave simulator's rollout, all policies compiled in",
-            traceable=False,
-            skip_reason=_WAITS + "item 22, the absint loop fixpoint for "
-                        "the wave rollout: a trace of one round without the "
-                        "reference's fixpoint with widening would report a "
-                        "false clean",
+            build=lambda device: _build_rollout(device, cloud=False),
         ),
         TraceTarget(
             name="cloud-rollout",
-            doc="the wave rollout with the elastic-fleet path compiled in",
-            traceable=False,
-            skip_reason=_WAITS + "item 22, the absint loop fixpoint for "
-                        "the wave rollout (as cluster-rollout)",
+            doc="the wave rollout with the elastic-fleet path compiled in "
+                "(spot reclamation, autoscaling, episode billing)",
+            build=lambda device: _build_rollout(device, cloud=True),
         ),
         TraceTarget(
             name="cloud-pricing",

@@ -114,7 +114,7 @@ a silent wrong number).
 from __future__ import annotations
 
 import time
-from typing import Mapping
+from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -125,8 +125,8 @@ from repro_torch.obs import current as _obs_current
 from .network import effective_bandwidth
 from .workload import WorkloadTrace, shuffle_full, task_costs
 
-__all__ = ["POLICIES", "latency_quantile", "pack_trace", "estimate_steps",
-           "simulate_batch"]
+__all__ = ["POLICIES", "RolloutProgram", "estimate_steps", "frozen_round",
+           "latency_quantile", "pack_trace", "rollout_program", "simulate_batch"]
 
 _EPS = 1e-3          # event-time / task-count slack (durations are >= ~0.1 s)
 _INF = float("inf")
@@ -322,11 +322,35 @@ def latency_quantile(values, q: float):
 # --------------------------------------------------------------------------
 
 
-def _rollout(s: dict, n_steps: int, with_fair: bool, with_preempt: bool,
-             with_capacity: bool, with_cloud: bool, with_dag: bool,
-             with_topo: bool, check_every: int) -> tuple[dict, int]:
-    """Roll out one block of scenarios (float64 tensors on one device);
-    returns the per-scenario outputs and the number of rounds run."""
+class RolloutProgram(NamedTuple):
+    """The wave rollout of one block of scenarios as pure functions of the
+    round state (a dict of tensors): ``state0`` the state before the first
+    round, ``step(state)`` the next round's state, ``cont(state)`` which
+    rows are still active (B,), ``finish(state)`` the per-scenario outputs.
+    :func:`frozen_round` is one round of the loop; the host loop in
+    :func:`simulate_batch` and the analyzer's loop fixpoint
+    (``repro_torch.analysis.targets``) both iterate it."""
+
+    state0: dict
+    step: Callable[[dict], dict]
+    cont: Callable[[dict], torch.Tensor]
+    finish: Callable[[dict], dict]
+
+
+def frozen_round(prog: RolloutProgram, st: dict) -> dict:
+    """One round: ``step`` on the active rows, finished rows frozen (the
+    reference's vmapped ``while_loop`` body)."""
+    active = prog.cont(st)
+    nxt = prog.step(st)
+    return {k: torch.where(active.view((-1,) + (1,) * (v.dim() - 1)), nxt[k], v)
+            for k, v in st.items()}
+
+
+def rollout_program(s: dict, *, with_fair: bool, with_preempt: bool,
+                    with_capacity: bool, with_cloud: bool, with_dag: bool,
+                    with_topo: bool) -> RolloutProgram:
+    """The rollout of one block of scenarios (float64 tensors on one
+    device) with the named policy branches compiled in."""
     arrival = s["arrival"]                                          # (B, J)
     n_maps = s["n_maps"]
     n_reds = s["n_reds"]
@@ -632,67 +656,72 @@ def _rollout(s: dict, n_steps: int, with_fair: bool, with_preempt: bool,
         # (the reference's per-row ``k < n_steps``) is the host loop's bound
         return ~torch.isfinite(st["fin"]).all(-1)
 
-    def frozen_where(active, new, old):
-        return torch.where(active.view((-1,) + (1,) * (old.dim() - 1)), new, old)
+    def finish(st):
+        fin = st["fin"]
+        converged = torch.isfinite(fin).all(-1)
+        if with_dag:
+            # a DAG child's service clock starts at its release (the DES sets
+            # submit_time the same way); double-where: an unreleased child has
+            # an infinite release, and inf - inf is the nan this guards against
+            submit = eligible_at(st["map_fin"], fin)
+            ok = torch.isfinite(submit)
+            latency = torch.where(ok, fin - torch.where(ok, submit, 0.0), _INF)
+        else:
+            latency = fin - arrival
+        # nominal busy seconds (baseline-speed work estimate over all slots)
+        busy = (n_maps * map_cost + n_reds * (s["shuffle"] + s["red_work"])).sum(-1)
+        fin_max = fin.max(-1).values
+        span = torch.clamp(fin_max - arrival_min, min=1e-9)
+        # percentile interpolates between sorted neighbours (lo + (hi-lo)*frac);
+        # with >= 2 infinite latencies (unconverged scenario) that is inf - inf
+        # = nan.  Double-where: the percentile only ever sees finite values, and
+        # unconverged scenarios report inf — the same sentinel `finish` uses.
+        lat_safe = torch.where(torch.isfinite(latency), latency, 0.0)
+        out = dict(
+            finish=fin,
+            map_finish=st["map_fin"],
+            latency=latency,
+            converged=converged.to(torch.float32),
+            mean_latency=latency.mean(-1),
+            p95_latency=torch.where(
+                converged, latency_quantile(lat_safe, 95.0), _INF),
+            makespan=span,
+            utilization=busy / (span * torch.clamp(cap_m + cap_r, min=1.0)),
+        )
+        if with_cloud:
+            # close a still-open extra-capacity episode at the last finish (the
+            # DES closes live online intervals at span the same way); inf for
+            # unconverged rows, whose billed seconds are as unknown as their
+            # finish times
+            x_open = st["x_on"] > 0.5
+            # double-where: an unconverged row has inf finish times (and an
+            # open episode keeps x_t_on), so the subtraction only ever sees
+            # finite operands; the result is overridden to inf below anyway
+            end_safe = torch.where(torch.isfinite(fin_max), fin_max, 0.0)
+            start_safe = torch.where(torch.isfinite(st["x_t_on"]), st["x_t_on"], 0.0)
+            ep = torch.where(x_open, torch.clamp(end_safe - start_safe, min=0.0), 0.0)
+            billed = st["x_billed"] + torch.where(x_open, _quantize(ep, x_quant), 0.0)
+            out["extra_billed_s"] = torch.where(converged, billed, _INF)
+        return out
 
-    st = state0
+    return RolloutProgram(state0, step, cont, finish)
+
+
+def _rollout(s: dict, n_steps: int, check_every: int, **flags
+             ) -> tuple[dict, int]:
+    """Roll out one block of scenarios (float64 tensors on one device);
+    returns the per-scenario outputs and the number of rounds run."""
+    prog = rollout_program(s, **flags)
+    st = prog.state0
     rounds = 0
     check_every = max(int(check_every), 1)
     while rounds < n_steps:
         for _ in range(min(check_every, n_steps - rounds)):
-            active = cont(st)
-            nxt = step(st)
-            st = {k: frozen_where(active, nxt[k], v) for k, v in st.items()}
+            st = frozen_round(prog, st)
             rounds += 1
-        if not bool(cont(st).any()):
+        if not bool(prog.cont(st).any()):
             break
-
-    fin = st["fin"]
-    converged = torch.isfinite(fin).all(-1)
-    if with_dag:
-        # a DAG child's service clock starts at its release (the DES sets
-        # submit_time the same way); double-where: an unreleased child has
-        # an infinite release, and inf - inf is the nan this guards against
-        submit = eligible_at(st["map_fin"], fin)
-        ok = torch.isfinite(submit)
-        latency = torch.where(ok, fin - torch.where(ok, submit, 0.0), _INF)
-    else:
-        latency = fin - arrival
-    # nominal busy seconds (baseline-speed work estimate over all slots)
-    busy = (n_maps * map_cost + n_reds * (s["shuffle"] + s["red_work"])).sum(-1)
-    fin_max = fin.max(-1).values
-    span = torch.clamp(fin_max - arrival_min, min=1e-9)
-    # percentile interpolates between sorted neighbours (lo + (hi-lo)*frac);
-    # with >= 2 infinite latencies (unconverged scenario) that is inf - inf
-    # = nan.  Double-where: the percentile only ever sees finite values, and
-    # unconverged scenarios report inf — the same sentinel `finish` uses.
-    lat_safe = torch.where(torch.isfinite(latency), latency, 0.0)
-    out = dict(
-        finish=fin,
-        map_finish=st["map_fin"],
-        latency=latency,
-        converged=converged.to(torch.float32),
-        mean_latency=latency.mean(-1),
-        p95_latency=torch.where(
-            converged, latency_quantile(lat_safe, 95.0), _INF),
-        makespan=span,
-        utilization=busy / (span * torch.clamp(cap_m + cap_r, min=1.0)),
-    )
-    if with_cloud:
-        # close a still-open extra-capacity episode at the last finish (the
-        # DES closes live online intervals at span the same way); inf for
-        # unconverged rows, whose billed seconds are as unknown as their
-        # finish times
-        x_open = st["x_on"] > 0.5
-        # double-where: an unconverged row has inf finish times (and an
-        # open episode keeps x_t_on), so the subtraction only ever sees
-        # finite operands; the result is overridden to inf below anyway
-        end_safe = torch.where(torch.isfinite(fin_max), fin_max, 0.0)
-        start_safe = torch.where(torch.isfinite(st["x_t_on"]), st["x_t_on"], 0.0)
-        ep = torch.where(x_open, torch.clamp(end_safe - start_safe, min=0.0), 0.0)
-        billed = st["x_billed"] + torch.where(x_open, _quantize(ep, x_quant), 0.0)
-        out["extra_billed_s"] = torch.where(converged, billed, _INF)
-    return out, rounds
+    return prog.finish(st), rounds
 
 
 def _normalize(scen: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:

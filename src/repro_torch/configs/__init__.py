@@ -17,14 +17,13 @@ __all__ = ["ARCHS", "get_config"]
 
 ARCHS: dict[str, str] = {
     "gemma2-9b": "gemma2_9b",
+    "starcoder2-7b": "starcoder2_7b",
+    "granite-3-8b": "granite_3_8b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "internvl2-26b": "internvl2_26b",
 }
 
 _PENDING: dict[str, str] = {
-    "starcoder2-7b": "queue 1 item 15 (the other dense configs)",
-    "granite-3-8b": "queue 1 item 15 (the other dense configs)",
-    "stablelm-1.6b": "queue 1 item 15 (the other dense configs)",
-    "internvl2-26b": "queue 1 item 15 (the other dense configs, with the "
-                     "vision frontend's extra_embeds)",
     "deepseek-moe-16b": "queue 1 item 17 (MoE)",
     "moonshot-v1-16b-a3b": "queue 1 item 17 (MoE)",
     "mamba2-130m": "queue 1 item 17 (SSM)",

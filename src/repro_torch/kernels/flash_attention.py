@@ -31,6 +31,12 @@ function.  It materialises the scores, as the reference's oracle
 ``repro/kernels/ref.py::flash_attention_ref`` does.  The CPU path of
 :func:`repro_torch.kernels.flash_attention` and the tests use it; on the
 card it is the yardstick both kernels are held to.
+
+:func:`chunked_forward` and :func:`chunked_backward` are the same function
+over chunks of keys, with the softmax statistics m and l: the ``"torch"``
+attention impl's forward, and the one backward both differentiable forms
+use (the kernel's under :func:`repro_torch.kernels.flash_attention`, and
+:func:`repro_torch.models.attention.flash_attention_chunked`).
 """
 
 from __future__ import annotations
@@ -42,8 +48,8 @@ import torch
 
 from ._build import MAX_SMEM_BYTES, LaunchSpec, check, load
 
-__all__ = ["VARIANTS", "CtaPlan", "MTilePlan", "coverage",
-           "flash_attention_cuda", "flash_attention_torch", "heads_per_tile",
+__all__ = ["VARIANTS", "CtaPlan", "MTilePlan", "chunked_backward",
+           "chunked_forward", "coverage", "flash_attention_cuda", "flash_attention_torch", "heads_per_tile",
            "launch_spec", "padded_head_dim", "tile_plan", "wgmma_stages"]
 
 #: the kernel that serves each input dtype
@@ -272,3 +278,107 @@ def flash_attention_torch(
     w = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bngqc,bnch->bngqh", w, v.float())
     return out.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def _visible(q_pos, k_pos, *, causal: bool, window: int | None, k_len: int):
+    """(Sq, C) bool: the keys each query sees."""
+    ok = k_pos[None, :] < k_len
+    if causal:
+        ok = ok & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
+    return ok
+
+
+def _kv_chunks(k, v, chunk: int):
+    """(first key, k chunk, v chunk) over Sk, the last chunk zero-padded to
+    ``chunk`` keys (the reference pads; the ``k_len`` mask hides the
+    padding)."""
+    Sk = k.shape[2]
+    for start in range(0, Sk, chunk):
+        kc, vc = k[:, :, start:start + chunk], v[:, :, start:start + chunk]
+        if kc.shape[2] < chunk:
+            pad = chunk - kc.shape[2]
+            kc = torch.nn.functional.pad(kc, (0, 0, 0, pad))
+            vc = torch.nn.functional.pad(vc, (0, 0, 0, pad))
+        yield start, kc, vc
+
+
+def chunked_forward(q, k, v, *, causal: bool = True, window: int | None = None,
+                    logit_cap: float | None = None, q_offset: int = 0,
+                    k_len: int | None = None, chunk: int = 1024):
+    """Online-softmax attention over KV chunks of ``chunk`` keys, in fp32
+    from inputs cast to fp32: (out (B, H, Sq, hd) in fp32, m, l (B, KV, G,
+    Sq) in fp32), the reference's ``chunked_attention`` and its
+    ``_flash_fwd_stats``.  O(Sq * chunk) temporaries.  A row with no
+    visible key averages v, as the reference's chunked form does."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    k_len = Sk if k_len is None else k_len
+    scale = hd ** -0.5
+    chunk = min(chunk, Sk)
+    qg = q.float().reshape(B, KV, G, Sq, hd)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    m = torch.full((B, KV, G, Sq), _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=q.device)
+    for start, kc, vc in _kv_chunks(k.float(), v.float(), chunk):
+        k_pos = start + torch.arange(chunk, device=q.device)
+        s = torch.einsum("bngqh,bnch->bngqc", qg, kc) * scale
+        if logit_cap is not None:
+            s = logit_cap * torch.tanh(s / logit_cap)
+        ok = _visible(q_pos, k_pos, causal=causal, window=window, k_len=k_len)
+        s = s + torch.where(ok, 0.0, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bngqc,bnch->bngqh", p, vc)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, Sq, hd), m, l
+
+
+def chunked_backward(q, k, v, out, m, l, dout, *, causal: bool = True,
+                     window: int | None = None, logit_cap: float | None = None,
+                     q_offset: int = 0, k_len: int | None = None,
+                     chunk: int = 1024):
+    """(dq, dk, dv) of attention at (q, k, v), in the inputs' dtypes, from
+    its output and softmax statistics (:func:`chunked_forward`'s): each
+    chunk's probabilities are recomputed from m and l instead of saved, the
+    standard flash-attention backward (the reference's ``_flashx_bwd``),
+    all in fp32.  A key a query does not see gets probability 0, so a row
+    with no visible key passes no gradient, as the kernel's output there
+    is 0."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    k_len = Sk if k_len is None else k_len
+    scale = hd ** -0.5
+    chunk = min(chunk, Sk)
+    qg = q.float().reshape(B, KV, G, Sq, hd)
+    dog = dout.float().reshape(B, KV, G, Sq, hd)
+    delta = (dog * out.float().reshape(B, KV, G, Sq, hd)).sum(dim=-1)
+    l_safe = l.clamp_min(1e-30)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    dq = torch.zeros_like(qg)
+    dk, dv = [], []
+    for start, kc, vc in _kv_chunks(k.float(), v.float(), chunk):
+        k_pos = start + torch.arange(chunk, device=q.device)
+        s = torch.einsum("bngqh,bnch->bngqc", qg, kc) * scale
+        if logit_cap is not None:
+            t = torch.tanh(s / logit_cap)
+            s = logit_cap * t
+        ok = _visible(q_pos, k_pos, causal=causal, window=window, k_len=k_len)
+        p = torch.where(ok, torch.exp(s - m[..., None]) / l_safe[..., None], 0.0)
+        dv.append(torch.einsum("bngqc,bngqh->bnch", p, dog))
+        ds = p * (torch.einsum("bngqh,bnch->bngqc", dog, vc) - delta[..., None])
+        if logit_cap is not None:
+            ds = ds * (1.0 - t * t)                         # through tanh
+        ds = ds * scale
+        dq = dq + torch.einsum("bngqc,bnch->bngqh", ds, kc)
+        dk.append(torch.einsum("bngqc,bngqh->bnch", ds, qg))
+    dk = torch.cat(dk, dim=2)[:, :, :Sk]
+    dv = torch.cat(dv, dim=2)[:, :, :Sk]
+    return dq.reshape(B, H, Sq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -21,6 +21,15 @@ and block, the index space the grid must cover and what one CTA covers of
 it (the kernel module's ``coverage``), for the static analyzer's
 ``launch-geometry`` checker.
 
+``flash_attention`` is differentiable, as the reference's wrapper is (its
+``custom_vjp``): the forward is the kernel, counted as any launch, and the
+backward recomputes the attention in plain PyTorch, as the reference's
+``_flash_bwd`` recomputes through its jnp oracle: the output and softmax
+statistics over chunks of keys, then the gradients chunk by chunk
+(:func:`~repro_torch.kernels.flash_attention.chunked_backward`, in fp32,
+under a ``flash_attention.backward`` profiler range).  There is no backward
+kernel, because the reference has none.
+
 The attention wrappers take the reference's layouts at the public boundary
 (``repro/kernels/ops.py``): q (B, H, Sq, hd) and k, v (B, KV, Sk, hd) for
 ``flash_attention``; q (B, H, 1, hd) over caches (B, KV, S, hd) for
@@ -102,8 +111,40 @@ def flash_attention(
     keys at or before ``q_pos - window``.  Scores are scaled by hd**-0.5 and
     soft-capped to ``logit_cap * tanh(s / logit_cap)``.  On the card bf16
     inputs launch the ``wgmma`` kernel (their addresses must be 16-byte
-    aligned) and fp32 inputs the CUDA-core kernel.
+    aligned) and fp32 inputs the CUDA-core kernel.  When q, k or v requires
+    a gradient, the call records :class:`_FlashAttention` (the backward
+    recomputes in plain PyTorch).
     """
+    kw = dict(causal=causal, window=window, logit_cap=logit_cap,
+              q_offset=q_offset, k_len=k_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kw)
+    return _flash_forward(q, k, v, **kw)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes the output and softmax
+    statistics in plain PyTorch over chunks of keys, then the gradients
+    chunk by chunk from them (the plain version's gradients, in fp32)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v)
+        return _flash_forward(q, k, v, **kw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.profiler.record_function("flash_attention.backward"):
+            q, k, v = ctx.saved_tensors
+            out, m, l = _fa.chunked_forward(q, k, v, **ctx.kw)
+            grads = _fa.chunked_backward(q, k, v, out, m, l, dout, **ctx.kw)
+        return (*grads, None)
+
+
+def _flash_forward(q, k, v, *, causal, window, logit_cap, q_offset, k_len):
+    """The checked, counted launch (the plain version on a CPU tensor)."""
     _check_attention("flash_attention", q, k, v, window=window, logit_cap=logit_cap)
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]

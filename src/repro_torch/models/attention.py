@@ -9,7 +9,11 @@ switch):
   for prefill and :func:`repro_torch.kernels.gqa_decode_attention` for
   decode.  On a CPU tensor the wrappers take the kernels' plain versions.
 * ``"torch"`` — plain PyTorch: :func:`chunked_attention`, the reference's
-  online softmax over KV chunks, and :func:`decode_attention`.
+  online softmax over KV chunks, and :func:`decode_attention`.  With
+  ``OptFlags.flash_bwd`` set, prefill takes :func:`flash_attention_chunked`,
+  the reference's ``flash_attention_xla``: the same forward, whose backward
+  recomputes the scores chunk by chunk from (q, k, v, out, m, l) instead of
+  saving every chunk's fp32 scores.
 
 KV caches come in two layouts (chosen per layer kind):
 
@@ -29,12 +33,15 @@ import torch
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import gqa_decode_attention as _decode_kernel
 from repro_torch.kernels.decode_attention import decode_attention_torch
+from repro_torch.kernels.flash_attention import chunked_backward, chunked_forward
 
 from .layers import apply_rope
+from .opt_flags import get_flags
 
 __all__ = [
     "attention_projections",
     "chunked_attention",
+    "flash_attention_chunked",
     "decode_attention",
     "attn_block_prefill",
     "attn_block_decode",
@@ -43,8 +50,6 @@ __all__ = [
     "full_slot_positions",
     "set_attention_impl",
 ]
-
-_NEG = -1e30
 
 # "kernel" (repro_torch.kernels) | "torch" (plain PyTorch).
 _IMPL = "kernel"
@@ -62,6 +67,9 @@ def _dispatch_prefill(q, k, v, *, causal, window, logit_cap, q_offset):
         return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=causal, window=window, logit_cap=logit_cap,
                              q_offset=q_offset)
+    if get_flags().flash_bwd:
+        return flash_attention_chunked(q, k, v, causal=causal, window=window,
+                                       logit_cap=logit_cap, q_offset=q_offset)
     return chunked_attention(q, k, v, causal=causal, window=window,
                              logit_cap=logit_cap, q_offset=q_offset)
 
@@ -76,34 +84,23 @@ def _dispatch_decode(q, k_cache, v_cache, slot_pos, pos, *, window, logit_cap,
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, d) @ (d, n, hd) -> (B, n, S, hd)."""
+    """(B, S, d) @ (d, n, hd) -> (B, n, S, hd); ``w`` cast to x's dtype."""
     B, S, _ = x.shape
     n, hd = w.shape[1], w.shape[2]
-    return (x @ w.reshape(w.shape[0], n * hd)).view(B, S, n, hd).transpose(1, 2)
+    w = w.to(x.dtype).reshape(w.shape[0], n * hd)
+    return (x @ w).view(B, S, n, hd).transpose(1, 2)
 
 
 def _out_project(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, H, S, hd) @ (H, hd, d) -> (B, S, d)."""
+    """(B, H, S, hd) @ (H, hd, d) -> (B, S, d); ``w`` cast to out's dtype."""
     B, H, S, hd = out.shape
-    return out.transpose(1, 2).reshape(B, S, H * hd) @ w.reshape(H * hd, w.shape[2])
+    w = w.to(out.dtype).reshape(H * hd, w.shape[2])
+    return out.transpose(1, 2).reshape(B, S, H * hd) @ w
 
 
 def attention_projections(p, x: torch.Tensor):
     """x: (B, S, d) -> q (B, H, S, hd), k/v (B, KV, S, hd)."""
     return _project(x, p["q"]), _project(x, p["k"]), _project(x, p["v"])
-
-
-def _mask_bias(q_pos, k_pos, *, causal: bool, window: int | None, k_len=None):
-    """(Sq, C) additive mask bias in fp32."""
-    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
-                    device=q_pos.device)
-    if causal:
-        ok &= k_pos[None, :] <= q_pos[:, None]
-    if window is not None:
-        ok &= k_pos[None, :] > q_pos[:, None] - window
-    if k_len is not None:
-        ok &= k_pos[None, :] < k_len
-    return torch.where(ok, 0.0, _NEG)
 
 
 def chunked_attention(
@@ -124,38 +121,48 @@ def chunked_attention(
     computes them (the reference's XLA path rounds bf16 scores and
     probabilities; in fp32 the two are the same arithmetic).
     """
-    B, H, Sq, hd = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
-    G = H // KV
-    dtype = q.dtype
-    scale = hd ** -0.5
-    chunk = min(chunk, Sk)
-    qg = q.float().reshape(B, KV, G, Sq, hd)
-    k, v = k.float(), v.float()
-    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    out, _, _ = chunked_forward(q, k, v, causal=causal, window=window,
+                                    logit_cap=logit_cap, q_offset=q_offset,
+                                    chunk=chunk)
+    return out.to(q.dtype)
 
-    m = torch.full((B, KV, G, Sq), _NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=q.device)
-    for start in range(0, Sk, chunk):
-        kc, vc = k[:, :, start:start + chunk], v[:, :, start:start + chunk]
-        k_pos = start + torch.arange(chunk, device=q.device)
-        if kc.shape[2] < chunk:              # the reference pads the last chunk
-            pad = chunk - kc.shape[2]
-            kc = torch.nn.functional.pad(kc, (0, 0, 0, pad))
-            vc = torch.nn.functional.pad(vc, (0, 0, 0, pad))
-        s = torch.einsum("bngqh,bnch->bngqc", qg, kc) * scale
-        if logit_cap is not None:
-            s = logit_cap * torch.tanh(s / logit_cap)
-        s = s + _mask_bias(q_pos, k_pos, causal=causal, window=window, k_len=Sk)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bngqc,bnch->bngqh", p, vc)
-        m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.reshape(B, H, Sq, hd).to(dtype)
+
+class _FlashChunked(torch.autograd.Function):
+    """:func:`chunked_attention` forward; the backward recomputes each
+    chunk's probabilities from the saved m, l (the reference's
+    ``_flashx_fwd`` / ``_flashx_bwd``), all in fp32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out, m, l = chunked_forward(q, k, v, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v, out, m, l)
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*chunked_backward(*ctx.saved_tensors, dout, **ctx.kw), None)
+
+
+def flash_attention_chunked(
+    q: torch.Tensor,            # (B, H, Sq, hd)
+    k: torch.Tensor,            # (B, KV, Sk, hd)
+    v: torch.Tensor,            # (B, KV, Sk, hd)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    logit_cap: float | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """:func:`chunked_attention` (chunks of 1024 keys) with an O(Sq + chunk)
+    backward: the reference's ``flash_attention_xla``.  Autodiff through
+    :func:`chunked_attention` saves every chunk's fp32 scores and
+    probabilities; this saves (q, k, v, out, m, l) and recomputes the
+    scores chunk by chunk with :func:`~repro_torch.kernels.flash_attention.
+    chunked_backward`, the backward of the kernel's forward too."""
+    return _FlashChunked.apply(q, k, v, dict(causal=causal, window=window,
+                                             logit_cap=logit_cap,
+                                             q_offset=q_offset))
 
 
 def decode_attention(

@@ -3,9 +3,9 @@
 The port of ``repro/models/layers.py``.  Each function takes its parameters
 as a mapping (a ``dict`` of tensors or an ``nn.ParameterDict``) with the
 reference's keys, so the two packages' parameters line up leaf for leaf.
-Matmul weights are stored in the compute dtype (``cfg.dtype``), norm scales
-in fp32: the reference casts its fp32 weights at every use, and casting once
-at load gives the same numbers.
+Matmul weights are cast to the activations' dtype at use, as the reference
+casts its fp32 weights; a serving model stores them in the compute dtype
+(``cfg.dtype``) already, so there the cast is a no-op.  Norm scales are fp32.
 """
 
 from __future__ import annotations
@@ -36,14 +36,14 @@ def apply_mlp(p: Mapping, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
 
     GELU is the tanh approximation, ``jax.nn.gelu``'s default.
     """
-    h = x @ p["wi"]
+    h = x @ p["wi"].to(x.dtype)
     if mlp_type in ("swiglu", "geglu"):
-        g = x @ p["wg"]
+        g = x @ p["wg"].to(x.dtype)
         act = F.silu(g) if mlp_type == "swiglu" else F.gelu(g, approximate="tanh")
         h = act * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["wo"]
+    return h @ p["wo"].to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, fraction: float, theta: float,

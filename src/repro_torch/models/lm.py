@@ -1,6 +1,7 @@
-"""Decoder-only LM for serving: dense models of ``"attn"`` / ``"local"`` layers.
+"""Decoder-only LM: dense models of ``"attn"`` / ``"local"`` layers, served
+and trained, with the vision frontend's ``extra_embeds``.
 
-The port of ``repro/models/lm.py`` for the families this slice covers.  The
+The port of ``repro/models/lm.py`` for the families ported so far.  The
 reference stacks each pattern member's parameters over groups and scans; here
 :class:`LM` is an ``nn.Module`` whose :class:`DecoderLayer` s sit in one
 ``nn.ModuleList`` in layer order, the reference's scan order (for each group,
@@ -8,18 +9,31 @@ each member of ``cfg.layer_pattern``), so layer ``g * len(pattern) + mi`` is
 the reference's ``params["groups"][mi][..][g]``.  Caches are a list of
 per-layer ``{"k", "v"}`` dicts in the same order.
 
-``forward``, ``prefill`` and ``decode_step`` keep the reference's names and
-semantics.  ``pos`` is a 0-dim int32 tensor on the device: a decode step
-never reads it on the host.  The reference's ``act_sharding.constrain`` and
-``opt_flags`` have no counterpart on one device and were dropped.  MoE, SSM,
-RG-LRU, prefix layers, frontends and enc-dec raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that ports them.
+``forward``, ``prefill``, ``decode_step`` and ``loss_fn`` keep the
+reference's names and semantics.  ``pos`` is a 0-dim int32 tensor on the
+device: a decode step never reads it on the host.  ``extra_embeds`` (B, E,
+d), the vision frontend's patch embeddings, are cast to the compute dtype
+and put before the token embeddings; ``prefill``'s next position counts
+them, and ``loss_fn`` drops their logits.  ``forward(remat=True)`` (the
+reference's ``jax.checkpoint`` of each scan group) recomputes each layer in
+the backward pass with ``torch.utils.checkpoint``; the numbers are the same.
+
+Parameters: a serving model stores its matmul weights in the compute dtype
+``cfg.dtype``, cast once at load (the reference casts its fp32 weights at
+every use, which gives the same numbers).  A training model is built with
+``param_dtype=torch.float32``: fp32 master weights, cast to ``cfg.dtype`` at
+each use, so gradients and AdamW state are fp32, as in the reference.  The
+reference's ``act_sharding.constrain`` has no counterpart on one device.
+MoE, SSM, RG-LRU, prefix layers, the audio frontend and enc-dec raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import resolve_device
 
@@ -31,6 +45,7 @@ from .attention import (
 )
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, rope_frequencies, softcap
+from .opt_flags import get_flags
 
 __all__ = ["LM", "DecoderLayer"]
 
@@ -48,9 +63,9 @@ def _check_supported(cfg: ModelConfig) -> None:
     if other:
         todo.append(f"{'/'.join(other)} layers (SSM, RG-LRU: ROADMAP.md "
                     "queue 1 item 17)")
-    if cfg.frontend is not None:
-        todo.append(f"the {cfg.frontend} frontend's extra_embeds "
-                    "(ROADMAP.md queue 1 item 15)")
+    if cfg.frontend not in (None, "vision"):
+        todo.append(f"the {cfg.frontend} frontend (enc-dec: ROADMAP.md queue 1 "
+                    "item 17)")
     if todo:
         raise NotImplementedError(f"{cfg.name}: not ported yet: {'; '.join(todo)}")
 
@@ -104,6 +119,13 @@ class DecoderLayer(nn.Module):
             h = self._apply_norm("post2", h)
         return x + h
 
+    def train_forward(self, x, inv_freq):
+        """The layer without caches (what ``torch.utils.checkpoint`` reruns),
+        under the profiler range ``lm.layer``: in the backward pass that
+        range is the recomputation."""
+        with record_function("lm.layer"):
+            return self.prefill(x, inv_freq, None)[0]
+
     def prefill(self, x, inv_freq, cache_len: int | None):
         cfg = self.cfg
         size = None
@@ -128,16 +150,21 @@ class LM(nn.Module):
     """Decoder-only LM with uninitialised weights; fill them with
     :func:`repro_torch.models.weights.init` or ``from_jax_params``.
 
-    Matmul weights and the embedding are in ``cfg.dtype``, norm scales in
-    fp32.  ``device=None`` means the CUDA card.
+    Matmul weights and the embedding are stored in ``param_dtype`` (default
+    ``cfg.dtype``) and cast to ``cfg.dtype`` at each use (no copy when the
+    two agree); norm scales and biases are fp32.  ``device=None`` means the
+    CUDA card.
     """
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         _check_supported(cfg)
         dev = resolve_device(device)
         dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
+        self.compute_dtype = dtype
+        dtype = param_dtype or dtype
         self.embed = nn.Parameter(
             torch.empty((cfg.vocab_size, cfg.d_model), dtype=dtype, device=dev))
         self.final_norm = _norm(cfg, dev)
@@ -154,36 +181,48 @@ class LM(nn.Module):
         # the reference multiplies by jnp.asarray(d_model**0.5, dtype): in
         # bf16 that is 59.75 for gemma2-9b, not 59.866
         self.register_buffer("embed_scale", torch.tensor(
-            cfg.d_model ** 0.5, dtype=dtype, device=dev), persistent=False)
+            cfg.d_model ** 0.5, dtype=self.compute_dtype, device=dev),
+            persistent=False)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens]
+    def _embed(self, tokens: torch.Tensor,
+               extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        x = self.embed[tokens].to(self.compute_dtype)
         if self.cfg.tie_embeddings:
             x = x * self.embed_scale
+        if extra_embeds is not None:
+            x = torch.cat([extra_embeds.to(self.compute_dtype), x], dim=1)
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
-            logits = x @ self.embed.T
+            logits = x @ self.embed.to(x.dtype).T
         else:
-            logits = x @ self.lm_head
+            logits = x @ self.lm_head.to(x.dtype)
         return softcap(logits, self.cfg.final_logit_softcap)
 
     def forward(self, tokens: torch.Tensor, cache_len: int | None = None,
-                logits_slice: int | None = None):
+                logits_slice: int | None = None, *,
+                extra_embeds: torch.Tensor | None = None, remat: bool = False):
         """Full-sequence forward.  Returns (logits, caches, aux_loss).
 
         ``cache_len``: build serve caches of this size (prefill mode); None
         for training.  ``logits_slice``: only produce logits for the last N
-        positions.  ``aux_loss`` is 0: the dense families have none.
+        positions.  ``extra_embeds`` (B, E, d) come before the tokens, so
+        the logits cover E + S positions.  ``remat``: recompute each layer
+        in the backward pass (training only).  ``aux_loss`` is 0: the dense
+        families have none.
         """
-        x = self._embed(tokens)
+        x = self._embed(tokens, extra_embeds)
         caches = [] if cache_len is not None else None
         for layer in self.layers:
+            if remat and cache_len is None and torch.is_grad_enabled():
+                x = checkpoint(layer.train_forward, x, self.inv_freq,
+                               use_reentrant=False)
+                continue
             x, cache = layer.prefill(x, self.inv_freq, cache_len)
             if caches is not None:
                 caches.append(cache)
@@ -194,12 +233,49 @@ class LM(nn.Module):
         return self._logits(x), caches, aux
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int):
+    def prefill(self, tokens: torch.Tensor, max_len: int, *,
+                extra_embeds: torch.Tensor | None = None):
         """Serve-path prompt processing: (last-token logits (B, 1, V), caches
-        sized for ``max_len``, the next position as a 0-dim int32)."""
-        logits, caches, _ = self.forward(tokens, cache_len=max_len, logits_slice=1)
-        pos = torch.tensor(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+        sized for ``max_len``, the next position as a 0-dim int32: the
+        prompt's tokens plus the ``extra_embeds`` rows before them)."""
+        logits, caches, _ = self.forward(tokens, cache_len=max_len, logits_slice=1,
+                                         extra_embeds=extra_embeds)
+        seq = tokens.shape[1] + (0 if extra_embeds is None else extra_embeds.shape[1])
+        pos = torch.tensor(seq, dtype=torch.int32, device=tokens.device)
         return logits, caches, pos
+
+    def loss_fn(self, batch: dict, *, remat: bool = True,
+                aux_weight: float = 0.01):
+        """Next-token cross-entropy (+ the MoE aux term, 0 here), the
+        reference's ``lm.loss_fn``.  ``batch``: ``inputs``, ``targets`` (B, S)
+        int, optional ``mask`` (B, S) and ``extra_embeds``; the targets align
+        with the token part of the sequence.  Returns (total, metrics) with
+        metrics ``loss``, ``aux_loss`` and ``tokens``, all computed in fp32.
+        ``OptFlags.sharded_loss`` picks the cross-entropy's vocab-shard form
+        (every (B, S, V) op elementwise), the same function.
+        """
+        extra = batch.get("extra_embeds")
+        logits, _, aux = self.forward(batch["inputs"], extra_embeds=extra,
+                                      remat=remat)
+        if extra is not None:
+            logits = logits[:, extra.shape[1]:]
+        logits = logits.float()
+        targets = batch["targets"].long()
+        if get_flags().sharded_loss:
+            m = logits.amax(dim=-1, keepdim=True).detach()
+            z = torch.exp(logits - m).sum(dim=-1)
+            logz = torch.log(z) + m[..., 0]
+            vocab = torch.arange(logits.shape[-1], device=logits.device)
+            gold = torch.where(vocab == targets[..., None], logits, 0.0).sum(dim=-1)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        nll = logz - gold
+        mask = batch.get("mask")
+        mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        total = loss + aux_weight * aux
+        return total, {"loss": loss, "aux_loss": aux, "tokens": mask.sum()}
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, caches: list, pos: torch.Tensor):

@@ -11,9 +11,10 @@ initialisation, and conversion from the reference's parameter pytree.
   arrays and maps every leaf exactly once: ``params["groups"][mi][name][leaf]
   [g]`` becomes layer ``g * len(pattern) + mi``.
 
-Matmul weights are stored in ``cfg.dtype`` (or ``dtype``), norm scales in
-fp32.  The reference keeps fp32 weights and casts them at every use, so a
-cast at load changes no number.
+Matmul weights are stored in ``cfg.dtype`` (or ``dtype``), norm scales and
+biases in fp32.  The reference keeps fp32 weights and casts them at every
+use, so a cast at load changes no number.  ``param_dtype=torch.float32``
+keeps fp32 master weights instead, cast at each use: the training layout.
 """
 
 from __future__ import annotations
@@ -42,10 +43,14 @@ def _scale(cfg: ModelConfig, name: str) -> float | None:
 
 
 @torch.no_grad()
-def init(cfg: ModelConfig, generator: torch.Generator, *, device=None) -> LM:
+def init(cfg: ModelConfig, generator: torch.Generator, *, device=None,
+         param_dtype: torch.dtype | None = None) -> LM:
     """An :class:`LM` with seeded weights at the reference's scales, made on
-    ``device`` (None: the CUDA card); ``generator`` lives on that device."""
-    model = LM(cfg, device=device)
+    ``device`` (None: the CUDA card); ``generator`` lives on that device.
+    The draws are fp32 whatever ``param_dtype`` (default ``cfg.dtype``), so
+    one seed gives a bf16 serving model and an fp32 master copy of the same
+    weights."""
+    model = LM(cfg, device=device, param_dtype=param_dtype)
     for name, param in model.named_parameters():
         std = _scale(cfg, name)
         if std is None:
@@ -83,15 +88,18 @@ def jax_leaf_names(cfg: ModelConfig, params: Mapping) -> dict[str, Any]:
 
 @torch.no_grad()
 def from_jax_params(cfg: ModelConfig, params_np: Mapping, *, device=None,
-                    dtype: torch.dtype | None = None) -> LM:
+                    dtype: torch.dtype | None = None,
+                    param_dtype: torch.dtype | None = None) -> LM:
     """The reference's ``lm.init`` parameters (a pytree of numpy arrays) as
-    an :class:`LM` on ``device``; matmul weights in ``dtype`` (default
-    ``cfg.dtype``), norm parameters in fp32.  Raises unless every reference
-    leaf fills exactly one port parameter of the same shape and every port
+    an :class:`LM` on ``device``: compute dtype ``dtype`` (default
+    ``cfg.dtype``), matmul weights stored in ``param_dtype`` (default the
+    compute dtype; fp32 for training), norm parameters (LayerNorm's
+    ``scale`` and ``bias``) in fp32.  Raises unless every reference leaf
+    fills exactly one port parameter of the same shape and every port
     parameter is filled."""
     if dtype is not None:
         cfg = cfg.replace(dtype=str(dtype).removeprefix("torch."))
-    model = LM(cfg, device=device)
+    model = LM(cfg, device=device, param_dtype=param_dtype)
     flat = jax_leaf_names(cfg, params_np)
     params = dict(model.named_parameters())
     extra, missing = set(flat) - set(params), set(params) - set(flat)

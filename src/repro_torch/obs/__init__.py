@@ -110,10 +110,14 @@ def observe(
 
 
 def __getattr__(name: str):
-    # Lazy: destrace pulls in repro_torch.cluster, which does not belong in
-    # the stdlib-only import path above.
+    # Lazy: destrace pulls in repro_torch.cluster, profile_hooks pulls in
+    # torch.profiler — neither belongs in the stdlib-only import path above.
     if name == "workload_trace":
         from repro_torch.obs.destrace import workload_trace
 
         return workload_trace
+    if name == "profile_capture":
+        from repro_torch.obs.profile_hooks import profile_capture
+
+        return profile_capture
     raise AttributeError(f"module 'repro_torch.obs' has no attribute {name!r}")

@@ -42,6 +42,7 @@ from repro.analysis.absint import analyze_jaxpr
 from repro.core.hadoop import merge_math as j_mm
 from repro_torch import analysis as t_an
 from repro_torch.analysis import interval as t_iv
+from repro_torch.analysis.interval import Interval as Interval_t
 from repro_torch.analysis.absint import analyze_graph, trace
 from repro_torch.analysis.checkers import launch_geometry as lg
 from repro_torch.analysis.fixtures import (bad_launch_probes, confirm_unwritten,
@@ -368,8 +369,9 @@ def test_report_covers_the_reference_targets_and_says_why_it_skips(full_report):
     names = [t.name for t in t_an.iter_targets()]
     assert names == [t.name for t in j_an.iter_targets()]
     traced = {"hadoop-model", "hadoop-grad", "calib-loss", "tuner-objective",
-              "network-model", "cloud-pricing"}
-    assert set(full_report.skipped) == set(names) - traced
+              "network-model", "cloud-pricing", "cluster-rollout",
+              "cloud-rollout"}
+    assert set(full_report.skipped) == set(names) - traced == {"tpu-model"}
     # calibration's loss, gradient search's relaxed cost, the topology hook's
     # bandwidth and the spot-pricing path trace, in grad mode, with no
     # finding and no coverage gap
@@ -381,9 +383,12 @@ def test_report_covers_the_reference_targets_and_says_why_it_skips(full_report):
         assert name not in full_report.coverage_gaps
     for name, why in full_report.skipped.items():
         assert "ROADMAP.md" in why and "item" in why, (name, why)
-    # the rollouts wait for the loop fixpoint, not for an unported module
+    # the rollouts trace as loops, grad mode off, walked to their fixpoint
+    # with no finding and no coverage gap
     for name in ("cluster-rollout", "cloud-rollout"):
-        assert "loop fixpoint" in full_report.skipped[name], name
+        assert by_name[name].traceable and not by_name[name].grad_mode
+        assert not [f for f in full_report.findings if f.target == name], name
+        assert name not in full_report.coverage_gaps
 
 
 def test_hadoop_grad_is_the_model_graph_cut_to_the_total_cost():
@@ -398,6 +403,96 @@ def test_hadoop_grad_is_the_model_graph_cut_to_the_total_cost():
     idx = model.out_names.index("j_totalCost")
     args = [a.clone() for a in model.args]
     assert torch.equal(grad.graph(*args)[0], model.graph(*args)[idx])
+
+
+# ---------------------------------------------------------------------------
+# the loop fixpoint (the reference's prim_while / prim_scan)
+# ---------------------------------------------------------------------------
+
+
+def _loop(init, body, finish, *args):
+    from repro_torch.analysis.absint import LoopGraphs
+
+    st = init(*args)
+    return LoopGraphs(trace(init, *args), trace(body, *args, *st),
+                      trace(finish, *args, *st))
+
+
+def test_a_state_that_grows_every_round_widens_to_an_infinite_bound():
+    """x -> x + 1 from x0 >= 0: after the hull rounds the bound still moves,
+    so it widens to +inf, and ``1 / (1000 - x)`` in the outputs reaches 0.
+    One round alone (x in [0, 2]) reads as clean."""
+    from repro_torch.analysis.absint import analyze_loop
+
+    x0 = torch.zeros(3, dtype=torch.float64)
+    loop = _loop(lambda x: [x * 1.0], lambda x, st: [st + 1.0],
+                 lambda x, st: [1.0 / (1000.0 - st)], x0)
+    an = analyze_loop(loop, [Interval_t(0.0, 1.0)])
+    (state,) = an.loop_state
+    assert state.lo == 0.0 and state.hi == INF
+    assert [(e.kind, e.chain) for e in an.events] == [("div0", ("loop:finish",))]
+    # without the fixpoint: the outputs of one round
+    once = trace(lambda x: 1.0 / (1000.0 - (x * 1.0 + 1.0)), x0)
+    assert not analyze_graph(once, [Interval_t(0.0, 1.0)]).events
+
+
+def test_a_state_that_settles_keeps_its_hull_and_stays_clean():
+    """x -> min(x + 1, 2) settles at [0, 2] inside the hull rounds: no
+    widening, and ``1 / (1000 - x)`` stays clean."""
+    from repro_torch.analysis.absint import MAX_LOOP_ITERS, analyze_loop
+
+    assert MAX_LOOP_ITERS == 3          # the reference's max_while_iters
+    x0 = torch.zeros(3, dtype=torch.float64)
+    loop = _loop(lambda x: [x * 0.0],
+                 lambda x, st: [torch.clamp(st + 1.0, max=2.0)],
+                 lambda x, st: [1.0 / (1000.0 - st)], x0)
+    an = analyze_loop(loop, [Interval_t(0.0, 1.0)])
+    (state,) = an.loop_state
+    assert (state.lo, state.hi, state.hi_open) == (0.0, 2.0, False)
+    assert not an.events and not an.unknown_ops
+
+
+def test_decomposed_isfinite_guard_refines_the_where_case():
+    """make_fx decomposes isfinite to (x == x) * (|x| != inf); the guard
+    still narrows the where case to finite values."""
+    def guarded(x):
+        y = torch.where(torch.isfinite(x), x, 0.0)
+        return y - y
+
+    def unguarded(x):
+        return x - x
+
+    x = torch.tensor([1.0, INF], dtype=torch.float64)
+    top = Interval_t(-INF, INF)
+    assert not analyze_graph(trace(guarded, x), [top]).events
+    assert [e.kind for e in analyze_graph(trace(unguarded, x), [top]).events] \
+        == ["inf_minus_inf"]
+
+
+@pytest.mark.parametrize("name", ["cluster-rollout", "cloud-rollout"])
+def test_rollout_loop_graphs_compute_the_rollout(name):
+    """The three traced graphs, run on tensors, are the rollout: init, the
+    round until no row is active, finish equal the host loop's outputs."""
+    from repro_torch.analysis.targets import _rollout_columns, trace_target
+    from repro_torch.cluster import vector_sim as vs
+
+    t = next(t for t in t_an.iter_targets() if t.name == name)
+    tr = trace_target(t, "cpu")
+    st = list(tr.graph.init(*tr.args))
+    for _ in range(64):
+        st = list(tr.graph.body(*tr.args, *st))
+    outs = dict(zip(tr.out_names, tr.graph.finish(*tr.args, *st)))
+    cols = dict(zip(sorted(_rollout_columns("cpu", name == "cloud-rollout")),
+                    tr.args))
+    flags = dict(with_fair=True, with_preempt=True, with_capacity=True,
+                 with_cloud=name == "cloud-rollout", with_dag=False,
+                 with_topo=False)
+    want, rounds = vs._rollout(cols, 64, 8, **flags)
+    assert rounds < 64 and set(want) == set(outs)
+    for k, v in want.items():
+        assert torch.equal(outs[k], v), k
+    assert tr.n_nodes == sum(len(g.graph.nodes) for g in
+                             (tr.graph.init, tr.graph.body, tr.graph.finish))
 
 
 def test_reverting_masked_div_guard_refires_nan_hazard(monkeypatch):

@@ -335,3 +335,48 @@ def test_split_rows_over_the_same_card_twice(cuda_device):
                      {"x": x}, [cuda_device, cuda_device])
     assert out["y"].device == cuda_device
     torch.testing.assert_close(out["y"], x * 2, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,H,KV", [(64, 4, 4), (64, 18, 2), (128, 4, 4),
+                                     (128, 18, 2)],
+                         ids=["hd64-G1", "hd64-G9", "hd128-G1", "hd128-G9"])
+def test_flash_gradients_on_the_card_equal_the_plain_version(cuda_device, hd, H, KV):
+    # fp32: the kernel forward under autograd, the backward recomputed in
+    # plain PyTorch over chunks of keys, against autograd through the plain
+    # version
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    q0, k0, v0 = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                  .to(cuda_device)
+                  for s in ((2, H, 100, hd), (2, KV, 100, hd), (2, KV, 100, hd)))
+    dout = torch.from_numpy(rng.standard_normal((2, H, 100, hd), dtype=np.float32)
+                            ).to(cuda_device)
+    grads = {}
+    for name, fn in (("kernel", flash_attention), ("plain", flash_attention_torch)):
+        q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
+        before = flash_attention.launches
+        out = fn(q, k, v, causal=True)
+        assert flash_attention.launches == before + (name == "kernel")
+        grads[name] = (out, *torch.autograd.grad(out, (q, k, v), dout))
+        assert flash_attention.launches == before + (name == "kernel")
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_decode_at_nine_heads_per_group_without_softcap(cuda_device, dtype, tol):
+    # starcoder2-7b's geometry: 36 heads over 4 kv heads, hd 128, no softcap
+    q, kc, vc, slot_pos = _decode_inputs(cuda_device, dtype, B=4, H=36, KV=4,
+                                         S=1024, hd=128, seed=12)
+    for p in (0, 527, 1023):
+        pos = torch.tensor(p, dtype=torch.int32, device=cuda_device)
+        before = gqa_decode_attention.launches
+        got = gqa_decode_attention(q, kc, vc, slot_pos, pos, layout="full")
+        assert gqa_decode_attention.launches == before + 1
+        want = decode_attention_torch(q.view(4, 4, 9, 128), kc, vc, slot_pos, pos)
+        torch.testing.assert_close(got.float(), want.view(4, 36, 1, 128).float(),
+                                   rtol=tol, atol=tol)

@@ -38,7 +38,12 @@ _PROBE = textwrap.dedent("""
            "repro_torch.cluster.vector_sim", "repro_torch.cluster.evaluator",
            "repro_torch.cloud", "repro_torch.cloud.pricing",
            "repro_torch.cloud.autoscaler", "repro_torch.cloud.evaluator",
-           "repro_torch.cloud.report", "repro_torch.obs.destrace"}}
+           "repro_torch.cloud.report", "repro_torch.obs.destrace",
+           "repro_torch.obs.profile_hooks", "repro_torch.data",
+           "repro_torch.data.pipeline", "repro_torch.models.opt_flags",
+           "repro_torch.configs.starcoder2_7b", "repro_torch.configs.granite_3_8b",
+           "repro_torch.configs.stablelm_1_6b",
+           "repro_torch.configs.internvl2_26b"}}
     assert new <= set(names), sorted(new - set(names))
     bad = sorted(m for m in sys.modules
                  if m == "repro" or m.startswith("repro.") or m == "jaxlib"

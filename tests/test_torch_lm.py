@@ -202,6 +202,29 @@ def test_smoke_model_matches_reference(smoke, reference, impl):
         attention.set_attention_impl("kernel")
 
 
+def test_extra_embeds_come_before_the_scaled_token_embeddings(smoke):
+    """gemma2-9b ties its embeddings and scales the token rows by
+    sqrt(d_model); extra_embeds (any config takes them) are put before the
+    token rows unscaled, as the reference does, and prefill's position
+    counts them."""
+    cfg, j_cfg, params, prompt, _ = smoke
+    extra = np.random.default_rng(9).standard_normal(
+        (1, 5, cfg.d_model)).astype(np.float32) * 0.02
+    want, _, _ = j_lm.forward(params, j_cfg, jnp.asarray(prompt, jnp.int32),
+                              extra_embeds=jnp.asarray(extra))
+    j_logits, _, j_pos = j_lm.prefill(params, j_cfg, jnp.asarray(prompt, jnp.int32),
+                                      MAX_LEN, extra_embeds=jnp.asarray(extra))
+    model = from_jax_params(cfg, params, device="cpu")
+    with torch.no_grad():
+        got, _, _ = model.forward(torch.from_numpy(prompt), extra_embeds=_t(extra))
+    assert got.shape[1] == PROMPT + 5
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+    logits, _, pos = model.prefill(torch.from_numpy(prompt), MAX_LEN,
+                                   extra_embeds=_t(extra))
+    assert int(pos) == int(j_pos) == PROMPT + 5
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), **MODEL_TOL)
+
+
 def test_from_jax_params_maps_every_leaf_once(smoke):
     cfg, _, params, _, _ = smoke
     model = from_jax_params(cfg, params, device="cpu")
@@ -256,7 +279,7 @@ def test_init_scales_and_seed():
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    for arch in ("starcoder2-7b", "deepseek-moe-16b", "mamba2-130m",
+    for arch in ("deepseek-moe-16b", "moonshot-v1-16b-a3b", "mamba2-130m",
                  "recurrentgemma-9b", "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_config(arch)
@@ -265,7 +288,7 @@ def test_unported_families_raise_naming_the_roadmap():
     base = get_config("gemma2-9b").smoke()
     for kw in ({"n_experts": 8, "moe_top_k": 2}, {"layer_pattern": ("ssm",)},
                {"prefix_pattern": ("attn",), "n_layers": 5}, {"n_enc_layers": 2},
-               {"frontend": "vision"}):
+               {"frontend": "audio"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             LM(base.replace(**kw), device="cpu")
 
