@@ -6,8 +6,9 @@
 The job-tuning path, through the port's own entry points, at Hadoop's
 default sizes (``dfs.block.size`` 128 MiB splits of 400-byte wordcount
 records, ``io.sort.mb`` 100, so each map task spills 262,144-pair buffers),
-the LM serving path at the published width of the five dense configs, LM
-training at stablelm-1.6b's, the static analyzer over the port's job model,
+the LM serving path at the published width and depth of all ten configs
+(dense, MoE, SSM, RG-LRU hybrid, vision and enc-dec), LM training at
+stablelm-1.6b's, the static analyzer over the port's job model,
 wave rollout and kernel launches, and the capacity planner with cloud
 provisioning at the reference benchmarks' full settings:
 
@@ -132,7 +133,23 @@ provisioning at the reference benchmarks' full settings:
      accumulated gradients at 2 microbatches against 1 at the same
      tolerance; and check the launch geometries this phase recorded.
      Phase 7 checks and times both attention kernels at these four
-     configs' serving geometries, and flash at the training step's.
+     configs' serving geometries, and flash at the training step's;
+ 13. serve slice 5b's five configs at published width and depth (bf16,
+     seeded weights, one model at a time): deepseek-moe-16b,
+     moonshot-v1-16b-a3b (MoE, ``moe_impl`` "einsum"), mamba2-130m (SSD) and
+     recurrentgemma-9b (RG-LRU + local attention on a ring) through
+     ``Server.throughput_batch`` (4 x 512 + 16, caches of 1,024), and
+     seamless-m4t-large-v2 through ``EncDec.prefill`` (4 x 1,024 seeded
+     source frames and a 256-token target prompt) and 16 ``GreedyDecoder``
+     steps, each eager and with the decode step replayed as a CUDA graph
+     (tokens equal); peak memory below the card's 80 GB; hold each config's
+     fp32 cut at full width (2 layers; recurrentgemma-9b 5, its prefix and
+     one group; seamless 2 + 2) against the plain attention at 1e-4, and
+     mamba2-130m's, which has no attention, against the same weights on the
+     CPU; and check the launch geometries the phase launched.  Phase 7
+     checks and times both kernels at these configs' new geometries (G 16
+     at hd 256 on a ring of window 2,048, wrapped; non-causal flash with Sq
+     != Sk; the cross decode at pos = the cache size).
 
 Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
@@ -149,8 +166,11 @@ run of each config, then the 5 training steps) ``flash_attention`` exactly
 layers x 1 prefill, all on ``bf16_wgmma`` (training: 5 steps x 2
 microbatches x 24 layers x 2, the forward and its recomputation under
 remat, and no backward launch) and ``gqa_decode_attention`` exactly layers
-x decode steps, each added to its kernel's count (``launches_by_path``).
-Before the
+x decode steps, each added to its kernel's count (``launches_by_path``),
+and over each config of phase 13 ``flash_attention`` exactly its attention
+layers x 1 prefill (28, 48, 0, 12; seamless 72: 24 encoder, 24 self, 24
+cross) and ``gqa_decode_attention`` exactly those x decode steps (seamless
+48 a step).  Before the
 last line it prints one ``{"kernels": [...]}`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -242,6 +262,39 @@ SERVE_GEOMETRIES = {
     "internvl2-26b": ((4, 48, 8, 768, 768, 128, True, None, None, 0),
                       (4, 48, 8, 1024, 128, 783, None, None, False)),
 }
+# phase 13's geometries (slice 5b), (flash shapes, decode shapes) per config
+# whose attention is new to the card: deepseek-moe-16b's (moonshot-v1-16b-a3b
+# has the same; mamba2-130m has no attention) at G 1, hd 128; recurrentgemma-9b's
+# local layers at G 16, hd 256, window 2,048 on a ring (the serving prefill and
+# step at pos 527 in a ring of 1,024, and a prompt of 2,100 that wraps a ring
+# of 2,048, decoded at pos 2,100); seamless-m4t-large-v2's encoder and
+# cross-attention (non-causal, Sq != Sk), its decoder's self-attention
+# prefill and last step (pos 271), and its cross decode over the static cache
+# of 1,024 source frames at pos = 1,024
+FAMILY_GEOMETRIES = {
+    "deepseek-moe-16b": ([(4, 16, 16, 512, 512, 128, True, None, None, 0)],
+                         [(4, 16, 16, 1024, 128, 527, None, None, False)]),
+    "recurrentgemma-9b": ([(4, 16, 1, 512, 512, 256, True, 2048, None, 0),
+                           (1, 16, 1, 2100, 2100, 256, True, 2048, None, 0)],
+                          [(4, 16, 1, 1024, 256, 527, 2048, None, True),
+                           (1, 16, 1, 2048, 256, 2100, 2048, None, True)]),
+    "seamless-m4t-large-v2": ([(4, 16, 16, 1024, 1024, 64, False, None, None, 0),
+                               (4, 16, 16, 256, 1024, 64, False, None, None, 0),
+                               (4, 16, 16, 256, 256, 64, True, None, None, 0)],
+                              [(4, 16, 16, 1024, 64, 1024, None, None, False),
+                               (4, 16, 16, 1024, 64, 271, None, None, False)]),
+}
+FAMILY_FLASH = [f for fs, _ in FAMILY_GEOMETRIES.values() for f in fs]
+FAMILY_DECODE = [d for _, ds in FAMILY_GEOMETRIES.values() for d in ds]
+# phase 13: the decoder-only configs through Server.throughput_batch, and the
+# enc-dec through its prefill (4 x 1,024 source frames, a 256-token target
+# prompt: the reference's enc-dec prefill, repro/configs/shapes.py) and
+# GreedyDecoder; each config's fp32 cut (layers; enc-dec: encoder + decoder)
+FAMILIES = ("deepseek-moe-16b", "moonshot-v1-16b-a3b", "mamba2-130m",
+            "recurrentgemma-9b", "seamless-m4t-large-v2")
+FAMILY_CUT_LAYERS = {"recurrentgemma-9b": 5}     # 2 prefix layers + one group
+ENCDEC_SRC, ENCDEC_PROMPT = 1024, 256
+CARD_BYTES = 80e9
 # the flash kernel as stablelm-1.6b's training step runs it (bf16, one
 # microbatch of 4 x 2,048): forward and recomputation under remat
 FLASH_TRAIN = (4, 32, 32, 2048, 2048, 64, True, None, None, 0)
@@ -325,13 +378,19 @@ def _device_profile(fn, reps: int) -> tuple[float, int, float]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    # a session that delivers no device event at all lost its trace (it
+    # happens in this long process, not in a fresh one): trace again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        if kernels:
+            break
+        print("   (torch.profiler delivered no device event; tracing again)")
     dev_us = sum(e.time_range.elapsed_us() for e in kernels)
     return dev_us / 1e3 / reps, round(len(kernels) / reps), wall * 1e3 / reps
 
@@ -600,7 +659,8 @@ def _phase7_attention(timings, builds, torch, np):
         for dtype in (torch.float32, torch.bfloat16):
             variant = VARIANTS[dtype]
             for shape in FLASH_TEST + [FLASH_MAIN, FLASH_MAIN_LOCAL, FLASH_LONG] \
-                    + [f for f, _ in SERVE_GEOMETRIES.values()] + [FLASH_TRAIN]:
+                    + [f for f, _ in SERVE_GEOMETRIES.values()] + [FLASH_TRAIN] \
+                    + FAMILY_FLASH:
                 q, k, v = flash_inputs(shape, dtype)
                 before = flash_attention.launches
                 on_variant = flash_attention.launches_by_variant[variant]
@@ -610,7 +670,7 @@ def _phase7_attention(timings, builds, torch, np):
                      dtype, flash_attention.launches == before + 1
                      and flash_attention.launches_by_variant[variant] == on_variant + 1)
             for shape in DECODE_TEST + [DECODE_MAIN, DECODE_STEP, DECODE_RING] \
-                    + [d for _, d in SERVE_GEOMETRIES.values()]:
+                    + [d for _, d in SERVE_GEOMETRIES.values()] + FAMILY_DECODE:
                 q, kc, vc, sp, p = decode_inputs(shape, dtype)
                 B, H, KV, _, hd = shape[:5]
                 want = decode_attention_torch(q.view(B, KV, H // KV, hd), kc, vc, sp,
@@ -648,7 +708,7 @@ def _phase7_attention(timings, builds, torch, np):
         else:
             raise AssertionError("gqa_decode_attention took a misaligned CUDA tensor")
         assert gqa_decode_attention.launches == before
-        n_flash = len(FLASH_TEST) + 4 + len(SERVE_GEOMETRIES)
+        n_flash = len(FLASH_TEST) + 4 + len(SERVE_GEOMETRIES) + len(FAMILY_FLASH)
         print(f"   max |kernel - plain|: flash {errs['flash']:.3e}, "
               f"decode {errs['decode']:.3e} over {2 * n_flash} and "
               f"{n_decode_checks} checks")
@@ -695,7 +755,11 @@ def _phase7_attention(timings, builds, torch, np):
                 lambda: flash_attention_torch(q, k, v, **kw), 5)
             bound, by, n_bytes, flop = _flash_bound(shape, 2, BF16_OPS_PER_S)
             tflops = flop / (k_dev * 1e-3) / 1e12
-            sdpa_what = "SDPA without softcap" if shape[8] else "SDPA (the same function)"
+            missing = [what for what, on in (("softcap", shape[8]),
+                                             ("window", shape[7] and shape[7] < shape[4]))
+                       if on]
+            sdpa_what = (f"SDPA without {' or '.join(missing)}" if missing
+                         else "SDPA (the same function)")
             print(f"   flash {label} {shape[:6]} bf16: kernel {k_ms:.4f} ms "
                   f"(device {k_dev:.4f} ms, back to back, {tflops:.1f} TFLOP/s, "
                   f"{100 * bound / k_dev:.0f} % of the bound), "
@@ -790,6 +854,16 @@ def _phase7_attention(timings, builds, torch, np):
                 k: v for k, v in time_decode(dshape, f"{name} serving step").items()
                 if k in keep}
         flash["training_geometry"] = time_flash(FLASH_TRAIN, "stablelm-1.6b training")
+        # slice 5b's geometries (phase 13's paths)
+        flash["family_geometries"], decode["family_geometries"] = {}, {}
+        for name, (fshapes, dshapes) in FAMILY_GEOMETRIES.items():
+            for i, fshape in enumerate(fshapes):
+                flash["family_geometries"][f"{name} {i}"] = dict(
+                    shape=list(fshape), **time_flash(fshape, f"{name} [{i}]"))
+            for i, dshape in enumerate(dshapes):
+                decode["family_geometries"][f"{name} {i}"] = dict(shape=list(dshape), **{
+                    k: v for k, v in time_decode(dshape, f"{name} [{i}]").items()
+                    if k in keep})
         flash["max_abs_err"] = errs["flash"]
         decode["max_abs_err"] = errs["decode"]
     return flash, decode
@@ -1890,6 +1964,179 @@ def _phase12_dense(timings, flash, decode, torch, np):
     return out
 
 
+def _serve_encdec(model, src, toks, graphed, torch):
+    """seamless's serving path: ``EncDec.prefill`` over the source frames
+    and the target prompt, then ``SERVE_NEW`` greedy steps through a
+    ``GreedyDecoder`` (the ``Server`` serves no enc-dec, as the reference's
+    does not)."""
+    from repro_torch.runtime.decode_graph import GreedyDecoder
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches, pos = model.prefill(src, toks, SERVE_CACHE)
+    dec = GreedyDecoder(model, caches, torch.argmax(logits[:, -1:], dim=-1), pos,
+                        cuda_graph=graphed)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs = [dec.step().clone() for _ in range(SERVE_NEW)]
+    torch.cuda.synchronize()
+    return {"prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1 - dec.capture_s,
+            "output": torch.cat(outs, dim=1).cpu().numpy()}
+
+
+def _hold_family_cut(cfg, prompts, src, dev, torch):
+    """Slice 5b's fp32 cut at full width: its prefill and first-decode
+    logits through the kernels against the plain attention at 1e-4 (TF32
+    off); mamba2-130m, which has no attention layer, against the same
+    weights run on the CPU.  Returns the largest |kernels - plain| of
+    each."""
+    from repro_torch.launch.steps import init_params
+    from repro_torch.models import attention
+    from repro_torch.models.weights import init
+
+    if cfg.is_encdec:
+        cut = cfg.replace(n_layers=2, n_enc_layers=2, dtype="float32")
+    else:
+        cut = cfg.replace(n_layers=FAMILY_CUT_LAYERS.get(cfg.name, 2), dtype="float32")
+    model = init_params(torch.Generator(device=dev).manual_seed(1), cut)
+    toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+    src = None if src is None else src.float()
+
+    def run(m, impl, device):
+        attention.set_attention_impl(impl)
+        try:
+            t = toks.to(device)
+            if cut.is_encdec:
+                logits, caches, pos = m.prefill(src.to(device), t, SERVE_CACHE)
+            else:
+                logits, caches, pos = m.prefill(t, SERVE_CACHE)
+            logits2, _ = m.decode_step(torch.argmax(logits[:, -1:], dim=-1), caches, pos)
+            return logits.float().cpu(), logits2.float().cpu()
+        finally:
+            attention.set_attention_impl("kernel")
+
+    got = run(model, "kernel", dev)
+    if cut.name == "mamba2-130m":
+        cpu = init(cut, torch.Generator().manual_seed(0), device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        del model
+        want = run(cpu, "kernel", torch.device("cpu"))
+    else:
+        want = run(model, "torch", dev)
+        del model
+    torch.cuda.empty_cache()
+    errs = []
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        errs.append(float((g - w).abs().max()))
+    return errs
+
+
+def _phase13_families(timings, flash, decode, torch, np):
+    """Phase 13: slice 5b's five configs served at full width and depth
+    through the attention kernels, one at a time, and their fp32 cuts held
+    against the plain attention (mamba2-130m: against the CPU)."""
+    from repro_torch.analysis.checkers import launch_geometry
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, gqa_decode_attention
+    from repro_torch.launch.steps import init_params
+    from repro_torch.runtime.serve_loop import Server
+
+    dev = torch.device("cuda")
+    out = {"serving": {}, "cuts": {}}
+    # the geometries this phase launches, apart from the ones recorded before
+    earlier = {w: set(w.geometries) for w in (flash_attention, gqa_decode_attention)}
+    for w in earlier:
+        w.geometries.clear()
+    with _phase("13_moe_ssm_rglru_encdec", timings):
+        rng = np.random.default_rng(13)
+        for name in FAMILIES:
+            cfg = get_config(name)
+            t0 = time.perf_counter()
+            model = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+            torch.cuda.synchronize()
+            seed_s = time.perf_counter() - t0
+            n_params = sum(p.numel() for p in model.parameters())
+            n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+            torch.cuda.reset_peak_memory_stats()
+            if cfg.is_encdec:
+                # the encoder's layers, and self and cross in each decoder layer
+                n_attn = n_flash_want = cfg.n_enc_layers + 2 * cfg.n_layers
+                prompts = rng.integers(2, cfg.vocab_size, (4, ENCDEC_PROMPT))
+                src = torch.randn((4, ENCDEC_SRC, cfg.d_model), device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(3)
+                                  ).to(torch.bfloat16)
+                toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+                n_steps, n_decode_layers = SERVE_NEW, 2 * cfg.n_layers
+                eager = _serve_encdec(model, src, toks, False, torch)
+                _zero_attention_counts()
+                graphed = _serve_encdec(model, src, toks, True, torch)
+                what = (f"{ENCDEC_SRC} source frames + a {ENCDEC_PROMPT}-token prompt, "
+                        f"{SERVE_NEW} new")
+            else:
+                n_attn = sum(layer.mixer in ("attn", "local") for layer in model.layers)
+                n_flash_want, n_decode_layers = n_attn, n_attn
+                prompts = rng.integers(2, cfg.vocab_size, (4, SERVE_PROMPT))
+                src = None
+                server = Server(cfg, model, max_len=SERVE_CACHE)
+                n_steps = SERVE_NEW - 1
+                eager = server.throughput_batch(prompts, SERVE_NEW, cuda_graph=False)
+                _zero_attention_counts()
+                graphed = server.throughput_batch(prompts, SERVE_NEW, cuda_graph=True)
+                del server
+                what = f"{SERVE_PROMPT} + {SERVE_NEW}"
+            n_flash, n_decode = flash_attention.launches, gqa_decode_attention.launches
+            by_variant = dict(flash_attention.launches_by_variant)
+            peak = torch.cuda.max_memory_allocated()
+            same = float((graphed["output"] == eager["output"]).mean())
+            assert graphed["output"].shape == (4, SERVE_NEW)
+            assert ((graphed["output"] >= 0) & (graphed["output"] < cfg.vocab_size)).all()
+            print(f"   {name}: {cfg.n_layers + cfg.n_enc_layers} layers ({n_attn} "
+                  f"attention), {n_params:,} parameters, {n_bytes / 1e9:.2f} GB of "
+                  f"weights seeded on the card in {seed_s:.2f} s; B 4 x {what}: "
+                  f"prefill {graphed['prefill_s'] * 1e3:.1f} ms, decode "
+                  f"{graphed['decode_s'] * 1e3 / n_steps:.2f} ms a step graphed "
+                  f"({eager['decode_s'] * 1e3 / n_steps:.2f} eager) over {n_steps} "
+                  f"steps; graphed tokens equal to eager: {same * 100:.1f} %; "
+                  f"launches flash {n_flash} (want {n_flash_want}, one prefill) by "
+                  f"kernel {by_variant}, decode {n_decode} (want {n_decode_layers} x "
+                  f"{n_steps}); peak device memory {peak / 1e9:.2f} GB")
+            assert same == 1.0, name
+            assert n_flash == n_flash_want, (name, n_flash)
+            assert by_variant == {"f32_cuda_cores": 0, "bf16_wgmma": n_flash_want}
+            assert n_decode == n_decode_layers * n_steps, (name, n_decode)
+            assert peak < CARD_BYTES, (name, peak)
+            out["serving"][name] = dict(
+                layers=cfg.n_layers + cfg.n_enc_layers, attention_layers=n_attn,
+                parameters=n_params, weights_gb=n_bytes / 1e9, seed_s=seed_s,
+                flash_launches=n_flash, decode_launches=n_decode,
+                prefill_ms=graphed["prefill_s"] * 1e3,
+                decode_step_ms=graphed["decode_s"] * 1e3 / n_steps,
+                eager_decode_step_ms=eager["decode_s"] * 1e3 / n_steps, peak_gb=peak / 1e9)
+            del model, eager, graphed
+            torch.cuda.empty_cache()
+
+            errs = _hold_family_cut(cfg, prompts, src, dev, torch)
+            against = "the CPU" if name == "mamba2-130m" else "plain attention"
+            print(f"   {name} fp32 cut: prefill / first-decode logits, max |kernels - "
+                  f"{against}| {errs[0]:.3e} / {errs[1]:.3e} (held at 1e-4)")
+            out["cuts"][name] = errs
+        for rec, key in ((flash, "flash_launches"), (decode, "decode_launches")):
+            rec["launches_by_path"].update({
+                f"{n} serving": r[key] for n, r in out["serving"].items()})
+            rec["launches"] = sum(rec["launches_by_path"].values())
+        probes = [p for p in launch_geometry.recorded()
+                  if p.kernel in ("flash_attention", "decode_attention")]
+        found = launch_geometry.probe_kernels(probes)
+        print(f"   launch geometries phase 13 launched: {len(probes)}, "
+              f"{len(found)} finding(s)")
+        assert probes and not found, [f.message for f in found]
+        for w, geo in earlier.items():
+            w.geometries |= geo
+    return out
+
+
 # the profiler ranges of a train step (launch/steps.py, models/lm.py,
 # kernels/ops.py)
 RANGES = ("train_step.forward", "train_step.backward", "lm.layer",
@@ -2418,6 +2665,7 @@ def main() -> int:
     readings["cluster_cloud"] = _phase11_cluster_cloud(
         timings, (ev, space, hp, stats, costs), torch, np)
     readings["dense"] = _phase12_dense(timings, flash, decode, torch, np)
+    readings["families"] = _phase13_families(timings, flash, decode, torch, np)
     kernel["main_path_launches"] = kernel["launches"]
     kernel["distributed_launches"] = readings["distributed"]["launches"]
     kernel["launches"] += kernel["distributed_launches"]

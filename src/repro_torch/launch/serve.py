@@ -4,6 +4,8 @@
         --device cpu --batch 4 --prompt-len 32 --new-tokens 16
 
 Without ``--device`` it runs on the CUDA card and raises without one.
+``--arch`` takes each decoder-only architecture (:data:`SERVABLE`); the
+``Server`` serves no encoder-decoder, as the reference's does not.
 """
 
 from __future__ import annotations
@@ -18,10 +20,13 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch.steps import init_params
 from repro_torch.runtime.serve_loop import Server
 
+#: the architectures the Server serves
+SERVABLE = sorted(a for a in ARCHS if not get_config(a).is_encdec)
+
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="gemma2-9b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="gemma2-9b", choices=SERVABLE)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--batch", type=int, default=4)

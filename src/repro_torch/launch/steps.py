@@ -2,7 +2,8 @@
 
 The port of ``repro/launch/steps.py``:
 
-* :func:`init_params` — a seeded :class:`~repro_torch.models.lm.LM`;
+* :func:`init_params` — a seeded :class:`~repro_torch.models.lm.LM`, or
+  :class:`~repro_torch.models.encdec.EncDec` for an enc-dec config;
 * :func:`make_train_step` — gradient accumulation over microbatches
   (:func:`accumulate_grads`: fp32 accumulators, divided by the depth) and
   the AdamW update of :mod:`repro_torch.optim`; microbatching bounds
@@ -10,9 +11,11 @@ The port of ``repro/launch/steps.py``:
 * :func:`pick_microbatches` — the reference's accumulation depth, and
   :func:`micro_depth`, the same unless ``OptFlags.n_micro_override`` is set.
 
-Serving runs ``LM.prefill`` / ``LM.decode_step`` eagerly, so it needs no
-step factory.  Enc-dec models raise ``NotImplementedError`` (``ROADMAP.md``
-queue 1 item 17).
+Both models' ``loss_fn`` take a batch dict and return (total, metrics), so
+one train step serves both (the reference's ``_loss`` picks
+``loss_fn_encdec`` for an enc-dec config; an enc-dec batch carries
+``src_embeds``).  Serving runs ``prefill`` / ``decode_step`` eagerly, so it
+needs no step factory.
 """
 
 from __future__ import annotations
@@ -20,11 +23,11 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch import nn
 from torch.profiler import record_function
 
 from repro_torch.models import weights
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LM
 from repro_torch.models.opt_flags import get_flags
 from repro_torch.optim import AdamWConfig, adamw_update
 
@@ -33,12 +36,12 @@ __all__ = ["accumulate_grads", "init_params", "make_train_step", "micro_depth",
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
-                device=None, param_dtype: torch.dtype | None = None) -> LM:
+                device=None, param_dtype: torch.dtype | None = None) -> nn.Module:
     """Seeded weights for ``cfg`` on ``device`` (None: the CUDA card); the
     counterpart of the reference's ``init_params(key, cfg)``.
     ``param_dtype=torch.float32`` builds the fp32 master weights training
-    needs.  Families not ported yet (enc-dec among them) raise
-    ``NotImplementedError``."""
+    needs.  An enc-dec config gives an
+    :class:`~repro_torch.models.encdec.EncDec`."""
     return weights.init(cfg, generator, device=device, param_dtype=param_dtype)
 
 
@@ -67,8 +70,8 @@ def _device_batch(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def accumulate_grads(model: LM, batch: dict, n_microbatches: int = 1):
-    """(fp32 gradients of ``LM.loss_fn``'s total by parameter name, the
+def accumulate_grads(model: nn.Module, batch: dict, n_microbatches: int = 1):
+    """(fp32 gradients of ``model.loss_fn``'s total by parameter name, the
     total loss): ``batch`` split along the batch axis into
     ``n_microbatches`` contiguous microbatches, each one's gradient
     accumulated in fp32, the sum and the loss divided by the depth.  The
@@ -107,21 +110,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     """``train_step(model, opt_state, batch) -> (model, opt_state, metrics)``.
 
     ``batch`` holds ``inputs``, ``targets`` and optionally ``mask`` and
-    ``extra_embeds`` (numpy arrays or tensors, moved to the model's
-    device).  :func:`accumulate_grads` gives the fp32 gradients and the
-    loss over ``n_microbatches``, and
+    ``extra_embeds`` (an enc-dec batch ``src_embeds`` too), numpy arrays
+    or tensors, moved to the model's device.  :func:`accumulate_grads`
+    gives the fp32 gradients and the loss over ``n_microbatches``, and
     :func:`repro_torch.optim.adamw_update` updates the parameters, which
     are written back into ``model`` in place.  ``opt_state`` is
     :func:`repro_torch.optim.adamw_init` of
     ``dict(model.named_parameters())``.  Metrics: ``loss`` (the total),
     with ``grad_norm`` and ``lr`` from the update.
     """
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: enc-dec training is not ported yet (ROADMAP.md "
-            "queue 1 item 17)")
-
-    def train_step(model: LM, opt_state: dict, batch: dict):
+    def train_step(model: nn.Module, opt_state: dict, batch: dict):
         acc, loss = accumulate_grads(model, batch, n_microbatches)
         params = dict(model.named_parameters())
         with torch.no_grad():

@@ -1,4 +1,4 @@
 """repro_torch.models — the LM substrate: config, layers, attention over
-full and ring KV caches, the decoder-only :class:`LM` (served and trained),
-its weights and the §Perf flags.  Families beyond dense attention come in
-later slices (``ROADMAP.md`` queue 1)."""
+full and ring KV caches, the MoE, SSD and RG-LRU blocks, the decoder-only
+:class:`LM` and the encoder-decoder :class:`EncDec` (served and trained),
+their weights and the §Perf flags."""

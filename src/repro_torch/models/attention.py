@@ -15,6 +15,11 @@ switch):
   recomputes the scores chunk by chunk from (q, k, v, out, m, l) instead of
   saving every chunk's fp32 scores.
 
+Four kinds of attention layer: ``"attn"`` (causal), ``"local"`` (causal
+within a window), and the encoder-decoder's ``"encoder"`` (bidirectional,
+with RoPE) and ``"cross"`` (q from the decoder, k and v from the encoder's
+output, bidirectional, no RoPE; its decode reads a static cache).
+
 KV caches come in two layouts (chosen per layer kind):
 
 * **full** — slot ``i`` holds position ``i``; size = max context.
@@ -40,6 +45,7 @@ from .opt_flags import get_flags
 
 __all__ = [
     "attention_projections",
+    "project_heads",
     "chunked_attention",
     "flash_attention_chunked",
     "decode_attention",
@@ -49,10 +55,15 @@ __all__ = [
     "ring_slot_positions",
     "full_slot_positions",
     "set_attention_impl",
+    "KINDS",
 ]
 
 # "kernel" (repro_torch.kernels) | "torch" (plain PyTorch).
 _IMPL = "kernel"
+
+#: the attention kinds of a prefill: causal, causal within the window,
+#: bidirectional with RoPE, bidirectional over the encoder's keys
+KINDS = ("attn", "local", "encoder", "cross")
 
 
 def set_attention_impl(impl: str) -> None:
@@ -83,7 +94,7 @@ def _dispatch_decode(q, k_cache, v_cache, slot_pos, pos, *, window, logit_cap,
                             logit_cap=logit_cap)
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, d) @ (d, n, hd) -> (B, n, S, hd); ``w`` cast to x's dtype."""
     B, S, _ = x.shape
     n, hd = w.shape[1], w.shape[2]
@@ -100,7 +111,7 @@ def _out_project(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def attention_projections(p, x: torch.Tensor):
     """x: (B, S, d) -> q (B, H, S, hd), k/v (B, KV, S, hd)."""
-    return _project(x, p["q"]), _project(x, p["k"]), _project(x, p["v"])
+    return project_heads(x, p["q"]), project_heads(x, p["k"]), project_heads(x, p["v"])
 
 
 def chunked_attention(
@@ -216,22 +227,36 @@ def attn_block_prefill(
     x: torch.Tensor,            # (B, S, d)
     inv_freq: torch.Tensor,
     *,
-    kind: str,                  # "attn" | "local"
+    kind: str,                  # "attn" | "local" | "encoder" | "cross"
     window: int,
     logit_cap: float | None,
     cache_size: int | None = None,   # build a cache of this size if not None
+    kv_override: tuple | None = None,  # (k, v) for cross-attention
     q_offset: int = 0,
 ):
-    """Prefill attention; returns (y, cache or None)."""
-    if kind not in ("attn", "local"):
-        raise ValueError(f"attention kind {kind!r} is not ported")
+    """Prefill attention; returns (y, cache or None).
+
+    ``"attn"`` and ``"local"`` are causal (``"local"`` within ``window``);
+    ``"encoder"`` is bidirectional with RoPE; ``"cross"`` projects only q
+    and attends, without RoPE and bidirectionally, over ``kv_override``
+    (k, v) (B, KV, Sk, hd), the encoder's keys and values (Sk may differ
+    from S)."""
+    if kind not in KINDS:
+        raise ValueError(f"attention kind must be one of {KINDS}, not {kind!r}")
+    if (kind == "cross") != (kv_override is not None):
+        raise ValueError("kv_override is given exactly for kind 'cross'")
     B, S, _ = x.shape
-    q, k, v = attention_projections(p, x)
+    if kv_override is None:
+        q, k, v = attention_projections(p, x)
+    else:
+        q = project_heads(x, p["q"])
+        k, v = kv_override
     positions = q_offset + torch.arange(S, device=x.device)
-    q = apply_rope(q, positions[None, None, :], inv_freq)
-    k = apply_rope(k, positions[None, None, :], inv_freq)
+    if kind != "cross":
+        q = apply_rope(q, positions[None, None, :], inv_freq)
+        k = apply_rope(k, positions[None, None, :], inv_freq)
     win = window if kind == "local" else None
-    out = _dispatch_prefill(q, k, v, causal=True, window=win,
+    out = _dispatch_prefill(q, k, v, causal=kind in ("attn", "local"), window=win,
                             logit_cap=logit_cap, q_offset=q_offset)
     y = _out_project(out, p["o"])
 
@@ -258,7 +283,7 @@ def attn_block_decode(
     pos: torch.Tensor,          # 0-dim int32 on the device: this token's position
     inv_freq: torch.Tensor,
     *,
-    kind: str,                  # "attn" | "local"
+    kind: str,                  # "attn" | "local" | "cross"
     window: int,
     logit_cap: float | None,
     slot_pos: torch.Tensor | None = None,
@@ -268,15 +293,28 @@ def attn_block_decode(
     the cache size (it is computed from ``pos`` otherwise); it must be the
     layout of ``kind``: :func:`ring_slot_positions` at ``pos`` for a local
     layer, :func:`full_slot_positions` otherwise, which the decode kernel is
-    told, so that it reads only the live span.  Returns (y, cache)."""
-    if kind not in ("attn", "local"):
-        raise ValueError(f"attention kind {kind!r} is not ported")
+    told, so that it reads only the live span.  Returns (y, cache).
+
+    ``"cross"`` attends over the encoder's static cache without writing it
+    and without RoPE: every slot is seen, so ``pos`` must be the cache size
+    (the reference's ``jnp.asarray(size)``).  The caller keeps that 0-dim
+    tensor from prefill on: made inside a CUDA graph's capture it would be a
+    host-to-device copy, which capture refuses."""
+    if kind not in ("attn", "local", "cross"):
+        raise ValueError(f"attention kind {kind!r} has no decode step")
     B = x.shape[0]
+    size = cache["k"].shape[2]
+    if kind == "cross":
+        if slot_pos is None:
+            slot_pos = full_slot_positions(size, x.device)
+        out = _dispatch_decode(project_heads(x, p["q"]), cache["k"], cache["v"],
+                               slot_pos, pos, window=None, logit_cap=logit_cap,
+                               layout="full")
+        return _out_project(out, p["o"]), cache
     q, k, v = attention_projections(p, x)
     posb = pos.reshape(1, 1, 1).expand(B, 1, 1)
     q = apply_rope(q, posb, inv_freq)
     k = apply_rope(k, posb, inv_freq)
-    size = cache["k"].shape[2]
     if kind == "local":
         slot = torch.remainder(pos, size)
         if slot_pos is None:

@@ -14,8 +14,35 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
-__all__ = ["apply_norm", "apply_mlp", "rope_frequencies", "apply_rope", "softcap"]
+__all__ = ["ParamTree", "apply_norm", "apply_mlp", "rope_frequencies",
+           "apply_rope", "softcap"]
+
+
+class ParamTree(nn.Module):
+    """A nested parameter dict as a module: ``tree[name]`` reads a parameter
+    or a subtree, so the reference's functional code (``p["experts"]["wi"]``,
+    ``"shared" in p``) reads the port's parameters under the reference's
+    names, and ``named_parameters()`` gives dotted names
+    (``moe.experts.wi``).  Leaves are made uninitialised from
+    ``{name: (shape, dtype)}``."""
+
+    def __init__(self, spec: Mapping, device):
+        super().__init__()
+        for name, leaf in spec.items():
+            if isinstance(leaf, Mapping):
+                self.add_module(name, ParamTree(leaf, device))
+            else:
+                shape, dtype = leaf
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(shape, dtype=dtype, device=device)))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
 
 
 def apply_norm(p: Mapping, x: torch.Tensor, norm_type: str, eps: float) -> torch.Tensor:

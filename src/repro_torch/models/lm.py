@@ -1,31 +1,41 @@
-"""Decoder-only LM: dense models of ``"attn"`` / ``"local"`` layers, served
-and trained, with the vision frontend's ``extra_embeds``.
+"""Decoder-only LM: dense, MoE, hybrid (RG-LRU + local attention) and SSM
+families, served and trained, with the vision frontend's ``extra_embeds``.
 
-The port of ``repro/models/lm.py`` for the families ported so far.  The
-reference stacks each pattern member's parameters over groups and scans; here
-:class:`LM` is an ``nn.Module`` whose :class:`DecoderLayer` s sit in one
-``nn.ModuleList`` in layer order, the reference's scan order (for each group,
-each member of ``cfg.layer_pattern``), so layer ``g * len(pattern) + mi`` is
-the reference's ``params["groups"][mi][..][g]``.  Caches are a list of
-per-layer ``{"k", "v"}`` dicts in the same order.
+The port of ``repro/models/lm.py``.  The reference keeps a heterogeneous
+prefix of unstacked layers (recurrentgemma's two RG-LRU layers, a MoE
+config's dense first layer), then stacks each pattern member's parameters
+over groups and scans; here :class:`LM` is an ``nn.Module`` whose
+:class:`DecoderLayer` s sit in one ``nn.ModuleList`` in layer order: the
+prefix, then the reference's scan order (for each group, each member of
+``cfg.layer_pattern``), so layer ``n_prefix + g * len(pattern) + mi`` is the
+reference's ``params["groups"][mi][..][g]`` and layer ``i < n_prefix`` its
+``params["prefix"][i]``.  Caches are a list of per-layer caches in the same
+order: ``{"k", "v"}`` for an attention layer, ``{"h", "conv"}`` for a
+recurrent one.
 
 ``forward``, ``prefill``, ``decode_step`` and ``loss_fn`` keep the
 reference's names and semantics.  ``pos`` is a 0-dim int32 tensor on the
-device: a decode step never reads it on the host.  ``extra_embeds`` (B, E,
-d), the vision frontend's patch embeddings, are cast to the compute dtype
-and put before the token embeddings; ``prefill``'s next position counts
-them, and ``loss_fn`` drops their logits.  ``forward(remat=True)`` (the
-reference's ``jax.checkpoint`` of each scan group) recomputes each layer in
-the backward pass with ``torch.utils.checkpoint``; the numbers are the same.
+device: a decode step never reads it on the host, and writes every cache and
+recurrent state in place, so that a CUDA graph can replay it.
+``extra_embeds`` (B, E, d), the vision frontend's patch embeddings, are
+cast to the compute dtype and put before the token embeddings; ``prefill``'s
+next position counts them, and ``loss_fn`` drops their logits.
+``forward(remat=True)`` (the reference's ``jax.checkpoint`` of each scan
+group) recomputes each layer in the backward pass with
+``torch.utils.checkpoint``; the numbers are the same.  ``forward``'s third
+output is the MoE layers' summed aux loss (0 without MoE), which
+``loss_fn`` weighs in.
 
 Parameters: a serving model stores its matmul weights in the compute dtype
 ``cfg.dtype``, cast once at load (the reference casts its fp32 weights at
-every use, which gives the same numbers).  A training model is built with
+every use, which gives the same numbers).  Norm parameters, and the
+recurrent blocks' parameters that the reference uses in fp32 (the SSM's
+``A_log``, ``D``, ``dt_bias``; the RG-LRU's gates ``wa``, ``wx``, their
+biases and ``lam``), stay fp32.  A training model is built with
 ``param_dtype=torch.float32``: fp32 master weights, cast to ``cfg.dtype`` at
 each use, so gradients and AdamW state are fp32, as in the reference.  The
 reference's ``act_sharding.constrain`` has no counterpart on one device.
-MoE, SSM, RG-LRU, prefix layers, the audio frontend and enc-dec raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+Encoder-decoder configs are :class:`repro_torch.models.encdec.EncDec`.
 """
 
 from __future__ import annotations
@@ -44,36 +54,46 @@ from .attention import (
     ring_slot_positions,
 )
 from .config import ModelConfig
-from .layers import apply_mlp, apply_norm, rope_frequencies, softcap
+from .layers import ParamTree, apply_mlp, apply_norm, rope_frequencies, softcap
+from .moe import apply_moe, moe_spec
 from .opt_flags import get_flags
+from .rglru import rglru_decode, rglru_prefill, rglru_spec
+from .ssm import ssm_decode, ssm_prefill, ssm_spec
 
-__all__ = ["LM", "DecoderLayer"]
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not build yet."""
-    todo = []
-    if cfg.is_encdec:
-        todo.append("enc-dec (ROADMAP.md queue 1 item 17)")
-    if cfg.n_experts:
-        todo.append("MoE (ROADMAP.md queue 1 item 17)")
-    if cfg.prefix_pattern:
-        todo.append("prefix layers (ROADMAP.md queue 1 item 17)")
-    other = sorted(set(cfg.layer_pattern) - {"attn", "local"})
-    if other:
-        todo.append(f"{'/'.join(other)} layers (SSM, RG-LRU: ROADMAP.md "
-                    "queue 1 item 17)")
-    if cfg.frontend not in (None, "vision"):
-        todo.append(f"the {cfg.frontend} frontend (enc-dec: ROADMAP.md queue 1 "
-                    "item 17)")
-    if todo:
-        raise NotImplementedError(f"{cfg.name}: not ported yet: {'; '.join(todo)}")
+__all__ = ["LM", "DecoderLayer", "ffn_kind", "layer_kinds", "prefix_kinds"]
 
 
-def _norm(cfg: ModelConfig, device) -> nn.ParameterDict:
-    p = {"scale": nn.Parameter(torch.ones(cfg.d_model, device=device))}
-    if cfg.norm_type == "layernorm":
-        p["bias"] = nn.Parameter(torch.zeros(cfg.d_model, device=device))
+def prefix_kinds(cfg: ModelConfig) -> list[str]:
+    """Layers before the repeated pattern (the reference's unstacked
+    prefix): ``cfg.prefix_pattern``, then a MoE config's first
+    ``moe_layer_start`` layers, which keep a dense FFN (``"attn_dense"``)."""
+    kinds = list(cfg.prefix_pattern)
+    if cfg.n_experts and cfg.moe_layer_start > 0:
+        kinds += ["attn_dense"] * cfg.moe_layer_start
+    return kinds
+
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """Every layer's kind in the port's order: the prefix, then for each
+    group each member of ``cfg.layer_pattern`` (the reference's group
+    layer ``g * P + mi`` is layer ``n_prefix + g * P + mi``)."""
+    return prefix_kinds(cfg) + list(cfg.layer_pattern) * cfg.n_groups
+
+
+def ffn_kind(cfg: ModelConfig, kind: str) -> str:
+    """Which FFN a layer uses: ``moe`` | ``dense`` | ``none`` (an SSM layer
+    is the whole block)."""
+    if kind == "ssm":
+        return "none"
+    if kind == "attn_dense":
+        return "dense"
+    return "moe" if cfg.n_experts else "dense"
+
+
+def _norm(d: int, norm_type: str, device) -> nn.ParameterDict:
+    p = {"scale": nn.Parameter(torch.ones(d, device=device))}
+    if norm_type == "layernorm":
+        p["bias"] = nn.Parameter(torch.zeros(d, device=device))
     return nn.ParameterDict(p)
 
 
@@ -83,67 +103,127 @@ def _weights(shapes: dict, dtype, device) -> nn.ParameterDict:
         for name, shape in shapes.items()})
 
 
-class DecoderLayer(nn.Module):
-    """One residual block: (sandwich-)normed attention, then a dense FFN.
+def attention_weights(cfg: ModelConfig, dtype, device) -> nn.ParameterDict:
+    """q (d, H, hd), k and v (d, KV, hd), o (H, hd, d)."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return _weights({"q": (d, H, hd), "k": (d, KV, hd), "v": (d, KV, hd),
+                     "o": (H, hd, d)}, dtype, device)
 
-    Parameters keep the reference's names: ``ln1``, ``attn`` (q, k, v, o),
-    ``post1``, ``ln2``, ``mlp`` (wi, wg, wo), ``post2``.
+
+def mlp_weights(d: int, ff: int, mlp_type: str, dtype, device) -> nn.ParameterDict:
+    shapes = {"wi": (d, ff), "wo": (ff, d)}
+    if mlp_type in ("swiglu", "geglu"):
+        shapes["wg"] = (d, ff)
+    return _weights(shapes, dtype, device)
+
+
+class DecoderLayer(nn.Module):
+    """One residual block: a (sandwich-)normed token mixer, then the FFN.
+
+    The mixer is attention (``attn``: q, k, v, o) for the kinds ``"attn"``,
+    ``"local"`` and ``"attn_dense"``, ``rglru`` or ``ssm``; the FFN a dense
+    ``mlp`` (wi, wg, wo; ``d_ff_dense`` wide in an ``"attn_dense"`` layer),
+    a ``moe`` or none (``ssm``).  Parameters keep the reference's names:
+    ``ln1``, the mixer, ``post1``, ``ln2``, the FFN, ``post2``.
     """
 
     def __init__(self, cfg: ModelConfig, kind: str, *, dtype, device):
         super().__init__()
-        d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        d = cfg.d_model
         self.cfg = cfg
         self.kind = kind
-        self.ln1 = _norm(cfg, device)
-        self.attn = _weights({"q": (d, H, hd), "k": (d, KV, hd), "v": (d, KV, hd),
-                              "o": (H, hd, d)}, dtype, device)
-        self.ln2 = _norm(cfg, device)
-        mlp = {"wi": (d, cfg.d_ff), "wo": (cfg.d_ff, d)}
-        if cfg.mlp_type in ("swiglu", "geglu"):
-            mlp["wg"] = (d, cfg.d_ff)
-        self.mlp = _weights(mlp, dtype, device)
+        self.mixer = "attn" if kind == "attn_dense" else kind
+        self.ffn = ffn_kind(cfg, kind)
+        self.ln1 = _norm(d, cfg.norm_type, device)
+        if self.mixer in ("attn", "local"):
+            self.attn = attention_weights(cfg, dtype, device)
+        elif self.mixer == "rglru":
+            self.rglru = ParamTree(rglru_spec(cfg, dtype), device)
+        elif self.mixer == "ssm":
+            self.ssm = ParamTree(ssm_spec(cfg, dtype), device)
+        else:
+            raise ValueError(f"unknown layer kind {kind!r}")
+        if self.ffn != "none":
+            self.ln2 = _norm(d, cfg.norm_type, device)
+            if self.ffn == "moe":
+                self.moe = ParamTree(moe_spec(cfg, dtype), device)
+            else:
+                width = cfg.d_ff_dense if (kind == "attn_dense" and cfg.d_ff_dense) \
+                    else cfg.d_ff
+                self.mlp = mlp_weights(d, width, cfg.mlp_type, dtype, device)
         if cfg.use_post_norm:
-            self.post1 = _norm(cfg, device)
-            self.post2 = _norm(cfg, device)
+            self.post1 = _norm(d, cfg.norm_type, device)
+            if self.ffn != "none":
+                self.post2 = _norm(d, cfg.norm_type, device)
 
     def _apply_norm(self, name: str, x: torch.Tensor) -> torch.Tensor:
         return apply_norm(getattr(self, name), x, self.cfg.norm_type, self.cfg.norm_eps)
 
-    def _residual(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    def _residual(self, x: torch.Tensor, h: torch.Tensor, capacity: int | None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """x + the mixer's output, then the FFN's residual; returns (x, aux)."""
         if self.cfg.use_post_norm:
             h = self._apply_norm("post1", h)
         x = x + h
-        h = apply_mlp(self.mlp, self._apply_norm("ln2", x), self.cfg.mlp_type)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.ffn == "none":
+            return x, aux
+        h = self._apply_norm("ln2", x)
+        if self.ffn == "moe":
+            h, aux = apply_moe(self.moe, h, self.cfg, capacity=capacity)
+        else:
+            h = apply_mlp(self.mlp, h, self.cfg.mlp_type)
         if self.cfg.use_post_norm:
             h = self._apply_norm("post2", h)
-        return x + h
+        return x + h, aux
 
     def train_forward(self, x, inv_freq):
         """The layer without caches (what ``torch.utils.checkpoint`` reruns),
         under the profiler range ``lm.layer``: in the backward pass that
-        range is the recomputation."""
+        range is the recomputation.  Returns (x, aux)."""
         with record_function("lm.layer"):
-            return self.prefill(x, inv_freq, None)[0]
+            x, _, aux = self.prefill(x, inv_freq, None)
+            return x, aux
 
     def prefill(self, x, inv_freq, cache_len: int | None):
+        """Returns (x, cache or None, aux): the cache a ``{"k", "v"}`` dict
+        of an attention layer, the ``{"h", "conv"}`` state of a recurrent
+        one."""
         cfg = self.cfg
-        size = None
-        if cache_len is not None:
-            size = min(cache_len, cfg.window_size) if self.kind == "local" else cache_len
-        h, cache = attn_block_prefill(
-            self.attn, self._apply_norm("ln1", x), inv_freq, kind=self.kind,
-            window=cfg.window_size, logit_cap=cfg.attn_logit_softcap,
-            cache_size=size)
-        return self._residual(x, h), cache
+        h = self._apply_norm("ln1", x)
+        if self.mixer in ("attn", "local"):
+            size = None
+            if cache_len is not None:
+                size = min(cache_len, cfg.window_size) if self.mixer == "local" \
+                    else cache_len
+            h, cache = attn_block_prefill(
+                self.attn, h, inv_freq, kind=self.mixer, window=cfg.window_size,
+                logit_cap=cfg.attn_logit_softcap, cache_size=size)
+        else:
+            fn = rglru_prefill if self.mixer == "rglru" else ssm_prefill
+            h, cache = fn(getattr(self, self.mixer), h, cfg)
+            if cache_len is None:
+                cache = None
+        x, aux = self._residual(x, h, None)
+        return x, cache, aux
 
     def decode(self, x, cache, pos, inv_freq, slot_pos):
+        """One token; writes ``cache`` in place and returns (x, cache).  The
+        MoE FFN runs dropless (capacity = B tokens, from the shape)."""
         cfg = self.cfg
-        h, cache = attn_block_decode(
-            self.attn, self._apply_norm("ln1", x), cache, pos, inv_freq,
-            kind=self.kind, window=cfg.window_size,
-            logit_cap=cfg.attn_logit_softcap, slot_pos=slot_pos)
-        return self._residual(x, h), cache
+        h = self._apply_norm("ln1", x)
+        if self.mixer in ("attn", "local"):
+            h, cache = attn_block_decode(
+                self.attn, h, cache, pos, inv_freq, kind=self.mixer,
+                window=cfg.window_size, logit_cap=cfg.attn_logit_softcap,
+                slot_pos=slot_pos)
+        else:
+            fn = rglru_decode if self.mixer == "rglru" else ssm_decode
+            h, new = fn(getattr(self, self.mixer), h, cache, cfg)
+            for key, value in new.items():
+                cache[key].copy_(value)
+        x, _ = self._residual(x, h, x.shape[0] * x.shape[1])
+        return x, cache
 
 
 class LM(nn.Module):
@@ -159,7 +239,9 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None,
                  param_dtype: torch.dtype | None = None):
         super().__init__()
-        _check_supported(cfg)
+        if cfg.is_encdec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder config: build it "
+                             "with repro_torch.models.encdec.EncDec")
         dev = resolve_device(device)
         dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
@@ -167,11 +249,10 @@ class LM(nn.Module):
         dtype = param_dtype or dtype
         self.embed = nn.Parameter(
             torch.empty((cfg.vocab_size, cfg.d_model), dtype=dtype, device=dev))
-        self.final_norm = _norm(cfg, dev)
-        P = cfg.pattern_len
+        self.final_norm = _norm(cfg.d_model, cfg.norm_type, dev)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, cfg.layer_pattern[i % P], dtype=dtype, device=dev)
-            for i in range(cfg.n_groups * P))
+            DecoderLayer(cfg, kind, dtype=dtype, device=dev)
+            for kind in layer_kinds(cfg))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 torch.empty((cfg.d_model, cfg.vocab_size), dtype=dtype, device=dev))
@@ -213,24 +294,25 @@ class LM(nn.Module):
         for training.  ``logits_slice``: only produce logits for the last N
         positions.  ``extra_embeds`` (B, E, d) come before the tokens, so
         the logits cover E + S positions.  ``remat``: recompute each layer
-        in the backward pass (training only).  ``aux_loss`` is 0: the dense
-        families have none.
+        in the backward pass (training only).  ``aux_loss``: the MoE layers'
+        load-balancing losses summed (fp32; 0 without MoE).
         """
         x = self._embed(tokens, extra_embeds)
         caches = [] if cache_len is not None else None
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
             if remat and cache_len is None and torch.is_grad_enabled():
-                x = checkpoint(layer.train_forward, x, self.inv_freq,
-                               use_reentrant=False)
-                continue
-            x, cache = layer.prefill(x, self.inv_freq, cache_len)
-            if caches is not None:
-                caches.append(cache)
+                x, aux = checkpoint(layer.train_forward, x, self.inv_freq,
+                                    use_reentrant=False)
+            else:
+                x, cache, aux = layer.prefill(x, self.inv_freq, cache_len)
+                if caches is not None:
+                    caches.append(cache)
+            aux_total = aux_total + aux
         x = apply_norm(self.final_norm, x, self.cfg.norm_type, self.cfg.norm_eps)
         if logits_slice is not None:
             x = x[:, -logits_slice:]
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._logits(x), caches, aux
+        return self._logits(x), caches, aux_total
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int, *,
@@ -246,7 +328,7 @@ class LM(nn.Module):
 
     def loss_fn(self, batch: dict, *, remat: bool = True,
                 aux_weight: float = 0.01):
-        """Next-token cross-entropy (+ the MoE aux term, 0 here), the
+        """Next-token cross-entropy (+ ``aux_weight`` times the MoE aux loss), the
         reference's ``lm.loss_fn``.  ``batch``: ``inputs``, ``targets`` (B, S)
         int, optional ``mask`` (B, S) and ``extra_embeds``; the targets align
         with the token part of the sequence.  Returns (total, metrics) with
@@ -283,13 +365,16 @@ class LM(nn.Module):
         int32 on the device).  Writes the caches in place and returns
         (logits (B, 1, V), caches)."""
         x = self._embed(token)
-        slot_pos: dict[tuple, torch.Tensor] = {}    # one per (kind, size)
+        slot_pos: dict[tuple, torch.Tensor] = {}    # one per (mixer, size)
         for layer, cache in zip(self.layers, caches):
-            size = cache["k"].shape[2]
-            key = (layer.kind, size)
-            if key not in slot_pos:
-                slot_pos[key] = (ring_slot_positions(pos, size) if layer.kind == "local"
-                                 else full_slot_positions(size, x.device))
-            x, _ = layer.decode(x, cache, pos, self.inv_freq, slot_pos[key])
+            key = None
+            if layer.mixer in ("attn", "local"):
+                size = cache["k"].shape[2]
+                key = (layer.mixer, size)
+                if key not in slot_pos:
+                    slot_pos[key] = (ring_slot_positions(pos, size)
+                                     if layer.mixer == "local"
+                                     else full_slot_positions(size, x.device))
+            x, _ = layer.decode(x, cache, pos, self.inv_freq, slot_pos.get(key))
         x = apply_norm(self.final_norm, x, self.cfg.norm_type, self.cfg.norm_eps)
         return self._logits(x), caches

@@ -13,14 +13,16 @@ What the port reads today:
   (:func:`repro_torch.models.attention.flash_attention_chunked`), which
   recomputes the scores chunk by chunk instead of saving them;
 * ``n_micro_override`` — the accumulation depth of the train launcher
-  (``repro_torch.launch.steps.micro_depth``).
+  (``repro_torch.launch.steps.micro_depth``);
+* ``moe_impl`` — :func:`repro_torch.models.moe.apply_moe`'s dispatch,
+  ``"einsum"`` or ``"gather"``.
 
 The other fields keep the reference's defaults, and :func:`set_flags`
 refuses any other value of them, so that no setting silently does nothing:
-``moe_impl`` waits for the MoE layers (``ROADMAP.md`` queue 1 item 17);
-``mesh_factor`` and ``bf16_collectives`` for the mesh and sharding rules
-(item 18).  ``cache_update`` selects nothing: the port's decode step always
-updates its caches in place.
+``mesh_factor``, ``bf16_collectives`` and ``moe_impl="shardmap"`` wait for
+the mesh and sharding rules (``ROADMAP.md`` queue 1 item 18).
+``cache_update`` selects nothing: the port's decode step always updates its
+caches in place.
 """
 
 from __future__ import annotations
@@ -64,17 +66,23 @@ _FLAGS = OptFlags()
 
 
 #: the fields the port reads; any other must keep its default
-READ = ("sharded_loss", "flash_bwd", "n_micro_override")
+READ = ("sharded_loss", "flash_bwd", "n_micro_override", "moe_impl")
+#: the MoE dispatches the port has
+MOE_IMPLS = ("einsum", "gather")
 
 
 def set_flags(flags: OptFlags) -> None:
     """Install ``flags``; raises ``ValueError`` on a field the port does not
-    read (not in :data:`READ`) set away from its default."""
+    read (not in :data:`READ`) set away from its default, and on a
+    ``moe_impl`` outside :data:`MOE_IMPLS`."""
     unread = [f.name for f in fields(OptFlags) if f.name not in READ
               and getattr(flags, f.name) != f.default]
     if unread:
         raise ValueError(f"OptFlags {unread} are not read by the port yet; "
                          "leave them at their defaults")
+    if flags.moe_impl not in MOE_IMPLS:
+        raise ValueError(f"OptFlags moe_impl {flags.moe_impl!r} is not ported "
+                         f"(ROADMAP.md queue 1 item 18); the port has {MOE_IMPLS}")
     global _FLAGS
     _FLAGS = flags
 

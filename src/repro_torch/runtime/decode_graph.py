@@ -9,8 +9,10 @@ input it reads stays at one address and changes on the device:
 * the token (B, 1) and the position (0-dim int32) live in static buffers;
   the step writes its greedy token into the token buffer and adds 1 to the
   position in place;
-* ``LM.decode_step`` writes the caches in place and reads ``pos`` only on
-  the device (ring slot positions, cache index, the decode kernel's span);
+* ``decode_step`` writes the caches and recurrent states in place and
+  reads ``pos`` only on the device (ring slot positions, cache index, the
+  decode kernel's span; an enc-dec's cross position is a tensor its
+  prefill made);
 * the decode kernel's scratch and merge counters are kept per device and
   shape, and the counters are back at 0 after every call.
 
@@ -55,13 +57,15 @@ def _add(deltas: list[tuple[int, dict]], sign: int) -> None:
 
 
 class GreedyDecoder:
-    """Greedy decode steps of ``model`` over ``caches`` from ``token`` (B, 1)
+    """Greedy decode steps of ``model`` (an :class:`LM`, or an
+    :class:`~repro_torch.models.encdec.EncDec` with its prefill's caches)
+    over ``caches`` from ``token`` (B, 1)
     at ``pos`` (0-dim int32): each :meth:`step` feeds the token buffer at
     the position buffer, writes the argmax token back into the token buffer
     and advances the position by one.  The buffers are copies of ``token``
     and ``pos``, and keep their addresses for the decoder's life."""
 
-    def __init__(self, model: LM, caches: list, token: torch.Tensor,
+    def __init__(self, model: LM, caches, token: torch.Tensor,
                  pos: torch.Tensor, *, cuda_graph: bool = False):
         if cuda_graph and model.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a model on a CUDA card, not "

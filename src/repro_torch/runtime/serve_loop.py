@@ -75,6 +75,10 @@ class Server:
 
     def __init__(self, cfg: ModelConfig, model: LM, *, max_len: int = 256,
                  temperature: float = 0.0, device=None):
+        if cfg.is_encdec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: the Server "
+                             "serves decoder-only models, as the reference's does; "
+                             "use EncDec.prefill and GreedyDecoder")
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"the model is on {model.device}, the server on "

@@ -380,3 +380,96 @@ def test_decode_at_nine_heads_per_group_without_softcap(cuda_device, dtype, tol)
         want = decode_attention_torch(q.view(4, 4, 9, 128), kc, vc, slot_pos, pos)
         torch.testing.assert_close(got.float(), want.view(4, 36, 1, 128).float(),
                                    rtol=tol, atol=tol)
+
+
+# ------------------------------------------------- slice 5b's geometries
+
+# (B, H, KV, Sq, Sk, hd, causal, window): recurrentgemma-9b's local prefill
+# (G 16, hd 256, window 2,048) and a prompt that wraps its window;
+# seamless-m4t-large-v2's encoder and cross-attention (non-causal, Sq != Sk)
+FAMILY_FLASH = [(4, 16, 1, 512, 512, 256, True, 2048),
+                (1, 16, 1, 2100, 2100, 256, True, 2048),
+                (4, 16, 16, 1024, 1024, 64, False, None),
+                (4, 16, 16, 256, 1024, 64, False, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", FAMILY_FLASH,
+                         ids=["rg-local", "rg-wrapped", "enc", "cross"])
+def test_flash_at_slice_5b_geometries(cuda_device, shape, dtype, tol):
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, KV, Sq, Sk, hd, causal, window = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+               for s in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_torch(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# (B, H, KV, S, hd, pos, window, ring): recurrentgemma-9b's serving step on a
+# ring of 1,024, its wrapped ring of 2,048 at pos 2,100, and seamless's cross
+# decode over a static cache at pos = S (every slot seen)
+FAMILY_DECODE = [(4, 16, 1, 1024, 256, 527, 2048, True),
+                 (1, 16, 1, 2048, 256, 2100, 2048, True),
+                 (4, 16, 16, 1024, 64, 1024, None, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", FAMILY_DECODE, ids=["rg-ring", "rg-wrapped", "cross"])
+def test_decode_at_slice_5b_geometries(cuda_device, shape, dtype, tol):
+    B, H, KV, S, hd, p, window, ring = shape
+    q, kc, vc, slot_pos = _decode_inputs(cuda_device, dtype, B=B, H=H, KV=KV, S=S,
+                                         hd=hd, seed=21)
+    pos = torch.tensor(p, dtype=torch.int32, device=cuda_device)
+    if ring:
+        slot_pos = pos - torch.remainder(pos - slot_pos, S)
+    before = gqa_decode_attention.launches
+    got = gqa_decode_attention(q, kc, vc, slot_pos, pos, window=window,
+                               layout="ring" if ring else "full")
+    assert gqa_decode_attention.launches == before + 1
+    want = decode_attention_torch(q.view(B, KV, H // KV, hd), kc, vc, slot_pos, pos,
+                                  window=window)
+    torch.testing.assert_close(got.float(), want.view(B, H, 1, hd).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mamba2-130m", "recurrentgemma-9b",
+                                  "seamless-m4t-large-v2"])
+def test_graphed_decode_steps_equal_eager_ones_per_family(cuda_device, name):
+    # each family's smoke config in bf16 on the card: prefill, then greedy
+    # decode steps eagerly and replayed as a CUDA graph (MoE routing, the
+    # recurrent states written in place, the cross cache's pos kept from
+    # prefill), the same tokens and the same last logits
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import init_params
+    from repro_torch.runtime.decode_graph import GreedyDecoder
+
+    cfg = get_config(name).smoke().replace(dtype="bfloat16")
+    model = init_params(torch.Generator(device=cuda_device).manual_seed(0), cfg,
+                        device=cuda_device)
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size, (2, 24)), device=cuda_device)
+    src = None
+    if cfg.is_encdec:
+        src = torch.randn((2, 40, cfg.d_model), device=cuda_device).to(torch.bfloat16)
+    runs = []
+    for graphed in (False, True):
+        if src is None:
+            logits, caches, pos = model.prefill(toks, 64)
+        else:
+            logits, caches, pos = model.prefill(src, toks, 64)
+        dec = GreedyDecoder(model, caches, torch.argmax(logits[:, -1:], dim=-1), pos,
+                            cuda_graph=graphed)
+        out = torch.cat([dec.step().clone() for _ in range(5)], dim=1)
+        torch.cuda.synchronize()
+        runs.append((out, dec.logits.float().clone()))
+    assert torch.equal(runs[0][0], runs[1][0])
+    torch.testing.assert_close(runs[1][1], runs[0][1], rtol=2e-2, atol=2e-2)

@@ -43,7 +43,12 @@ _PROBE = textwrap.dedent("""
            "repro_torch.data.pipeline", "repro_torch.models.opt_flags",
            "repro_torch.configs.starcoder2_7b", "repro_torch.configs.granite_3_8b",
            "repro_torch.configs.stablelm_1_6b",
-           "repro_torch.configs.internvl2_26b"}}
+           "repro_torch.configs.internvl2_26b", "repro_torch.models.moe",
+           "repro_torch.models.ssm", "repro_torch.models.rglru",
+           "repro_torch.models.encdec", "repro_torch.configs.deepseek_moe_16b",
+           "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.configs.mamba2_130m",
+           "repro_torch.configs.recurrentgemma_9b",
+           "repro_torch.configs.seamless_m4t_large_v2"}}
     assert new <= set(names), sorted(new - set(names))
     bad = sorted(m for m in sys.modules
                  if m == "repro" or m.startswith("repro.") or m == "jaxlib"

@@ -387,7 +387,7 @@ def test_accumulated_gradients_of_microbatches_equal_the_full_batch():
                                        atol=1e-4 * float(want.abs().max()), msg=k)
 
 
-@pytest.mark.parametrize("field,value", [("moe_impl", "gather"),
+@pytest.mark.parametrize("field,value", [("moe_impl", "shardmap"),
                                          ("mesh_factor", (8, 32)),
                                          ("bf16_collectives", True),
                                          ("cache_update", "inplace")])
