@@ -149,7 +149,27 @@ provisioning at the reference benchmarks' full settings:
      CPU; and check the launch geometries the phase launched.  Phase 7
      checks and times both kernels at these configs' new geometries (G 16
      at hd 256 on a ring of window 2,048, wrapped; non-causal flash with Sq
-     != Sk; the cross decode at pos = the cache size).
+     != Sk; the cross decode at pos = the cache size);
+ 14. train stablelm-1.6b at published width and depth through the launcher
+     a user calls, ``launch.train.main`` (the ``Trainer``: fp32 master
+     weights and AdamW state as DTensors on a mesh of one rank, 8 x 2,048
+     in 2 microbatches, 3 steps; step times, tokens/s, peak memory), then
+     a fresh ``--resume auto`` run that restores its final save (~19.7 GB)
+     and takes no step, its parameters equal bit for bit (the save's and
+     the restore's bytes and seconds); and kill and resume bit for bit at
+     full width with depth cut to 2 layers under deterministic algorithms
+     (4 steps uninterrupted against a crash at step 2 after the save at
+     step 1, resumed; parameters and final loss equal).  Checkpoints go
+     to a temporary directory, deleted after each check;
+ 15. run the six example twins of the main path (``examples/torch_*.py``)
+     with ``--smoke`` in process, each one's seconds, the kernel counters
+     each path reaches moving (``seg_combine`` for the MapReduce twins,
+     flash and decode for ``torch_serve_requests``, flash for
+     ``torch_train_e2e``, whose resumed run must equal its uninterrupted
+     one); then each twin that reaches a kernel again, with every launch
+     held against the kernel's plain version at the twin's own shapes,
+     and ``torch_serve_requests``' graphed greedy batch replayed eagerly
+     to the same tokens.
 
 Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
@@ -170,22 +190,35 @@ x decode steps, each added to its kernel's count (``launches_by_path``),
 and over each config of phase 13 ``flash_attention`` exactly its attention
 layers x 1 prefill (28, 48, 0, 12; seamless 72: 24 encoder, 24 self, 24
 cross) and ``gqa_decode_attention`` exactly those x decode steps (seamless
-48 a step).  Before the
+48 a step), over phase 14's Trainer ``flash_attention`` exactly 3 steps x 2
+microbatches x 24 layers x 2 (all ``bf16_wgmma``) and over its
+kill-and-resume (4 + 3 + 2 steps) x 2 x 2 x 2, and over each twin of phase
+15 every counter its path reaches (> 0), each added to its kernel's
+count.  Before the
 last line it prints one ``{"kernels": [...]}`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import itertools
 import json
+import os
+import runpy
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# phase 14's bit-for-bit resume runs under deterministic algorithms, which
+# need cuBLAS's workspace fixed before its first call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 MiB = 1024 * 1024
 RECORDS_PER_MAP = int(128 * MiB // 400)       # one 128 MiB split of 400 B records
@@ -301,6 +334,13 @@ FLASH_TRAIN = (4, 32, 32, 2048, 2048, 64, True, None, None, 0)
 SERVE_PROMPT, SERVE_NEW, SERVE_CACHE = 512, 16, 1024
 VISION_ROWS = 256                 # one 448-px tile's patch embeddings
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
+TRAINER_STEPS = 3                 # phase 14(a): launch.train at full depth
+RESUME_LAYERS, RESUME_STEPS = 2, 4  # phase 14(b): the kill-and-resume cut
+# phase 15: each example twin and the kernel counters its path must move
+TWINS = {"quickstart": ("seg_combine",), "job_tuning": ("seg_combine",),
+         "phase_whatif": (), "calibrate_and_tune": ("seg_combine",),
+         "serve_requests": ("flash_attention", "gqa_decode_attention"),
+         "train_e2e": ("flash_attention",)}
 
 
 def _phase(name, timings):
@@ -369,10 +409,12 @@ def _back_to_back_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _device_profile(fn, reps: int) -> tuple[float, int, float]:
+def _device_profile(fn, reps: int) -> tuple[float | None, int | None, float]:
     """``fn`` run ``reps`` times under ``torch.profiler``: (device ms per
     run summed over its CUDA kernels, CUDA kernels per run, host wall ms
-    per run)."""
+    per run).  The first two are None where three traces in a row
+    delivered no device event: a reading, never a gate (a count that is
+    checked comes from :func:`_graph_nodes`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -391,8 +433,47 @@ def _device_profile(fn, reps: int) -> tuple[float, int, float]:
         if kernels:
             break
         print("   (torch.profiler delivered no device event; tracing again)")
+    else:
+        return None, None, wall * 1e3 / reps
     dev_us = sum(e.time_range.elapsed_us() for e in kernels)
     return dev_us / 1e3 / reps, round(len(kernels) / reps), wall * 1e3 / reps
+
+
+def _shown(x, spec: str = ".4f") -> str:
+    """A profiler reading formatted, or "not measured" where it is None."""
+    return "not measured" if x is None else format(x, spec)
+
+
+def _graph_nodes(fn) -> tuple[int, int]:
+    """(kernel nodes, all nodes) of a CUDA graph captured from one call of
+    ``fn``: what one call puts on the device, read from the graph itself
+    (libcuda's ``cuGraphGetNodes``), which a profiler trace cannot lose."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    del graph
+    torch.cuda.synchronize()
+    return kinds.count(0), len(kinds)      # 0: CU_GRAPH_NODE_TYPE_KERNEL
 
 
 def _step_profile(fn) -> tuple[float, float, int, list, dict]:
@@ -578,12 +659,12 @@ def _time_seg_combine(label, v, ids, p, torch) -> dict:
     print(f"   {label} N={n} D={d} P={p}, route {kind} ({plan.bins_passes} of "
           f"{plan.passes} passes into shared-memory bins, {plan.atomics} global "
           f"atomics, by reduce_plan): wrapper {k_ms:.4f} ms, "
-          f"device {k_dev:.4f} ms in {k_ops} device ops (profiler; "
+          f"device {_shown(k_dev)} ms in {k_ops} device ops (profiler; "
           f"{k_b2b:.4f} ms a call back to back); index_add_ wrapper "
-          f"{l_ms:.4f} ms, device {l_dev:.4f} ms in {l_ops} device ops "
+          f"{l_ms:.4f} ms, device {_shown(l_dev)} ms in {l_ops} device ops "
           f"(wrapper / index_add_ {k_ms / l_ms:.2f}); plain {p_ms:.4f} ms; "
           f"bound {bound:.6f} ms ({n_bytes} B); device time by route "
-          f"{ {r: round(t, 4) for r, t in routes.items()} }")
+          f"{ {r: _shown(t) for r, t in routes.items()} }")
     return dict(route_taken=kind, passes=plan.passes, bins_passes=plan.bins_passes,
                 atomics=plan.atomics, ms=k_ms, device_ms=k_dev, device_ops=k_ops,
                 back_to_back_ms=k_b2b, plain_ms=p_ms, library_ms=l_ms,
@@ -763,7 +844,7 @@ def _phase7_attention(timings, builds, torch, np):
             print(f"   flash {label} {shape[:6]} bf16: kernel {k_ms:.4f} ms "
                   f"(device {k_dev:.4f} ms, back to back, {tflops:.1f} TFLOP/s, "
                   f"{100 * bound / k_dev:.0f} % of the bound), "
-                  f"plain {p_ms:.4f} ms (device {p_dev:.4f} ms in {p_n} kernels), "
+                  f"plain {p_ms:.4f} ms (device {_shown(p_dev)} ms in {p_n} kernels), "
                   f"{sdpa_what} {l_ms:.4f} ms (kernel / SDPA "
                   f"{k_ms / l_ms:.2f}); bound {bound:.4f} ms ({by}: {n_bytes} B, "
                   f"{flop:.4g} FLOP)")
@@ -811,16 +892,20 @@ def _phase7_attention(timings, builds, torch, np):
             k_dev = _back_to_back_ms(call)
             warm_dev = _back_to_back_ms(lambda: gqa_decode_attention(
                 q, kc, vc, sp, p, layout=decode_layout(shape), **kw))
-            prof_dev, k_n, _ = _device_profile(call, 20)
-            assert k_n == 1, f"decode ran {k_n} device kernels a call, not 1"
+            prof_dev = _device_profile(call, 20)[0]
+            k_n, n_nodes = _graph_nodes(lambda: gqa_decode_attention(
+                q, kc, vc, sp, p, layout=decode_layout(shape), **kw))
+            assert k_n == n_nodes == 1, \
+                f"a decode call put {n_nodes} nodes ({k_n} kernels) on the device, not 1"
             p_ms = _median_ms(plain)
             p_dev, p_n, _ = _device_profile(plain, 20)
             l_ms = _median_ms(sdpa)
             print(f"   decode {label} {shape[:6]} bf16, L2 cold ({n_copies} cache "
                   f"copies in turn): kernel {k_ms:.4f} ms (device {k_dev:.4f} ms "
                   f"back to back, {100 * bound / k_dev:.0f} % of the bound; profiler "
-                  f"{prof_dev:.4f} ms in {k_n} kernel; warm in L2 {warm_dev:.4f} ms "
-                  f"back to back), plain {p_ms:.4f} ms (device {p_dev:.4f} ms in "
+                  f"{_shown(prof_dev)} ms, {k_n} kernel a call in its CUDA graph; warm "
+                  f"in L2 {warm_dev:.4f} ms back to back), plain {p_ms:.4f} ms (device "
+                  f"{_shown(p_dev)} ms in "
                   f"{p_n} kernels), SDPA over {live} slots without softcap "
                   f"{l_ms:.4f} ms (kernel / SDPA {k_ms / l_ms:.2f}); bound "
                   f"{bound:.4f} ms ({by}: {n_bytes} B, {flop:.4g} FLOP)")
@@ -1197,10 +1282,10 @@ def _phase9_analysis(timings, builds, torch):
         bound = n_bytes / HBM_BYTES_PER_S * 1e3         # no arithmetic
         print(f"   fixture_copy {tuple(x.shape)} f32 tile {tile}: kernel "
               f"{k_ms:.4f} ms (device {k_dev:.4f} ms back to back; "
-              f"torch.profiler {k_prof:.4f} ms in {k_ops} device op(s) a call; "
+              f"torch.profiler {_shown(k_prof)} ms in {k_ops} device op(s) a call; "
               f"{100 * bound / k_dev:.1f} % of the bound), plain (x.clone()) "
               f"{p_ms:.4f} ms, out.copy_(x) {l_ms:.4f} ms (device {l_dev:.4f} ms "
-              f"back to back; profiler {l_prof:.4f} ms in {l_ops}); kernel / copy_ "
+              f"back to back; profiler {_shown(l_prof)} ms in {l_ops}); kernel / copy_ "
               f"{k_ms / l_ms:.3f}; bound "
               f"{bound:.4f} ms (bytes: {n_bytes} B); max |kernel - x| {max_err}")
         copy.update(max_abs_err=max_err, ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
@@ -1606,7 +1691,8 @@ def _phase11_cluster_cloud(timings, search, torch, np) -> dict:
         steps = sum(ns for _, ns in groups)
         # one batch under the profiler: kernels a round, device time, idle
         p_dev, p_k, p_wall = _device_profile(planner_batch, 1)
-        per_round = p_k / rounds
+        per_round = None if p_k is None else p_k / rounds
+        idle = None if p_dev is None else 1 - p_dev / p_wall
         t0 = time.perf_counter()
         n_des = 6
         for i in range(n_des):
@@ -1624,9 +1710,10 @@ def _phase11_cluster_cloud(timings, search, torch, np) -> dict:
               f"ratio {vec_rate / des_rate:.1f} (a reading, not a gate)")
         print(f"   rounds run {rounds} against n_steps {steps} "
               f"({[ns for _, ns in groups]}); one batch under torch.profiler: "
-              f"{p_wall:.1f} ms wall, {p_dev:.1f} ms of device time in {p_k} "
-              f"CUDA kernels over its {rounds} rounds ({per_round:.1f} kernels "
-              f"a round), device idle {100 * (1 - p_dev / p_wall):.1f} %")
+              f"{p_wall:.1f} ms wall, {_shown(p_dev, '.1f')} ms of device time in "
+              f"{p_k} CUDA kernels over its {rounds} rounds ({_shown(per_round, '.1f')} "
+              f"kernels a round), device idle "
+              f"{_shown(None if idle is None else 100 * idle, '.1f')} %")
 
         # -- the policy mix: all four schedulers, heterogeneous fleets --
         pols = rng.choice([0.0, 1.0, 2.0, 3.0], b)
@@ -1796,7 +1883,7 @@ def _phase11_cluster_cloud(timings, search, torch, np) -> dict:
              scenarios_per_s=vec_rate, des_scenarios_per_s=des_rate,
              ratio=vec_rate / des_rate, rounds=rounds, n_steps=steps,
              profiled_wall_ms=p_wall, device_ms=p_dev, kernels=p_k,
-             kernels_per_round=per_round, idle_share=1 - p_dev / p_wall,
+             kernels_per_round=per_round, idle_share=idle,
              mix_s=mix_s, cpu_subset_worst_rel=worst, tune_s=tune_s,
              tune_best_p95_s=best.cost, tune_des_p95_s=exact,
              cloud_batch_s=cloud_s, pareto=int(front.sum()),
@@ -2321,6 +2408,321 @@ def _train_stablelm(flash, torch, np):
     return rec
 
 
+def _gb_per_s(nbytes, seconds) -> float:
+    return nbytes / 1e9 / max(seconds, 1e-9)
+
+
+def _trainer_full_depth(tmp, flash, torch, np) -> dict:
+    """14(a): stablelm-1.6b at full width and depth through
+    ``launch.train.main``: 3 steps, the final save, then a fresh run that
+    restores it, takes no step and holds the saved parameters bit for
+    bit."""
+    from repro_torch.kernels import flash_attention, gqa_decode_attention
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import micro_depth
+
+    n_micro = micro_depth(TRAIN_BATCH, TRAIN_SEQ, 1)
+    assert n_micro == 2, n_micro
+    ckpt = str(tmp / "full")
+    argv = ["--arch", "stablelm-1.6b", "--steps", str(TRAINER_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--micro", str(n_micro),
+            "--ckpt-dir", ckpt, "--ckpt-every", "0", "--log-every", "1",
+            "--log", str(tmp / "full.jsonl")]
+    _zero_attention_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.main(argv + ["--resume", "none"])
+    wall = time.perf_counter() - t0
+    n_flash, by_variant = flash_attention.launches, dict(flash_attention.launches_by_variant)
+    n_decode = gqa_decode_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    trainer = out["trainer"]
+    L = len(trainer.model.layers)
+    losses = [r["loss"] for r in out["log"]]
+    step_s = [r["time_s"] for r in out["log"]]
+    save = dict(trainer.ckpt.stats["save"])
+    want = TRAINER_STEPS * n_micro * L * 2
+    print(f"   launch.train.main, stablelm-1.6b, {L} layers at full width, fp32 master "
+          f"weights, bf16 compute, {TRAIN_BATCH} x {TRAIN_SEQ} in {n_micro} microbatches, "
+          f"{TRAINER_STEPS} steps on a mesh of {trainer.mesh_shape.shape}: losses "
+          f"{[round(x, 4) for x in losses]}; step {[round(t, 3) for t in step_s]} s "
+          f"({TRAIN_BATCH * TRAIN_SEQ / float(np.median(step_s)):,.0f} tokens/s at the "
+          f"median); peak device memory {peak:.2f} GB; flash launches {n_flash} (want "
+          f"{TRAINER_STEPS} x {n_micro} x {L} x 2, forward and recomputation) by kernel "
+          f"{by_variant}, decode {n_decode}; {wall:.1f} s in all")
+    print(f"   its final save (step {save['step']}): {save['bytes'] / 1e9:.2f} GB, host "
+          f"copy {save['snapshot_s']:.2f} s, files + CRCs {save['write_s']:.2f} s "
+          f"({_gb_per_s(save['bytes'], save['snapshot_s'] + save['write_s']):.2f} GB/s)")
+    assert all(np.isfinite(losses)) and len(losses) == TRAINER_STEPS, losses
+    assert n_flash == want and by_variant["bf16_wgmma"] == want, (n_flash, by_variant)
+    assert n_decode == 0
+    assert trainer.ckpt.all_steps() == [TRAINER_STEPS - 1]
+    flash["launches_by_path"]["stablelm-1.6b Trainer (launch.train)"] = n_flash
+    saved = out["params"]
+    del out, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _zero_attention_counts()
+    t0 = time.perf_counter()
+    again = train.main(argv + ["--resume", "auto"])
+    r_wall = time.perf_counter() - t0
+    restore = dict(again["trainer"].ckpt.stats["restore"])
+    assert again["trainer"].metrics_log == [] and flash_attention.launches == 0
+    assert restore["step"] == TRAINER_STEPS - 1
+    assert set(again["params"]) == set(saved)
+    for k, p in saved.items():
+        assert torch.equal(again["params"][k], p), k
+    print(f"   a fresh launch.train.main --resume auto: restored step {restore['step']} "
+          f"({restore['bytes'] / 1e9:.2f} GB in {restore['seconds']:.2f} s, "
+          f"{_gb_per_s(restore['bytes'], restore['seconds']):.2f} GB/s: files, CRCs, "
+          f"copies to the card), took no step ({r_wall:.1f} s in all); its "
+          f"{len(saved)} parameters equal the saved ones bit for bit")
+    del again, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt)
+    return {"losses": losses, "step_s": step_s, "peak_gb": peak, "flash_launches": n_flash,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(np.median(step_s)),
+            "save": save, "restore": restore, "wall_s": wall, "restore_wall_s": r_wall}
+
+
+def _trainer_kill_and_resume(tmp, flash, torch, np) -> dict:
+    """14(b): full width, depth cut to RESUME_LAYERS: RESUME_STEPS steps
+    uninterrupted against a crash at step 2 after a save at step 1,
+    resumed; under deterministic algorithms, parameters and final loss
+    equal bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = get_config("stablelm-1.6b").replace(n_layers=RESUME_LAYERS)
+
+    def tcfg(d, **kw):
+        return TrainerConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             n_microbatches=2, ckpt_dir=str(tmp / d), ckpt_every=2,
+                             log_every=1, opt=AdamWConfig(total_steps=RESUME_STEPS), **kw)
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    _zero_attention_counts()
+    try:
+        t0 = time.perf_counter()
+        ref_tr = Trainer(cfg, tcfg("uninterrupted"))
+        ref = ref_tr.run(RESUME_STEPS, resume=False)
+        t_ref = time.perf_counter() - t0
+        step_s = [r["time_s"] for r in ref_tr.metrics_log]
+        n_params = sum(p.numel() for p in ref["params"].values())
+        shutil.rmtree(tmp / "uninterrupted")
+        crashy = Trainer(cfg, tcfg("crash", fail_at_step=2))
+        try:
+            crashy.run(RESUME_STEPS, resume=False)
+        except RuntimeError as e:
+            assert "injected failure at step 2" in str(e), e
+        else:
+            raise AssertionError("the injected failure did not happen")
+        assert crashy.ckpt.all_steps() == [1]
+        save = dict(crashy.ckpt.stats["save"])
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, tcfg("crash"))
+        resumed = tr.run(RESUME_STEPS, resume=True)
+        t_res = time.perf_counter() - t0
+        restore = dict(tr.ckpt.stats["restore"])
+    finally:
+        torch.use_deterministic_algorithms(was)
+    n_flash = flash_attention.launches
+    want = (RESUME_STEPS + 3 + (RESUME_STEPS - 2)) * 2 * RESUME_LAYERS * 2
+    assert [r["step"] for r in tr.metrics_log] == list(range(2, RESUME_STEPS))
+    assert restore["step"] == 1
+    same = [torch.equal(resumed["params"][k], p) for k, p in ref["params"].items()]
+    print(f"   reduced: stablelm-1.6b at full width, depth cut to {RESUME_LAYERS} layers "
+          f"({n_params / 1e9:.3f} B parameters; {save['bytes'] / 1e9:.2f} GB a save), "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, deterministic algorithms: {RESUME_STEPS} steps "
+          f"uninterrupted ({[round(t, 3) for t in step_s]} s a step, {t_ref:.1f} s with "
+          f"its saves), then a crash at step 2 after the save at step "
+          f"1, resumed ({restore['bytes'] / 1e9:.2f} GB restored in "
+          f"{restore['seconds']:.2f} s) to step {RESUME_STEPS - 1} ({t_res:.1f} s): "
+          f"final loss {resumed['final_loss']!r} against {ref['final_loss']!r}; "
+          f"{sum(same)} of {len(same)} parameters equal bit for bit; flash launches "
+          f"{n_flash}")
+    assert resumed["final_loss"] == ref["final_loss"]
+    assert all(same)
+    assert n_flash == want, (n_flash, want)
+    flash["launches_by_path"][f"stablelm-1.6b {RESUME_LAYERS}-layer kill and resume"] = n_flash
+    final = resumed["final_loss"]
+    del ref, ref_tr, resumed, tr, crashy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"n_params": n_params, "save": save, "restore": restore,
+            "final_loss": final, "step_s": step_s,
+            "uninterrupted_s": t_ref, "resumed_s": t_res, "flash_launches": n_flash}
+
+
+def _phase14_trainer(timings, flash, torch, np) -> dict:
+    """Phase 14: the Trainer through launch.train at full width and depth,
+    and kill-and-resume bit for bit at full width."""
+    with _phase("14_trainer", timings):
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+        du = shutil.disk_usage(tmp)
+        print(f"   checkpoints under {tmp}: {du.free / 1e9:.1f} GB free of "
+              f"{du.total / 1e9:.1f} GB")
+        try:
+            out = {"full_depth": _trainer_full_depth(tmp, flash, torch, np),
+                   "kill_and_resume": _trainer_kill_and_resume(tmp, flash, torch, np)}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    flash["launches"] = sum(flash["launches_by_path"].values())
+    return out
+
+
+@contextlib.contextmanager
+def _checked_kernels(torch, checks):
+    """Within the context, the call sites through which the models and the
+    engine reach the three kernels hold every launch against the kernel's
+    plain version on the same inputs, at the kernel's tolerance, and
+    record the check in ``checks`` (kernel -> checks, max |kernel -
+    plain|, geometries).  A call made while a CUDA graph is captured runs
+    unchecked: it cannot synchronise."""
+    import repro_torch.mapreduce.engine as engine
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels.decode_attention import decode_attention_torch
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.kernels.seg_combine import seg_combine_torch
+
+    real = {"seg": engine.seg_combine, "flash": attention._flash_kernel,
+            "decode": attention._decode_kernel}
+
+    def hold(name, got, want, geometry, rtol, atol):
+        got = got.detach().float()
+        torch.testing.assert_close(got, want.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{name} at {geometry}: {m}")
+        rec = checks.setdefault(name, {"checks": 0, "max_abs_err": 0.0,
+                                       "geometries": set()})
+        rec["checks"] += 1
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 float((got - want.float()).abs().max()))
+        rec["geometries"].add(geometry)
+
+    def checking(t):
+        return t.is_cuda and not torch.cuda.is_current_stream_capturing()
+
+    def seg(values, part_ids, num_parts):
+        out = real["seg"](values, part_ids, num_parts)
+        if checking(values):
+            hold("seg_combine", out, seg_combine_torch(values, part_ids, num_parts),
+                 (*values.shape, int(num_parts), str(values.dtype)), RTOL, ATOL)
+        return out
+
+    def flash(q, k, v, **kw):
+        out = real["flash"](q, k, v, **kw)
+        if checking(q):
+            tol = ATTN_TOL[str(q.dtype).removeprefix("torch.")]
+            with torch.no_grad():
+                want = flash_attention_torch(q.detach(), k.detach(), v.detach(), **kw)
+            hold("flash_attention", out, want,
+                 (*q.shape, k.shape[1], k.shape[2], *kw.values(), str(q.dtype)),
+                 tol, tol)
+        return out
+
+    def decode(q, k_cache, v_cache, slot_pos, pos, *, layout, **kw):
+        out = real["decode"](q, k_cache, v_cache, slot_pos, pos, layout=layout, **kw)
+        if checking(q):
+            B, H, _, hd = q.shape
+            KV = k_cache.shape[1]
+            tol = ATTN_TOL[str(q.dtype).removeprefix("torch.")]
+            want = decode_attention_torch(q.view(B, KV, H // KV, hd), k_cache, v_cache,
+                                          slot_pos, pos, **kw).view(B, H, 1, hd)
+            hold("decode_attention", out, want,
+                 (B, H, KV, k_cache.shape[2], hd, layout, *kw.values(), str(q.dtype)),
+                 tol, tol)
+        return out
+
+    engine.seg_combine, attention._flash_kernel, attention._decode_kernel = \
+        seg, flash, decode
+    try:
+        yield checks
+    finally:
+        engine.seg_combine, attention._flash_kernel, attention._decode_kernel = \
+            real["seg"], real["flash"], real["decode"]
+
+
+def _phase15_twins(timings, seg, flash, decode, torch, np) -> dict:
+    """Phase 15: each example twin's ``main(["--smoke"])`` on the card,
+    in-process; the kernel counters its path reaches must move.  Each twin
+    that reaches a kernel then runs again with every launch held against
+    the plain version at the twin's own shapes (and ``torch_serve_requests``'
+    graphed greedy batch is replayed eagerly, checked, to the same
+    tokens)."""
+    from repro_torch.kernels import flash_attention, gqa_decode_attention, seg_combine
+
+    counters = {"seg_combine": seg_combine, "flash_attention": flash_attention,
+                "gqa_decode_attention": gqa_decode_attention}
+    out = {}
+    with _phase("15_example_twins", timings):
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_twins_"))
+        try:
+            for name, reached in TWINS.items():
+                for c in counters.values():
+                    c.launches = 0
+                    if hasattr(c, "launches_by_variant"):
+                        c.launches_by_variant = dict.fromkeys(c.launches_by_variant, 0)
+                def argv(run):
+                    if name != "train_e2e":
+                        return ["--smoke"]
+                    return ["--smoke", "--ckpt-dir", str(tmp / run),
+                            "--log", str(tmp / f"{run}.jsonl")]
+                main = runpy.run_path(str(ROOT / "examples" / f"torch_{name}.py"),
+                                      run_name="example")["main"]
+                t0 = time.perf_counter()
+                res = main(argv("e2e"))
+                secs = time.perf_counter() - t0
+                launches = {k: c.launches for k, c in counters.items()}
+                print(f"   examples/torch_{name}.py --smoke: {secs:.2f} s; launches "
+                      f"{launches}")
+                for k in reached:
+                    assert launches[k] > 0, f"torch_{name} did not launch {k}"
+                out[name] = {"seconds": secs, "launches": launches}
+                if name == "train_e2e":
+                    assert res["equal"], "the resumed run differs from the uninterrupted one"
+                elif name == "serve_requests":
+                    assert res["batch"]["output"].shape[1] == res["new_tokens"]
+                    assert all(len(r.generated) > 0 for r in res["done"])
+                if not reached:
+                    continue
+                checks = {}
+                with _checked_kernels(torch, checks):
+                    again = main(argv("e2e_checked"))
+                    if name == "serve_requests":
+                        eager = again["server"].throughput_batch(
+                            again["prompts"], new_tokens=again["new_tokens"],
+                            cuda_graph=False)
+                        assert np.array_equal(eager["output"], again["batch"]["output"]), \
+                            "the graphed greedy batch differs from the eager one"
+                kernel_names = {"seg_combine": "seg_combine",
+                                "flash_attention": "flash_attention",
+                                "gqa_decode_attention": "decode_attention"}
+                for k in reached:
+                    assert kernel_names[k] in checks, f"torch_{name}: no {k} launch checked"
+                out[name]["checked"] = {
+                    k: {"checks": r["checks"], "max_abs_err": r["max_abs_err"],
+                        "geometries": len(r["geometries"])} for k, r in checks.items()}
+                print(f"   torch_{name} again, every launch against the plain "
+                      f"version: {out[name]['checked']}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    for name, rec in out.items():
+        if rec["launches"]["flash_attention"]:
+            flash["launches_by_path"][f"torch_{name}"] = rec["launches"]["flash_attention"]
+        if rec["launches"]["gqa_decode_attention"]:
+            decode["launches_by_path"][f"torch_{name}"] = \
+                rec["launches"]["gqa_decode_attention"]
+    for rec in (flash, decode):
+        rec["launches"] = sum(rec["launches_by_path"].values())
+    seg["twins_launches"] = sum(r["launches"]["seg_combine"] for r in out.values())
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2555,8 +2957,9 @@ def main() -> int:
         block = space_block(space, 0, ev.chunk)
         c_dev, c_n, c_wall = _device_profile(lambda: ev.chunk_topk(block, 10), 3)
         print(f"   one chunk_topk of {ev.chunk} rows: {c_wall:.3f} ms wall, "
-              f"{c_n} CUDA kernels, {c_dev:.3f} ms of device time "
-              f"(device idle {100 * (1 - c_dev / c_wall):.1f} %)")
+              f"{c_n} CUDA kernels, {_shown(c_dev, '.3f')} ms of device time "
+              f"(device idle "
+              f"{_shown(None if c_dev is None else 100 * (1 - c_dev / c_wall), '.1f')} %)")
         search_topk(ev, space, k=10)                   # warm-up
         tops = [search_topk(ev, space, k=10) for _ in range(5)]
         top = tops[0]
@@ -2666,9 +3069,11 @@ def main() -> int:
         timings, (ev, space, hp, stats, costs), torch, np)
     readings["dense"] = _phase12_dense(timings, flash, decode, torch, np)
     readings["families"] = _phase13_families(timings, flash, decode, torch, np)
+    readings["trainer"] = _phase14_trainer(timings, flash, torch, np)
+    readings["twins"] = _phase15_twins(timings, kernel, flash, decode, torch, np)
     kernel["main_path_launches"] = kernel["launches"]
     kernel["distributed_launches"] = readings["distributed"]["launches"]
-    kernel["launches"] += kernel["distributed_launches"]
+    kernel["launches"] += kernel["distributed_launches"] + kernel["twins_launches"]
 
     print(json.dumps({"readings": readings}))
     print(json.dumps({"phases_s": timings}))

@@ -11,6 +11,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
+from repro_torch.compat import resolve_device
+
 from ..absint import Analysis, LoopGraphs, analyze_graph, analyze_loop
 from ..targets import TraceTarget, Traced, iter_targets, trace_target
 
@@ -21,12 +23,16 @@ __all__ = ["CHECKERS", "AnalysisContext"]
 class AnalysisContext:
     """Shared state for one analysis run: targets are traced on ``device``
     (and abstractly interpreted) once, then reused by every graph-level
-    checker."""
+    checker.  ``device=None`` means the CUDA card, which raises without one
+    (``compat.resolve_device``); pass ``device="cpu"`` for the CPU."""
 
     targets: list[TraceTarget] = field(default_factory=iter_targets)
-    device: Any = "cpu"
+    device: Any = None
     _traced: dict = field(default_factory=dict)
     _analyzed: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
 
     def traced(self, t: TraceTarget) -> Traced:
         if t.name not in self._traced:

@@ -3,7 +3,8 @@
 ``get_config(name)`` resolves an ``--arch`` id to its exact public config,
 as the reference's ``repro.configs.get_config`` does; ``ARCHS`` lists all
 ten architectures, in the reference's order.  The shape cells of
-``repro/configs/shapes.py`` belong to the dry-run slice.
+``repro/configs/shapes.py`` and their input specifications are
+:mod:`repro_torch.configs.shapes`.
 """
 
 from __future__ import annotations

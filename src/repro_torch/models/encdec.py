@@ -37,6 +37,7 @@ from .attention import (
     init_kv_cache,
     project_heads,
 )
+from .act_sharding import constrain
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, rope_frequencies, softcap
 from .lm import _norm, attention_weights, mlp_weights
@@ -60,9 +61,9 @@ class EncoderLayer(nn.Module):
         h = apply_norm(self.ln1, x, cfg.norm_type, cfg.norm_eps)
         h, _ = attn_block_prefill(self.attn, h, inv_freq, kind="encoder",
                                   window=cfg.window_size, logit_cap=None)
-        x = x + h
+        x = constrain(x + h, "residual")
         h = apply_norm(self.ln2, x, cfg.norm_type, cfg.norm_eps)
-        return x + apply_mlp(self.mlp, h, cfg.mlp_type)
+        return constrain(x + apply_mlp(self.mlp, h, cfg.mlp_type), "residual")
 
 
 class CrossDecoderLayer(nn.Module):
@@ -96,13 +97,14 @@ class CrossDecoderLayer(nn.Module):
         h, self_cache = attn_block_prefill(
             self.self, self._norm("ln1", x), inv_freq, kind="attn",
             window=cfg.window_size, logit_cap=None, cache_size=cache_len)
-        x = x + h
+        x = constrain(x + h, "residual")
         k, v = self.cross_kv(enc_out)
         h, _ = attn_block_prefill(self.cross, self._norm("ln_x", x), inv_freq,
                                   kind="cross", window=cfg.window_size,
                                   logit_cap=None, kv_override=(k, v))
-        x = x + h
-        x = x + apply_mlp(self.mlp, self._norm("ln2", x), cfg.mlp_type)
+        x = constrain(x + h, "residual")
+        x = constrain(x + apply_mlp(self.mlp, self._norm("ln2", x), cfg.mlp_type),
+                      "residual")
         cross_cache = {"k": k, "v": v} if cache_len is not None else None
         return x, self_cache, cross_cache
 

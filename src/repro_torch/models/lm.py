@@ -34,7 +34,8 @@ recurrent blocks' parameters that the reference uses in fp32 (the SSM's
 biases and ``lam``), stay fp32.  A training model is built with
 ``param_dtype=torch.float32``: fp32 master weights, cast to ``cfg.dtype`` at
 each use, so gradients and AdamW state are fp32, as in the reference.  The
-reference's ``act_sharding.constrain`` has no counterpart on one device.
+residual stream and the logits pass through ``act_sharding.constrain`` at
+the reference's sites (the identity while no policy is installed).
 Encoder-decoder configs are :class:`repro_torch.models.encdec.EncDec`.
 """
 
@@ -53,6 +54,7 @@ from .attention import (
     full_slot_positions,
     ring_slot_positions,
 )
+from .act_sharding import constrain
 from .config import ModelConfig
 from .layers import ParamTree, apply_mlp, apply_norm, rope_frequencies, softcap
 from .moe import apply_moe, moe_spec
@@ -164,7 +166,7 @@ class DecoderLayer(nn.Module):
         """x + the mixer's output, then the FFN's residual; returns (x, aux)."""
         if self.cfg.use_post_norm:
             h = self._apply_norm("post1", h)
-        x = x + h
+        x = constrain(x + h, "residual")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.ffn == "none":
             return x, aux
@@ -175,7 +177,7 @@ class DecoderLayer(nn.Module):
             h = apply_mlp(self.mlp, h, self.cfg.mlp_type)
         if self.cfg.use_post_norm:
             h = self._apply_norm("post2", h)
-        return x + h, aux
+        return constrain(x + h, "residual"), aux
 
     def train_forward(self, x, inv_freq):
         """The layer without caches (what ``torch.utils.checkpoint`` reruns),
@@ -276,14 +278,14 @@ class LM(nn.Module):
             x = x * self.embed_scale
         if extra_embeds is not None:
             x = torch.cat([extra_embeds.to(self.compute_dtype), x], dim=1)
-        return x
+        return constrain(x, "residual")
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             logits = x @ self.embed.to(x.dtype).T
         else:
             logits = x @ self.lm_head.to(x.dtype)
-        return softcap(logits, self.cfg.final_logit_softcap)
+        return constrain(softcap(logits, self.cfg.final_logit_softcap), "logits")
 
     def forward(self, tokens: torch.Tensor, cache_len: int | None = None,
                 logits_slice: int | None = None, *,

@@ -18,11 +18,13 @@ What the port reads today:
   ``"einsum"`` or ``"gather"``.
 
 The other fields keep the reference's defaults, and :func:`set_flags`
-refuses any other value of them, so that no setting silently does nothing:
-``mesh_factor``, ``bf16_collectives`` and ``moe_impl="shardmap"`` wait for
-the mesh and sharding rules (``ROADMAP.md`` queue 1 item 18).
-``cache_update`` selects nothing: the port's decode step always updates its
-caches in place.
+refuses any other value of them, so that no setting silently does nothing
+(:data:`WAITS` says why for each): ``mesh_factor`` is read only by the
+reference's dry-run (``ROADMAP.md`` queue 1 item 20); ``moe_impl=
+"shardmap"`` is expert-parallel compute over the ``model`` axis (item 24);
+no code of the reference reads ``bf16_collectives``; ``cache_update``
+selects nothing, since the port's decode step always updates its caches in
+place.
 """
 
 from __future__ import annotations
@@ -69,6 +71,12 @@ _FLAGS = OptFlags()
 READ = ("sharded_loss", "flash_bwd", "n_micro_override", "moe_impl")
 #: the MoE dispatches the port has
 MOE_IMPLS = ("einsum", "gather")
+#: why each unread field must keep its default
+WAITS = {
+    "mesh_factor": "only the dry-run reads it (ROADMAP.md queue 1 item 20)",
+    "bf16_collectives": "no code of the reference reads it",
+    "cache_update": "the port's decode step always updates its caches in place",
+}
 
 
 def set_flags(flags: OptFlags) -> None:
@@ -78,11 +86,13 @@ def set_flags(flags: OptFlags) -> None:
     unread = [f.name for f in fields(OptFlags) if f.name not in READ
               and getattr(flags, f.name) != f.default]
     if unread:
-        raise ValueError(f"OptFlags {unread} are not read by the port yet; "
-                         "leave them at their defaults")
+        why = "; ".join(f"{name}: {WAITS[name]}" for name in unread)
+        raise ValueError(f"OptFlags {unread} are not read by the port; leave "
+                         f"them at their defaults ({why})")
     if flags.moe_impl not in MOE_IMPLS:
         raise ValueError(f"OptFlags moe_impl {flags.moe_impl!r} is not ported "
-                         f"(ROADMAP.md queue 1 item 18); the port has {MOE_IMPLS}")
+                         "(expert-parallel compute over the model axis, ROADMAP.md "
+                         f"queue 1 item 24); the port has {MOE_IMPLS}")
     global _FLAGS
     _FLAGS = flags
 

@@ -44,7 +44,7 @@ from .encdec import EncDec
 from .lm import LM
 from .rglru import lam_init
 
-__all__ = ["from_jax_params", "init", "jax_leaf_names"]
+__all__ = ["empty", "from_jax_params", "init", "jax_leaf_names"]
 
 
 #: parameters set to a constant, by leaf name
@@ -68,8 +68,13 @@ def _std(name: str, shape: tuple) -> float:
     return shape[0] ** -0.5
 
 
-def _model(cfg: ModelConfig, **kw) -> nn.Module:
-    return EncDec(cfg, **kw) if cfg.is_encdec else LM(cfg, **kw)
+def empty(cfg: ModelConfig, *, device=None,
+          param_dtype: torch.dtype | None = None) -> nn.Module:
+    """An :class:`LM` (:class:`EncDec` for an enc-dec config) with
+    uninitialised weights: the shapes to restore a checkpoint into, or, on
+    the ``meta`` device, to read names and shapes from."""
+    kind = EncDec if cfg.is_encdec else LM
+    return kind(cfg, device=device, param_dtype=param_dtype)
 
 
 @torch.no_grad()
@@ -80,7 +85,7 @@ def init(cfg: ModelConfig, generator: torch.Generator, *, device=None,
     card); ``generator`` lives on that device.  The draws are fp32 whatever
     ``param_dtype`` (default ``cfg.dtype``), so one seed gives a bf16
     serving model and an fp32 master copy of the same weights."""
-    model = _model(cfg, device=device, param_dtype=param_dtype)
+    model = empty(cfg, device=device, param_dtype=param_dtype)
     for name, param in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in _CONSTANT:
@@ -148,7 +153,7 @@ def from_jax_params(cfg: ModelConfig, params_np: Mapping, *, device=None,
     parameter of the same shape and every port parameter is filled."""
     if dtype is not None:
         cfg = cfg.replace(dtype=str(dtype).removeprefix("torch."))
-    model = _model(cfg, device=device, param_dtype=param_dtype)
+    model = empty(cfg, device=device, param_dtype=param_dtype)
     flat = jax_leaf_names(cfg, params_np)
     params = dict(model.named_parameters())
     extra, missing = set(flat) - set(params), set(params) - set(flat)

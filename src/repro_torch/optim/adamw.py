@@ -16,7 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "lr_at"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "lr_at"]
 
 
 @dataclass(frozen=True)
@@ -55,7 +55,7 @@ def adamw_init(params: dict[str, torch.Tensor]) -> dict:
     }
 
 
-def _global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
     # the reference flattens the dict in sorted-key order
     sq = [torch.sum(torch.square(grads[k].to(torch.float32))) for k in sorted(grads)]
     return torch.sqrt(torch.sum(torch.stack(sq)))
@@ -66,11 +66,15 @@ def adamw_update(
     state: dict,
     params: dict[str, torch.Tensor],
     cfg: AdamWConfig,
+    *,
+    grad_norm: torch.Tensor | None = None,
 ) -> tuple[dict[str, torch.Tensor], dict, dict]:
     """Returns (new_params, new_state, metrics); nothing is updated in
-    place."""
+    place.  ``grad_norm``: the global norm of the whole gradients, for a
+    caller that updates one rank's shards of them (default: the norm of
+    ``grads``)."""
     count = state["count"] + 1
-    gnorm = _global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_at(cfg, count)
 

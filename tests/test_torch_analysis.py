@@ -521,6 +521,16 @@ def test_run_all_without_a_device_means_the_card(monkeypatch):
         selftest()
 
 
+def test_analysis_context_without_a_device_means_the_card(monkeypatch):
+    import repro_torch.compat as compat
+    from repro_torch.analysis.checkers import AnalysisContext
+
+    assert AnalysisContext(targets=[], device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(compat, "has_cuda", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AnalysisContext(targets=[])
+
+
 def test_mask_contract_checks_the_port_sources():
     from repro_torch.analysis.checkers import mask_contract
 

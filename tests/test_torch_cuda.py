@@ -473,3 +473,64 @@ def test_graphed_decode_steps_equal_eager_ones_per_family(cuda_device, name):
         runs.append((out, dec.logits.float().clone()))
     assert torch.equal(runs[0][0], runs[1][0])
     torch.testing.assert_close(runs[1][1], runs[0][1], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_checkpoint_bf16_round_trip_from_cuda_tensors(cuda_device, tmp_path):
+    # an async save copies to the host before it returns: the in-place
+    # update right after it does not reach the files
+    from repro_torch.checkpoint import CheckpointManager
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {"w": torch.randn((64, 96), generator=g, device=cuda_device).to(torch.bfloat16),
+            "m": torch.randn((5, 7), generator=g, device=cuda_device),
+            "count": torch.tensor(3, dtype=torch.int32, device=cuda_device)}
+    want = {k: v.clone() for k, v in tree.items()}
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(2, tree, blocking=False)
+    tree["w"].add_(1.0)
+    cm.wait()
+    got, manifest = cm.restore(want)
+    assert manifest["step"] == 2
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype
+        assert torch.equal(got[k], v.cpu()), k
+
+
+@pytest.mark.cuda
+def test_trainer_crash_and_resume_bit_for_bit_on_the_card(cuda_device, tmp_path,
+                                                          monkeypatch):
+    # two layers of stablelm-1.6b's smoke config in bf16 (the flash kernel
+    # on wgmma), under deterministic algorithms: 4 steps uninterrupted
+    # against a crash at step 2 after a save at step 1, resumed to 4
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = get_config("stablelm-1.6b").smoke().replace(dtype="bfloat16", n_layers=2)
+
+    def tcfg(d, **kw):
+        return TrainerConfig(global_batch=4, seq_len=128, n_microbatches=2,
+                             ckpt_dir=str(tmp_path / d), ckpt_every=2, log_every=1,
+                             opt=AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                                             total_steps=8), **kw)
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = flash_attention.launches_by_variant.get("bf16_wgmma", 0)
+        ref = Trainer(cfg, tcfg("a")).run(4, resume=False)
+        assert flash_attention.launches_by_variant["bf16_wgmma"] - before == 4 * 2 * 2 * 2
+        with pytest.raises(RuntimeError, match="injected failure at step 2"):
+            Trainer(cfg, tcfg("b", fail_at_step=2)).run(4, resume=False)
+        resumed = Trainer(cfg, tcfg("b")).run(4, resume=True)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert ref["final_loss"] == resumed["final_loss"]
+    for k, p in ref["params"].items():
+        assert p.device.type == "cuda"
+        assert torch.equal(p, resumed["params"][k]), k
+    for part in ("m", "v"):
+        for k, t in ref["opt"][part].items():
+            assert torch.equal(t, resumed["opt"][part][k]), (part, k)

@@ -1,8 +1,10 @@
-"""The port stands alone: no ``repro_torch`` module, and not ``chip_smoke.py``,
-imports ``jax`` or anything of the JAX package ``repro``.
+"""The port stands alone: no ``repro_torch`` module, not ``chip_smoke.py``
+and no ``examples/torch_*.py`` imports ``jax``, ``ml_dtypes`` or anything
+of the JAX package ``repro``.
 
-Each check runs in a fresh interpreter where ``import jax`` fails
-(``sys.modules["jax"] = None``), imports everything, then asserts that no
+Each check runs in a fresh interpreter where ``import jax`` and ``import
+ml_dtypes`` fail (``sys.modules[...] = None``), imports everything (the
+examples as modules, without running their ``main``), then asserts that no
 module named ``repro`` or ``repro.*`` was loaded.
 """
 
@@ -19,8 +21,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 _PROBE = textwrap.dedent("""
-    import importlib, pkgutil, sys
+    import importlib, pathlib, pkgutil, runpy, sys
     sys.modules["jax"] = None
+    sys.modules["ml_dtypes"] = None
     sys.path.insert(0, {src!r})
     sys.path.insert(0, {root!r})
     import repro_torch
@@ -29,6 +32,8 @@ _PROBE = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke
+    for example in sorted(pathlib.Path({root!r}, "examples").glob("torch_*.py")):
+        runpy.run_path(str(example), run_name="example")
     new = {{"repro_torch.api", "repro_torch.calib", "repro_torch.calib.fit",
            "repro_torch.optim", "repro_torch.optim.adamw",
            "repro_torch.core.whatif", "repro_torch.core.tuner",
@@ -48,11 +53,17 @@ _PROBE = textwrap.dedent("""
            "repro_torch.models.encdec", "repro_torch.configs.deepseek_moe_16b",
            "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.configs.mamba2_130m",
            "repro_torch.configs.recurrentgemma_9b",
-           "repro_torch.configs.seamless_m4t_large_v2"}}
+           "repro_torch.configs.seamless_m4t_large_v2",
+           "repro_torch.configs.shapes", "repro_torch.models.act_sharding",
+           "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+           "repro_torch.launch.train", "repro_torch.checkpoint",
+           "repro_torch.checkpoint.manager", "repro_torch.runtime.stragglers",
+           "repro_torch.runtime.crosspod", "repro_torch.runtime.train_loop",
+           "repro_torch.optim.compress"}}
     assert new <= set(names), sorted(new - set(names))
-    bad = sorted(m for m in sys.modules
-                 if m == "repro" or m.startswith("repro.") or m == "jaxlib"
-                 or m.startswith("jax."))
+    bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+                 m == "repro" or m.startswith("repro.") or m == "jaxlib"
+                 or m.startswith("jax.") or m.startswith("ml_dtypes")))
     assert not bad, bad
     print(len(names))
 """)
@@ -80,9 +91,10 @@ def _imported_roots(path: Path) -> set[str]:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_source_names_jax_or_repro_in_an_import(path):
     roots = _imported_roots(path)
-    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}, roots

@@ -220,5 +220,5 @@ def test_moe_grads_match_reference():
 def test_set_flags_takes_both_dispatches_and_refuses_shardmap():
     for impl in ("einsum", "gather"):
         set_flags(OptFlags(moe_impl=impl))
-    with pytest.raises(ValueError, match="item 18"):
+    with pytest.raises(ValueError, match="item 24"):
         set_flags(OptFlags(moe_impl="shardmap"))
