@@ -9,8 +9,9 @@ records, ``io.sort.mb`` 100, so each map task spills 262,144-pair buffers),
 the LM serving path at the published width and depth of all ten configs
 (dense, MoE, SSM, RG-LRU hybrid, vision and enc-dec), LM training at
 stablelm-1.6b's, the static analyzer over the port's job model,
-wave rollout and kernel launches, and the capacity planner with cloud
-provisioning at the reference benchmarks' full settings:
+wave rollout and kernel launches, the capacity planner with cloud
+provisioning at the reference benchmarks' full settings, and the step
+model and dry-run held against the card's own step times:
 
   0. print the card (``nvidia-smi``) and build the five CUDA sources
      (``seg_combine``, ``flash_attention_wgmma`` (bf16) and
@@ -161,7 +162,7 @@ provisioning at the reference benchmarks' full settings:
      (4 steps uninterrupted against a crash at step 2 after the save at
      step 1, resumed; parameters and final loss equal).  Checkpoints go
      to a temporary directory, deleted after each check;
- 15. run the six example twins of the main path (``examples/torch_*.py``)
+ 15. run the seven example twins (``examples/torch_*.py``)
      with ``--smoke`` in process, each one's seconds, the kernel counters
      each path reaches moving (``seg_combine`` for the MapReduce twins,
      flash and decode for ``torch_serve_requests``, flash for
@@ -169,7 +170,21 @@ provisioning at the reference benchmarks' full settings:
      one); then each twin that reaches a kernel again, with every launch
      held against the kernel's plain version at the twin's own shapes,
      and ``torch_serve_requests``' graphed greedy batch replayed eagerly
-     to the same tokens.
+     to the same tokens;
+ 16. the serving step factories (``launch/steps.py::make_prefill_step`` /
+     ``make_decode_step``) at full width through the kernels: gemma2-9b
+     (B 4 x 512, then 16 steps) and seamless-m4t-large-v2 (4 x 1,024
+     frames, a 256-token prompt, 16 steps), logits equal bit for bit to
+     ``prefill`` / ``decode_step`` called directly, every launch held
+     against the plain version; the step model (``core/tpu_model.py``)
+     with the H100's published rates at dp = tp = 1 beside the step times
+     phases 8, 12 and 13 measured (stablelm-1.6b's training step, gemma2-9b's
+     prefill and graphed step, the nine other configs' graphed steps):
+     terms, measured / predicted, nothing fitted; the dry-run
+     (``launch/dryrun.py``, no card) at one device for three of those
+     cells, whose argument bytes must fit under the card's measured peak,
+     gemma2-9b ``train_4k`` on the 256-rank production mesh, and
+     ``tune_tpu``'s top 10 against a full sort.
 
 Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
@@ -192,9 +207,11 @@ layers x 1 prefill (28, 48, 0, 12; seamless 72: 24 encoder, 24 self, 24
 cross) and ``gqa_decode_attention`` exactly those x decode steps (seamless
 48 a step), over phase 14's Trainer ``flash_attention`` exactly 3 steps x 2
 microbatches x 24 layers x 2 (all ``bf16_wgmma``) and over its
-kill-and-resume (4 + 3 + 2 steps) x 2 x 2 x 2, and over each twin of phase
-15 every counter its path reaches (> 0), each added to its kernel's
-count.  Before the
+kill-and-resume (4 + 3 + 2 steps) x 2 x 2 x 2, over each twin of phase
+15 every counter its path reaches (> 0), and over each step-factory run of
+phase 16 ``flash_attention`` exactly its attention layers (gemma2-9b 42,
+seamless 72) and ``gqa_decode_attention`` exactly 42 and 48 a step, each
+added to its kernel's count.  Before the
 last line it prints one ``{"kernels": [...]}`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -340,7 +357,7 @@ RESUME_LAYERS, RESUME_STEPS = 2, 4  # phase 14(b): the kill-and-resume cut
 TWINS = {"quickstart": ("seg_combine",), "job_tuning": ("seg_combine",),
          "phase_whatif": (), "calibrate_and_tune": ("seg_combine",),
          "serve_requests": ("flash_attention", "gqa_decode_attention"),
-         "train_e2e": ("flash_attention",)}
+         "train_e2e": ("flash_attention",), "tpu_tuning": ()}
 
 
 def _phase(name, timings):
@@ -1042,6 +1059,7 @@ def _phase8_serving(timings, flash, decode, torch, np):
               f"{gen_s:.2f} s, latencies "
               f"{[round(r.latency_s, 3) for r in reqs]} s")
         print(f"   peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        readings = {"prefill_ms": runs["graphed 1"]["prefill_s"] * 1e3}
 
         toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
         step = {}
@@ -1106,6 +1124,7 @@ def _phase8_serving(timings, flash, decode, torch, np):
               f"between CUDA events, {host_ms:.3f} ms a step on the host clock; "
               f"graph pool: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         decode["graph_step_event_ms"] = ev[0].elapsed_time(ev[1]) / 10
+        readings["graph_step_event_ms"] = decode["graph_step_event_ms"]
         del step, eager_dec, graph_dec
 
         attention.set_attention_impl("torch")
@@ -1166,6 +1185,7 @@ def _phase8_serving(timings, flash, decode, torch, np):
                         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
             del model
             torch.cuda.empty_cache()
+    return readings
 
 
 def _phase9_analysis(timings, builds, torch):
@@ -2723,6 +2743,232 @@ def _phase15_twins(timings, seg, flash, decode, torch, np) -> dict:
     return out
 
 
+# phase 16 (slice 6): the cells the step model and the dry-run are held on
+STEP_MODEL_DECODES = ("starcoder2-7b", "granite-3-8b", "stablelm-1.6b", "internvl2-26b",
+                      "deepseek-moe-16b", "moonshot-v1-16b-a3b", "mamba2-130m",
+                      "recurrentgemma-9b", "seamless-m4t-large-v2")
+TUNE_ARCHS = ("starcoder2-7b", "gemma2-9b", "granite-3-8b")
+
+
+def _factory_run(model, cfg, batch, torch):
+    """``make_prefill_step`` then ``SERVE_NEW`` greedy ``make_decode_step``
+    steps; every step's logits."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    prefill, decode_step = make_prefill_step(cfg, SERVE_CACHE), make_decode_step(cfg)
+    out = prefill(model, batch)
+    logits, caches, pos = [out["logits"]], out["caches"], out["pos"]
+    for _ in range(SERVE_NEW):
+        tok = torch.argmax(logits[-1][:, -1:], dim=-1)
+        out = decode_step(model, {"token": tok, "caches": caches, "pos": pos})
+        logits.append(out["logits"])
+        caches, pos = out["caches"], pos + 1
+    return logits
+
+
+def _direct_run(model, cfg, batch, torch):
+    """The same steps through ``prefill`` and ``decode_step`` called directly."""
+    if cfg.is_encdec:
+        first, caches, pos = model.prefill(batch["src_embeds"], batch["inputs"], SERVE_CACHE)
+    else:
+        first, caches, pos = model.prefill(batch["inputs"], SERVE_CACHE)
+    logits = [first]
+    for _ in range(SERVE_NEW):
+        tok = torch.argmax(logits[-1][:, -1:], dim=-1)
+        nxt, caches = model.decode_step(tok, caches, pos)
+        logits.append(nxt)
+        pos = pos + 1
+    return logits
+
+
+def _phase16_factories(flash, decode, torch, np) -> dict:
+    """16(a): the serving step factories at full width through the kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, gqa_decode_attention
+    from repro_torch.launch.steps import init_params
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, want_flash, want_decode in (("gemma2-9b", 42, 42),
+                                          ("seamless-m4t-large-v2", 72, 48)):
+        cfg = get_config(name)
+        model = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        rng = np.random.default_rng(16)
+        if cfg.is_encdec:
+            batch = {"src_embeds": torch.randn(
+                         (4, ENCDEC_SRC, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3)).to(torch.bfloat16),
+                     "inputs": torch.as_tensor(rng.integers(2, cfg.vocab_size, (4, ENCDEC_PROMPT)),
+                                               device=dev)}
+        else:
+            batch = {"inputs": torch.as_tensor(rng.integers(2, cfg.vocab_size, (4, SERVE_PROMPT)),
+                                               device=dev)}
+        _zero_attention_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = _factory_run(model, cfg, batch, torch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n_flash, n_decode = flash_attention.launches, gqa_decode_attention.launches
+        by_variant = dict(flash_attention.launches_by_variant)
+        assert n_flash == want_flash, (name, n_flash)
+        assert by_variant == {"f32_cuda_cores": 0, "bf16_wgmma": want_flash}, by_variant
+        assert n_decode == want_decode * SERVE_NEW, (name, n_decode)
+        want = _direct_run(model, cfg, batch, torch)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        assert same, f"{name}: the step factories' logits differ from direct calls"
+        checks = {}
+        with _checked_kernels(torch, checks):
+            _factory_run(model, cfg, batch, torch)
+        assert checks["flash_attention"]["checks"] == want_flash, checks
+        assert checks["decode_attention"]["checks"] == want_decode * SERVE_NEW, checks
+        held = {k: {"checks": r["checks"], "max_abs_err": r["max_abs_err"],
+                    "geometries": len(r["geometries"])} for k, r in checks.items()}
+        print(f"   {name}: make_prefill_step (B 4) + {SERVE_NEW} make_decode_step steps, "
+              f"{secs:.2f} s eager; launches flash {n_flash} (want {want_flash}, "
+              f"{by_variant}), decode {n_decode} (want {want_decode} x {SERVE_NEW}); "
+              f"logits equal bit for bit to prefill / decode_step called directly: "
+              f"{same}; every launch against the plain version: {held}; peak "
+              f"device memory {peak / 1e9:.2f} GB")
+        flash["launches_by_path"][f"{name} step factories"] = n_flash
+        decode["launches_by_path"][f"{name} step factories"] = n_decode
+        out[name] = {"seconds": secs, "flash_launches": n_flash, "decode_launches": n_decode,
+                     "peak_bytes": peak, "checked": held}
+        del model, got, want
+        torch.cuda.empty_cache()
+    for rec in (flash, decode):
+        rec["launches"] = sum(rec["launches_by_path"].values())
+    return out
+
+
+def _phase16_step_model(readings, np) -> dict:
+    """16(b): the step model with the H100's published rates at dp = tp = 1,
+    beside the step times this run measured."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core.tpu_model import TpuCostFactors, TpuParams, step_model
+
+    costs = TpuCostFactors.for_hw("h100_sxm")
+    train = readings["dense"]["training"]
+    gemma = readings["gemma2_9b"]
+    serving = {**readings["dense"]["serving"], **readings["families"]["serving"]}
+    decode_shape = ShapeSpec("decode", SERVE_CACHE, 4, "decode")
+    cells = [("stablelm-1.6b", ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"), 2,
+              float(np.median(train["step_s"])), "phase 12, median of 5 steps"),
+             ("gemma2-9b", ShapeSpec("prefill", SERVE_PROMPT, 4, "prefill"), 1,
+              gemma["prefill_ms"] / 1e3, "phase 8, graphed throughput_batch's prefill"),
+             ("gemma2-9b", decode_shape, 1, gemma["graph_step_event_ms"] / 1e3,
+              "phase 8, replayed step between CUDA events")]
+    cells += [(name, decode_shape, 1, serving[name]["decode_step_ms"] / 1e3,
+               "phases 12-13, graphed steps, host-clock mean") for name in STEP_MODEL_DECODES]
+    out = []
+    for name, shape, n_micro, measured, where in cells:
+        m = step_model(get_config(name), shape, TpuParams(dp=1, tp=1, n_micro=n_micro), costs)
+        terms = {"compute_s": m.compute_s, "memory_s": m.memory_s,
+                 "overlap_s": m.overlap_s, "total_s": m.total_s}
+        for term, v in terms.items():
+            assert np.isfinite(v) and v > 0, (name, shape.kind, term, v)
+        assert m.collective_s == 0.0, (name, m.collective_s)
+        row = {"arch": name, "kind": shape.kind, "measured_s": measured, "where": where,
+               **terms, "measured_over_overlap": measured / m.overlap_s,
+               "measured_over_total": measured / m.total_s}
+        out.append(row)
+        print(f"   step model, {name} {shape.kind} (B {shape.global_batch} x "
+              f"{shape.seq_len}), h100_sxm rates: compute {m.compute_s * 1e3:.3f} ms, "
+              f"memory {m.memory_s * 1e3:.3f} ms, overlap {m.overlap_s * 1e3:.3f} ms, "
+              f"total {m.total_s * 1e3:.3f} ms; measured {measured * 1e3:.3f} ms "
+              f"({where}): measured / overlap {measured / m.overlap_s:.2f}, "
+              f"/ total {measured / m.total_s:.2f}")
+    return {"rows": out}
+
+
+def _phase16_dryrun(readings, factories, np) -> dict:
+    """16(c): the dry-run at a 1 x 1 mesh for the three cells of 16(b), one
+    production-mesh cell, and the tuner's ranking."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.search import TpuEvaluator, mesh_space, tune_tpu
+    from repro_torch.search.grid import space_block, space_size
+
+    one = {"data": 1, "model": 1}
+    peaks = {"train": readings["dense"]["training"]["peak_gb"] * 1e9,
+             "prefill": factories["gemma2-9b"]["peak_bytes"],
+             "decode": factories["gemma2-9b"]["peak_bytes"]}
+    cells = [("stablelm-1.6b", ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")),
+             ("gemma2-9b", ShapeSpec("prefill", SERVE_PROMPT, 4, "prefill")),
+             ("gemma2-9b", ShapeSpec("decode", SERVE_CACHE, 4, "decode"))]
+    out = {"one_device": []}
+    for name, shape in cells:
+        t0 = time.perf_counter()
+        cell = dryrun.run_cell(name, shape, False, mesh=one, hw="h100_sxm")
+        secs = time.perf_counter() - t0
+        assert cell["status"] == "ok", cell["status"]
+        mem, cost = cell["memory"], cell["cost"]
+        peak = peaks[shape.kind]
+        assert mem["argument_size_in_bytes"] <= peak, (name, shape.kind, mem, peak)
+        out["one_device"].append({"arch": name, "kind": shape.kind, "seconds": secs,
+                                  "flops": cost["flops"], "bytes": cost["bytes accessed"],
+                                  "argument_bytes": mem["argument_size_in_bytes"],
+                                  "peak_bytes": mem["peak_memory_in_bytes"],
+                                  "card_peak_bytes": peak, "roofline": cell["roofline"]})
+        print(f"   dry-run {name} {shape.kind} at 1 x 1 ({secs:.2f} s, no card): "
+              f"{cost['flops']:.4e} FLOP, {cost['bytes accessed']:.4e} bytes (unfused), "
+              f"arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB <= the card's "
+              f"peak for the same step {peak / 1e9:.3f} GB; traced peak "
+              f"{mem['peak_memory_in_bytes'] / 1e9:.3f} GB")
+        if shape.kind == "train":     # the traced step is the Trainer's (phase 14)
+            trainer_peak = readings["trainer"]["full_depth"]["peak_gb"]
+            out["one_device"][-1]["trainer_peak_bytes"] = trainer_peak * 1e9
+            print(f"   the Trainer's measured peak at the same step (phase 14): "
+                  f"{trainer_peak:.3f} GB against the traced {mem['peak_memory_in_bytes'] / 1e9:.3f}")
+    t0 = time.perf_counter()
+    pod = dryrun.run_cell("gemma2-9b", "train_4k", multi_pod=False)
+    secs = time.perf_counter() - t0
+    assert pod["status"] == "ok", pod["status"]
+    r = pod["roofline"]
+    print(f"   dry-run gemma2-9b train_4k on the 16 x 16 mesh (256 fake ranks): "
+          f"{pod['status']} in {secs:.2f} s; per device {r['hlo_flops_per_chip']:.4e} FLOP, "
+          f"{r['hbm_bytes_per_chip']:.4e} bytes, {r['coll_bytes_per_chip']:.4e} "
+          f"collective bytes ({pod['collectives']['by_kind']}), bound {r['bound']}")
+    out["pod"] = {"seconds": secs, "status": pod["status"], "roofline": r,
+                  "memory": pod["memory"]}
+    out["tune"] = {}
+    for name in TUNE_ARCHS:
+        cfg, shape = get_config(name), SHAPES["train_4k"]
+        top = tune_tpu(cfg, shape)
+        space = mesh_space(256)
+        cols = space_block(space, 0, space_size(space))
+        res = TpuEvaluator(cfg, shape, n_chips=256).evaluate(cols)
+        idx = np.argsort(res.total_cost, kind="stable")[:10]
+        brute = [(float(res.total_cost[i]), {k: float(cols[k][i]) for k in ("dp", "tp", "n_micro")})
+                 for i in idx]
+        got = [(e.cost, {k: e.assignment[k] for k in ("dp", "tp", "n_micro")})
+               for e in top.entries]
+        assert got == brute, (name, got, brute)
+        out["tune"][name] = got[:3]
+        print(f"   tune_tpu {name} train_4k: top 10 equal to a full sort of the "
+              f"evaluator's {len(res.total_cost)} rows; best {got[0]}")
+    return out
+
+
+def _phase16_step_model_and_dryrun(timings, flash, decode, readings, torch, np) -> dict:
+    """Phase 16 (slice 6): (a) the serving step factories at full width
+    through the kernels, counted, equal bit for bit to direct calls and
+    held against the plain versions; (b) the step model with the H100's
+    published rates beside the step times phases 8, 12 and 13 measured;
+    (c) the dry-run (no card) at one device for three of those cells, whose
+    argument bytes must fit under the card's measured peak, one cell on the
+    256-rank production mesh, and the tuner's top 10."""
+    with _phase("16_step_model_and_dryrun", timings):
+        factories = _phase16_factories(flash, decode, torch, np)
+        model = _phase16_step_model(readings, np)
+        dry = _phase16_dryrun(readings, factories, np)
+    return {"factories": factories, "step_model": model, "dryrun": dry}
+
+
 def main() -> int:
     import torch
 
@@ -3061,7 +3307,7 @@ def main() -> int:
     assert kernel["launches"] > 0, "the main path never launched seg_combine"
 
     flash, decode = _phase7_attention(timings, builds, torch, np)
-    _phase8_serving(timings, flash, decode, torch, np)
+    readings["gemma2_9b"] = _phase8_serving(timings, flash, decode, torch, np)
     copy = _phase9_analysis(timings, builds, torch)
     readings["distributed"] = _phase10_distributed(timings, split,
                                                    torch.device("cuda", 0), torch, np)
@@ -3071,6 +3317,8 @@ def main() -> int:
     readings["families"] = _phase13_families(timings, flash, decode, torch, np)
     readings["trainer"] = _phase14_trainer(timings, flash, torch, np)
     readings["twins"] = _phase15_twins(timings, kernel, flash, decode, torch, np)
+    readings["step_model_and_dryrun"] = _phase16_step_model_and_dryrun(
+        timings, flash, decode, readings, torch, np)
     kernel["main_path_launches"] = kernel["launches"]
     kernel["distributed_launches"] = readings["distributed"]["launches"]
     kernel["launches"] += kernel["distributed_launches"] + kernel["twins_launches"]

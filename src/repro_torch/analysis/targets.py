@@ -422,8 +422,7 @@ def iter_targets() -> list[TraceTarget]:
             traceable=False,
             skip_reason=(
                 "pure-numpy table model over integer mesh layouts: no graph "
-                "exists to trace, as in the reference; the model itself "
-                "waits for ROADMAP.md queue 1, item 19"),
+                "exists to trace, as in the reference"),
         ),
     ]
 

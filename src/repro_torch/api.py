@@ -15,12 +15,13 @@ The port of the reference's ``repro.api``:
 Backends register under a name (``register_model``).  A *target* below is
 a :class:`~repro_torch.spec.JobSpec` (the Hadoop model), a registered
 backend name plus its constructor kwargs, or an already-built evaluator.
-Three backends are registered: the Hadoop job model (``"hadoop"``), the
-multi-job capacity planner (``"cluster"``) and dollar-cost elastic
-provisioning (``"cloud"``).  Each runs on ``device=None`` (the CUDA card,
-raising without one) unless a verb is given ``device="cpu"``.  The
-reference's ``"tpu"`` backend is not ported yet: asking for it raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+Four backends are registered, as in the reference: the Hadoop job model
+(``"hadoop"``), the accelerator step model (``"tpu"``, a numpy table model
+with no device: ``cfg=`` and ``shape=``, and ``hw="h100_sxm"`` for another
+hardware table than the reference's), the multi-job capacity planner
+(``"cluster"``) and dollar-cost elastic provisioning (``"cloud"``).  The
+others run on ``device=None`` (the CUDA card, raising without one) unless a
+verb is given ``device="cpu"``.
 
 Every evaluator behind the facade satisfies the :class:`CostModel`
 protocol: a ``param_space`` describing its searchable axes (``tune``
@@ -86,13 +87,6 @@ class CostModel(Protocol):
 
 _REGISTRY: dict[str, tuple[Callable[..., Any], str]] = {}
 
-#: the reference's other backends -> the ROADMAP.md item that ports them
-_PENDING: dict[str, str] = {
-    "tpu": "queue 1 item 19 (the TPU step model, core/tpu_model.py and "
-           "search/tpu.py)",
-}
-
-
 def register_model(name: str, factory: Callable[..., Any], *,
                    doc: str = "", overwrite: bool = False) -> None:
     """Register an evaluator factory under a backend name."""
@@ -119,6 +113,22 @@ def _hadoop_factory(spec: JobSpec | None = None, **kw):
     return cached_evaluator(spec.params, spec.stats, spec.costs, chunk, device)
 
 
+def _tpu_factory(cfg=None, shape=None, hw: str | None = None, **kw):
+    from repro_torch.core.tpu_model import TpuCostFactors
+    from repro_torch.search.tpu import TpuEvaluator
+
+    if cfg is None or shape is None:
+        raise TypeError(
+            "the 'tpu' backend needs cfg= (a ModelConfig) and shape= "
+            "(a repro_torch.configs.shapes.ShapeSpec)"
+        )
+    if hw is not None:
+        if kw.get("costs") is not None:
+            raise TypeError("pass hw= or costs=, not both")
+        kw["costs"] = TpuCostFactors.for_hw(hw)
+    return TpuEvaluator(cfg, shape, **kw)
+
+
 def _cluster_factory(classes=None, **kw):
     from repro_torch.cluster.evaluator import ClusterEvaluator
 
@@ -134,6 +144,10 @@ def _cloud_factory(classes=None, **kw):
 register_model(
     "hadoop", _hadoop_factory,
     doc="the paper's closed-form MapReduce job model (Eqs. 2-98), chunked",
+)
+register_model(
+    "tpu", _tpu_factory,
+    doc="TPU training-step cost model (dp/tp/n_micro/remat/ep mesh search)",
 )
 register_model(
     "cluster", _cluster_factory,
@@ -157,10 +171,6 @@ def get_evaluator(target=None, **kw) -> CostModel:
     if target is None or isinstance(target, JobSpec):
         return _REGISTRY["hadoop"][0](target, **kw)
     if isinstance(target, str):
-        if target in _PENDING and target not in _REGISTRY:
-            raise NotImplementedError(
-                f"cost model {target!r} is not ported yet: ROADMAP.md "
-                f"{_PENDING[target]}")
         try:
             factory, _ = _REGISTRY[target]
         except KeyError:

@@ -4,16 +4,19 @@
 as the reference's ``repro.configs.get_config`` does; ``ARCHS`` lists all
 ten architectures, in the reference's order.  The shape cells of
 ``repro/configs/shapes.py`` and their input specifications are
-:mod:`repro_torch.configs.shapes`.
+:mod:`repro_torch.configs.shapes`, re-exported here as ``repro.configs``
+does.
 """
 
 from __future__ import annotations
 
 import importlib
 
+from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable, input_specs, skip_reason
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCHS", "get_config"]
+__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "applicable", "get_config", "input_specs",
+           "skip_reason"]
 
 ARCHS: dict[str, str] = {
     "gemma2-9b": "gemma2_9b",

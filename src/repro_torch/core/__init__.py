@@ -7,6 +7,12 @@
   :mod:`repro_torch.search`).
 * :mod:`repro_torch.core.tuner`  — the configuration-space optimizers
   (aliases of :mod:`repro_torch.search.strategies`).
+* :mod:`repro_torch.core.roofline` — roofline terms (compute, memory,
+  collective) of a step, the reference's HLO parser, and the hardware
+  tables (the reference's and the H100's published figures).
+* :mod:`repro_torch.core.tpu_model` — the paper's phase-decomposed model
+  applied to a training or serving step on a mesh (the reference's
+  arithmetic).
 """
 
 from . import hadoop  # noqa: F401

@@ -9,13 +9,18 @@ The port of ``repro/launch/steps.py``:
   the AdamW update of :mod:`repro_torch.optim`; microbatching bounds
   activation memory;
 * :func:`pick_microbatches` — the reference's accumulation depth, and
-  :func:`micro_depth`, the same unless ``OptFlags.n_micro_override`` is set.
+  :func:`micro_depth`, the same unless ``OptFlags.n_micro_override`` is set;
+* :func:`make_prefill_step` / :func:`make_decode_step` — the serving steps
+  the dry-run traces (:mod:`repro_torch.launch.dryrun`), around the model's
+  ``prefill`` and ``decode_step``.
 
 Both models' ``loss_fn`` take a batch dict and return (total, metrics), so
 one train step serves both (the reference's ``_loss`` picks
 ``loss_fn_encdec`` for an enc-dec config; an enc-dec batch carries
-``src_embeds``).  Serving runs ``prefill`` / ``decode_step`` eagerly, so it
-needs no step factory.
+``src_embeds``).  The server calls ``prefill`` / ``decode_step`` itself;
+the two serving factories give the dry-run the reference's step signature,
+``step(model, batch) -> dict``.  On the card they run through the attention
+kernels, like every caller of the model.
 """
 
 from __future__ import annotations
@@ -31,8 +36,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.opt_flags import get_flags
 from repro_torch.optim import AdamWConfig, adamw_update
 
-__all__ = ["accumulate_grads", "init_params", "make_train_step", "micro_depth",
-           "pick_microbatches"]
+__all__ = ["accumulate_grads", "init_params", "make_decode_step", "make_prefill_step",
+           "make_train_step", "micro_depth", "pick_microbatches"]
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
@@ -66,6 +71,10 @@ def micro_depth(global_batch: int, seq_len: int, dp_size: int) -> int:
         global_batch, seq_len, dp_size)
 
 
+#: the profiler range around one microbatch of :func:`accumulate_grads`
+MICROBATCH_RANGE = "train_step.microbatch"
+
+
 def _device_batch(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
@@ -74,9 +83,10 @@ def accumulate_grads(model: nn.Module, batch: dict, n_microbatches: int = 1):
     """(fp32 gradients of ``model.loss_fn``'s total by parameter name, the
     total loss): ``batch`` split along the batch axis into
     ``n_microbatches`` contiguous microbatches, each one's gradient
-    accumulated in fp32, the sum and the loss divided by the depth.  The
-    forward and backward of each microbatch run under the profiler ranges
-    ``train_step.forward`` and ``train_step.backward``."""
+    accumulated in fp32, the sum and the loss divided by the depth.  Each
+    microbatch runs under the profiler range :data:`MICROBATCH_RANGE`
+    (the dry-run weights what it counts there), its forward and backward
+    under ``train_step.forward`` and ``train_step.backward``."""
     n = int(n_microbatches)
     params = dict(model.named_parameters())
     names = list(params)
@@ -90,15 +100,16 @@ def accumulate_grads(model: nn.Module, batch: dict, n_microbatches: int = 1):
            for k, p in params.items()}
     loss = torch.zeros((), dtype=torch.float32, device=model.device)
     for i in range(n):
-        micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        with record_function("train_step.forward"):
-            total, _ = model.loss_fn(micro)
-        with record_function("train_step.backward"):
-            grads = torch.autograd.grad(total, [params[k] for k in names])
-        for k, g in zip(names, grads):
-            acc[k] += g.float()
-        del grads
-        loss = loss + total.detach()
+        with record_function(MICROBATCH_RANGE):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            with record_function("train_step.forward"):
+                total, _ = model.loss_fn(micro)
+            with record_function("train_step.backward"):
+                grads = torch.autograd.grad(total, [params[k] for k in names])
+            for k, g in zip(names, grads):
+                acc[k] += g.float()
+            del grads
+            loss = loss + total.detach()
     if n > 1:
         acc = {k: g / n for k, g in acc.items()}
         loss = loss / n
@@ -131,3 +142,33 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         return model, opt_state, {"loss": loss, **opt_metrics}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
+    """``prefill_step(model, batch) -> {"logits", "caches", "pos"}``: the
+    reference's ``make_prefill_step``.  ``batch`` holds ``inputs`` (B, S)
+    and optionally ``extra_embeds``; an enc-dec config's ``src_embeds``
+    (B, S_src, d) and its ``inputs`` prompt.  Caches are sized ``max_len``."""
+    if cfg.is_encdec:
+        def prefill_step(model: nn.Module, batch: dict) -> dict:
+            logits, caches, pos = model.prefill(batch["src_embeds"], batch["inputs"],
+                                                max_len)
+            return {"logits": logits, "caches": caches, "pos": pos}
+    else:
+        def prefill_step(model: nn.Module, batch: dict) -> dict:
+            logits, caches, pos = model.prefill(batch["inputs"], max_len,
+                                                extra_embeds=batch.get("extra_embeds"))
+            return {"logits": logits, "caches": caches, "pos": pos}
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """``decode_step(model, batch) -> {"logits", "caches"}``: the
+    reference's ``make_decode_step``.  ``batch`` holds ``token`` (B, 1),
+    ``caches`` (written in place) and ``pos``, a 0-dim int32 tensor."""
+    del cfg   # one model method serves both families
+
+    def decode_step(model: nn.Module, batch: dict) -> dict:
+        logits, caches = model.decode_step(batch["token"], batch["caches"], batch["pos"])
+        return {"logits": logits, "caches": caches}
+    return decode_step

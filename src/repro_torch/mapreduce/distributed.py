@@ -15,7 +15,9 @@ the reduced output lands key-sorted across reducers.
 
 The collective runs on the group's own backend and the tensors' device
 must match it: NCCL for CUDA tensors (the card), gloo for CPU tensors.
-Nothing stands in for either: a CUDA pipeline without NCCL raises.
+Nothing stands in for either: a CUDA pipeline without NCCL raises.  Only
+the dry-run's fake group (torch's ``"fake"`` backend, which moves no data)
+takes any device.
 """
 
 from __future__ import annotations
@@ -68,7 +70,12 @@ def _combine(mkeys: torch.Tensor, mvals: torch.Tensor, key_space: int,
 
 def _check_group(group, device: torch.device) -> tuple[int, int]:
     """(rank, world size) of ``group``, whose backend must be the one the
-    tensors' device needs."""
+    tensors' device needs.  A group of torch's ``"fake"`` backend moves no
+    data and takes any device: the dry-run
+    (:mod:`repro_torch.launch.dryrun_mapreduce`) traces over one on meta
+    tensors."""
+    if dist.is_initialized() and dist.get_backend(group) == "fake":
+        return dist.get_rank(group), dist.get_world_size(group)
     want = _BACKENDS.get(device.type)
     if want is None:
         raise ValueError(f"the pipeline runs on cuda or cpu, not {device}")

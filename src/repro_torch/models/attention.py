@@ -54,6 +54,7 @@ __all__ = [
     "init_kv_cache",
     "ring_slot_positions",
     "full_slot_positions",
+    "get_attention_impl",
     "set_attention_impl",
     "KINDS",
 ]
@@ -64,6 +65,10 @@ _IMPL = "kernel"
 #: the attention kinds of a prefill: causal, causal within the window,
 #: bidirectional with RoPE, bidirectional over the encoder's keys
 KINDS = ("attn", "local", "encoder", "cross")
+
+
+def get_attention_impl() -> str:
+    return _IMPL
 
 
 def set_attention_impl(impl: str) -> None:

@@ -15,13 +15,16 @@ What the port reads today:
 * ``n_micro_override`` — the accumulation depth of the train launcher
   (``repro_torch.launch.steps.micro_depth``);
 * ``moe_impl`` — :func:`repro_torch.models.moe.apply_moe`'s dispatch,
-  ``"einsum"`` or ``"gather"``.
+  ``"einsum"`` or ``"gather"``;
+* ``mesh_factor`` — the (data, model) split of the dry-run's production
+  mesh (:mod:`repro_torch.launch.dryrun`), its only reader, as in the
+  reference.
 
 The other fields keep the reference's defaults, and :func:`set_flags`
 refuses any other value of them, so that no setting silently does nothing
-(:data:`WAITS` says why for each): ``mesh_factor`` is read only by the
-reference's dry-run (``ROADMAP.md`` queue 1 item 20); ``moe_impl=
-"shardmap"`` is expert-parallel compute over the ``model`` axis (item 24);
+(:data:`WAITS` says why for each): ``moe_impl="shardmap"`` is
+expert-parallel compute over the ``model`` axis (``ROADMAP.md`` queue 1
+item 24);
 no code of the reference reads ``bf16_collectives``; ``cache_update``
 selects nothing, since the port's decode step always updates its caches in
 place.
@@ -68,12 +71,11 @@ _FLAGS = OptFlags()
 
 
 #: the fields the port reads; any other must keep its default
-READ = ("sharded_loss", "flash_bwd", "n_micro_override", "moe_impl")
+READ = ("sharded_loss", "flash_bwd", "n_micro_override", "moe_impl", "mesh_factor")
 #: the MoE dispatches the port has
 MOE_IMPLS = ("einsum", "gather")
 #: why each unread field must keep its default
 WAITS = {
-    "mesh_factor": "only the dry-run reads it (ROADMAP.md queue 1 item 20)",
     "bf16_collectives": "no code of the reference reads it",
     "cache_update": "the port's decode step always updates its caches in place",
 }

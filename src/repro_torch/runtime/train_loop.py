@@ -71,7 +71,7 @@ from repro_torch.optim import AdamWConfig, adamw_update, global_norm
 
 from .stragglers import StragglerDetector
 
-__all__ = ["Trainer", "TrainerConfig"]
+__all__ = ["Trainer", "TrainerConfig", "sharded_step"]
 
 #: a mesh's axis names and sizes, all the sharding rules read
 MeshShape = namedtuple("MeshShape", ["mesh_dim_names", "shape"])
@@ -164,40 +164,12 @@ class Trainer:
 
     # ----------------------------------------------------------- step
     def _step(self, params: dict, opt: dict, batch: dict):
-        """One step: gather, accumulate the rank's microbatches, average
-        over the batch axis (the mesh's first), update the rank's shards."""
-        with torch.no_grad():
-            for k, p in self.model.named_parameters():
-                p.copy_(params[k].full_tensor())
-        acc, loss = accumulate_grads(self.model, batch, self.tcfg.n_microbatches)
-        if self.dp > 1:
-            group = self.mesh.get_group(self.tcfg.mesh_axes[0])
-            for g in [*acc.values(), loss]:
-                dist.all_reduce(g, group=group)
-                g.div_(self.dp)
-        gnorm = global_norm(acc)
-        grads = {}
-        for k in list(acc):
-            grads[k] = distribute_tensor(acc.pop(k), self.mesh, params[k].placements,
-                                         src_data_rank=None).to_local()
-        local = {k: p.to_local() for k, p in params.items()}
-        state = {"m": {k: t.to_local() for k, t in opt["m"].items()},
-                 "v": {k: t.to_local() for k, t in opt["v"].items()},
-                 "count": opt["count"].to_local()}
-        with torch.no_grad():
-            new_p, new_s, metrics = adamw_update(grads, state, local, self.tcfg.opt,
-                                                 grad_norm=gnorm)
-        del grads, local, state
-
-        def wrap(t, like):
-            return DTensor.from_local(t, self.mesh, like.placements, run_check=False,
-                                      shape=like.shape, stride=like.stride())
-
-        params = {k: wrap(new_p[k], params[k]) for k in params}
-        opt = {"m": {k: wrap(new_s["m"][k], opt["m"][k]) for k in params},
-               "v": {k: wrap(new_s["v"][k], opt["v"][k]) for k in params},
-               "count": wrap(new_s["count"], opt["count"])}
-        return params, opt, {"loss": loss, **metrics}
+        """One step: :func:`sharded_step`, averaged over the mesh's first
+        axis (the batch axis, as in the reference)."""
+        return sharded_step(self.model, self.mesh, params, opt, batch,
+                            n_microbatches=self.tcfg.n_microbatches,
+                            opt_cfg=self.tcfg.opt,
+                            batch_axes=tuple(self.tcfg.mesh_axes[:1]))
 
     # ----------------------------------------------------------- training
     def run(self, num_steps: int, *, resume: bool = True) -> dict:
@@ -269,3 +241,50 @@ class Trainer:
             for rec in self.metrics_log:
                 f.write(json.dumps(rec) + "\n")
 
+
+def sharded_step(model: torch.nn.Module, mesh, params: dict, opt: dict, batch: dict,
+                 *, n_microbatches: int, opt_cfg: AdamWConfig,
+                 batch_axes: tuple = ("data",)):
+    """The Trainer's step on one rank: gather the full parameters (DTensors
+    under the rules' placements) into the plain ``model``, accumulate the
+    rank's rows of ``batch`` over ``n_microbatches``, average the gradients
+    and the loss over the mesh axes ``batch_axes`` (an all-reduce over each
+    axis of more than one rank), and update the rank's shards of the
+    parameters and the AdamW state with the global gradient norm.  Returns
+    (params, opt, metrics) as DTensors on ``mesh``.  The dry-run
+    (:mod:`repro_torch.launch.dryrun`) traces this function."""
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(params[k].full_tensor())
+    acc, loss = accumulate_grads(model, batch, n_microbatches)
+    sizes = shd.mesh_axes(mesh)
+    dp = math.prod(sizes[a] for a in batch_axes)
+    if dp > 1:
+        groups = [mesh.get_group(a) for a in batch_axes if sizes[a] > 1]
+        for g in [*acc.values(), loss]:
+            for group in groups:
+                dist.all_reduce(g, group=group)
+            g.div_(dp)
+    gnorm = global_norm(acc)
+    grads = {}
+    for k in list(acc):
+        grads[k] = distribute_tensor(acc.pop(k), mesh, params[k].placements,
+                                     src_data_rank=None).to_local()
+    local = {k: p.to_local() for k, p in params.items()}
+    state = {"m": {k: t.to_local() for k, t in opt["m"].items()},
+             "v": {k: t.to_local() for k, t in opt["v"].items()},
+             "count": opt["count"].to_local()}
+    with torch.no_grad():
+        new_p, new_s, metrics = adamw_update(grads, state, local, opt_cfg,
+                                             grad_norm=gnorm)
+    del grads, local, state
+
+    def wrap(t, like):
+        return DTensor.from_local(t, mesh, like.placements, run_check=False,
+                                  shape=like.shape, stride=like.stride())
+
+    params = {k: wrap(new_p[k], params[k]) for k in params}
+    opt = {"m": {k: wrap(new_s["m"][k], opt["m"][k]) for k in params},
+           "v": {k: wrap(new_s["v"][k], opt["v"][k]) for k in params},
+           "count": wrap(new_s["count"], opt["count"])}
+    return params, opt, {"loss": loss, **metrics}

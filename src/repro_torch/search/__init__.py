@@ -12,6 +12,8 @@
   loudly on non-differentiable backends).
 * :mod:`~repro_torch.search.service`    — async what-if query service:
   concurrent probes/sweeps/grids coalesced into shared evaluator chunks.
+* :mod:`~repro_torch.search.tpu`        — the accelerator step model
+  (:mod:`repro_torch.core.tpu_model`) behind the same interface.
 """
 
 from .evaluator import (
@@ -42,6 +44,7 @@ from .strategies import (
     search_topk,
 )
 from .topk import TopKAccumulator, TopKEntry, TopKResult
+from .tpu import TpuEvaluator, mesh_space, tune_tpu
 
 __all__ = [
     "ExactCostUnavailable",
@@ -77,6 +80,7 @@ __all__ = [
     "QueryResult",
     "QueryStats",
     "PhaseQueryResult",
+    "TpuEvaluator",
+    "mesh_space",
+    "tune_tpu",
 ]
-# The reference also exports its TPU step model (TpuEvaluator, mesh_space,
-# tune_tpu); that waits for ROADMAP.md queue 1, item 19.

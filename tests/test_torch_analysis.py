@@ -381,8 +381,10 @@ def test_report_covers_the_reference_targets_and_says_why_it_skips(full_report):
         assert by_name[name].traceable and by_name[name].grad_mode
         assert not [f for f in full_report.findings if f.target == name], name
         assert name not in full_report.coverage_gaps
-    for name, why in full_report.skipped.items():
-        assert "ROADMAP.md" in why and "item" in why, (name, why)
+    # the step model is a numpy table model with no graph to trace, as in
+    # the reference; it is ported, so its reason names no ROADMAP item
+    why = full_report.skipped["tpu-model"]
+    assert "numpy" in why and "no graph" in why and "ROADMAP" not in why, why
     # the rollouts trace as loops, grad mode off, walked to their fixpoint
     # with no finding and no coverage gap
     for name in ("cluster-rollout", "cloud-rollout"):

@@ -534,3 +534,50 @@ def test_trainer_crash_and_resume_bit_for_bit_on_the_card(cuda_device, tmp_path,
     for part in ("m", "v"):
         for k, t in ref["opt"][part].items():
             assert torch.equal(t, resumed["opt"][part][k]), (part, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", [("gemma2-9b", "float32"), ("gemma2-9b", "bfloat16"),
+                                        ("seamless-m4t-large-v2", "bfloat16")])
+def test_step_factories_through_the_kernels_on_the_card(cuda_device, name, dtype):
+    # make_prefill_step and 3 make_decode_step steps on a smoke config: one
+    # flash launch per attention layer, one decode launch per attention
+    # layer and step, and the logits of prefill / decode_step called directly
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import init_params, make_decode_step, make_prefill_step
+
+    cfg = get_config(name).smoke().replace(dtype=dtype)
+    model = init_params(torch.Generator(device=cuda_device).manual_seed(0), cfg,
+                        device=cuda_device)
+    rng = np.random.default_rng(8)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size, (2, 24)), device=cuda_device)
+    batch = {"inputs": toks}
+    if cfg.is_encdec:
+        batch["src_embeds"] = torch.randn((2, 40, cfg.d_model), device=cuda_device,
+                                          dtype=getattr(torch, dtype))
+        n_flash, n_decode = cfg.n_enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    else:
+        n_flash = n_decode = sum(layer.mixer in ("attn", "local") for layer in model.layers)
+    prefill, decode_step = make_prefill_step(cfg, 64), make_decode_step(cfg)
+    f0, d0 = flash_attention.launches, gqa_decode_attention.launches
+    out = prefill(model, batch)
+    got, caches, pos = [out["logits"]], out["caches"], out["pos"]
+    for _ in range(3):
+        tok = torch.argmax(got[-1][:, -1:], dim=-1)
+        step = decode_step(model, {"token": tok, "caches": caches, "pos": pos})
+        got.append(step["logits"])
+        caches, pos = step["caches"], pos + 1
+    torch.cuda.synchronize()
+    assert flash_attention.launches - f0 == n_flash
+    assert gqa_decode_attention.launches - d0 == n_decode * 3
+    if cfg.is_encdec:
+        first, caches, pos = model.prefill(batch["src_embeds"], toks, 64)
+    else:
+        first, caches, pos = model.prefill(toks, 64)
+    want = [first]
+    for _ in range(3):
+        nxt, caches = model.decode_step(torch.argmax(want[-1][:, -1:], dim=-1), caches, pos)
+        want.append(nxt)
+        pos = pos + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

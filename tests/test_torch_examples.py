@@ -18,7 +18,10 @@ scripts do their work at import, so they are not run.
   gives the same greedy tokens and the same serving counters;
 * ``torch_train_e2e``: the reference's parameter count, the first loss
   equal to the reference's ``loss_fn`` on the same weights and batch (rtol
-  1e-5), and the resumed run equal bit for bit to the uninterrupted one.
+  1e-5), and the resumed run equal bit for bit to the uninterrupted one;
+* ``torch_tpu_tuning`` (``--smoke``): its ranking equal to the ranking of
+  the reference's ``examples/tpu_tuning.py``, whose work at import is the
+  step model's arithmetic, so it runs here.
 """
 
 import dataclasses
@@ -258,3 +261,16 @@ def test_train_e2e_twin_resumes_bit_for_bit_and_matches_reference(e2e):
     loss, _ = j_lm.loss_fn(_to_reference(cfg, j_cfg, model), j_cfg,
                            {k: jnp.asarray(v) for k, v in batch.items()})
     np.testing.assert_allclose(out["first_log"][0]["loss"], float(loss), rtol=1e-5)
+
+
+def test_tpu_tuning_twin_ranks_as_the_reference_example(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)       # neither script finds dry-run artifacts
+    ref = runpy.run_path(str(EXAMPLES / "tpu_tuning.py"), run_name="example")
+    out = _example("tpu_tuning")["main"](["--smoke"])
+    assert list(out) == ["starcoder2-7b"]
+    rows = out["starcoder2-7b"]["rows"]
+    assert rows == ref["tune"]("starcoder2-7b", "train_4k")
+    assert len(rows) == 10 and out["starcoder2-7b"]["measured"] == {}
+    h100 = _example("tpu_tuning")["main"](["--smoke", "--hw", "h100_sxm"])
+    assert [r[0] for r in h100["starcoder2-7b"]["rows"]] != [] and \
+        h100["starcoder2-7b"]["rows"] != rows

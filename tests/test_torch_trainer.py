@@ -537,7 +537,7 @@ def test_trainer_refuses_grad_compression():
 
 
 @pytest.mark.parametrize("field,value,why", [
-    ("mesh_factor", (64, 4), "item 20"),
+    ("cache_update", "inplace", "updates its caches in place"),
     ("bf16_collectives", True, "no code of the reference reads it"),
     ("moe_impl", "shardmap", "item 24"),
 ])

@@ -388,7 +388,6 @@ def test_accumulated_gradients_of_microbatches_equal_the_full_batch():
 
 
 @pytest.mark.parametrize("field,value", [("moe_impl", "shardmap"),
-                                         ("mesh_factor", (8, 32)),
                                          ("bf16_collectives", True),
                                          ("cache_update", "inplace")])
 def test_set_flags_refuses_a_flag_the_port_does_not_read(field, value):
@@ -396,6 +395,16 @@ def test_set_flags_refuses_a_flag_the_port_does_not_read(field, value):
         opt_flags.set_flags(opt_flags.OptFlags(**{field: value}))
     assert opt_flags.get_flags() == opt_flags.OptFlags()
     j_flags.set_flags(j_flags.OptFlags(**{field: value}))   # the reference takes it
+
+
+def test_set_flags_takes_mesh_factor_which_the_dry_run_reads():
+    flags = opt_flags.OptFlags(mesh_factor=(64, 4))
+    opt_flags.set_flags(flags)
+    try:
+        assert opt_flags.get_flags().mesh_factor == (64, 4)
+    finally:
+        opt_flags.clear_flags()
+    assert "mesh_factor" in opt_flags.READ and "mesh_factor" not in opt_flags.WAITS
 
 
 @pytest.mark.parametrize("gb,seq,dp", [(8, 2048, 1), (256, 4096, 16), (4, 16, 1),

@@ -283,6 +283,7 @@ def test_api_surface_matches_the_port_manifest():
     import repro_torch.spec as spec
     from repro_torch.cloud import cloud_space
     from repro_torch.cluster import cluster_space
+    from repro_torch.search.tpu import TPU_AXIS_NAMES
 
     manifest = json.loads(MANIFEST.read_text())
     assert sorted(api.__all__) == manifest["repro_torch.api"]
@@ -295,6 +296,7 @@ def test_api_surface_matches_the_port_manifest():
     assert list(spec.hadoop_space().names) == manifest["axes"]["hadoop"]
     assert list(cluster_space().names) == manifest["axes"]["cluster"]
     assert list(cloud_space().names) == manifest["axes"]["cloud"]
+    assert list(TPU_AXIS_NAMES) == manifest["axes"]["tpu"]
     # the reference's verbs, every one of them, and its spec, cloud and
     # network surfaces
     j_manifest = json.loads((MANIFEST.parents[2] / "repro/spec/manifest.json")
@@ -302,16 +304,18 @@ def test_api_surface_matches_the_port_manifest():
     assert manifest["repro_torch.api"] == sorted(j_api.__all__)
     for name in ("spec", "cloud", "cluster.network"):
         assert manifest[f"repro_torch.{name}"] == j_manifest[f"repro.{name}"], name
-    for name in ("cluster", "cloud"):
+    for name in ("cluster", "cloud", "tpu"):
         assert manifest["axes"][name] == j_manifest["axes"][name], name
 
 
 def test_api_registers_only_hadoop_and_names_the_roadmap_for_the_rest():
-    # "the rest" is the TPU step model alone now: the cluster and cloud
-    # planners are registered beside the Hadoop model
-    assert list(api.available_models()) == ["cloud", "cluster", "hadoop"]
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1 item 19"):
+    # every backend of the reference is registered now (the TPU step model
+    # last): nothing is left for the ROADMAP to name, and the "tpu" backend
+    # needs its model and shape, as the reference's does
+    assert list(api.available_models()) == sorted(j_api.available_models())
+    assert list(api.available_models()) == ["cloud", "cluster", "hadoop", "tpu"]
+    assert not hasattr(api, "_PENDING")
+    with pytest.raises(TypeError, match="needs cfg="):
         api.get_evaluator("tpu")
     with pytest.raises(KeyError, match="unknown cost model"):
         api.get_evaluator("nope")
