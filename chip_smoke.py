@@ -184,7 +184,23 @@ model and dry-run held against the card's own step times:
      (``launch/dryrun.py``, no card) at one device for three of those
      cells, whose argument bytes must fit under the card's measured peak,
      gemma2-9b ``train_4k`` on the 256-rank production mesh, and
-     ``tune_tpu``'s top 10 against a full sort.
+     ``tune_tpu``'s top 10 against a full sort;
+ 17. tensor- and expert-parallel compute over ``model``: two ranks on the
+     one card over gloo (``torch.multiprocessing.spawn``; NCCL refuses two
+     ranks on one device; each CUDA collective is a ``dist.all_reduce``,
+     staged through the host), the children loading the kernels phase 0
+     built: (a) the ``Trainer`` at mesh (1, 2) on stablelm-1.6b at
+     published width and depth (4 x 2,048 in 2 microbatches, 3 steps; each
+     rank's step time, tokens/s and peak memory), every flash launch at the
+     local geometry q (2, 16, 2,048, 64), then a 2-layer fp32 cut's loss
+     and every gradient at tp 2 against tp 1 in the same process (rtol
+     1e-4); (b) deepseek-moe-16b at published width and depth with
+     ``moe_impl`` "shardmap" at tp 2 (32 experts a rank) through
+     ``make_prefill_step`` (4 x 512) and 16 ``make_decode_step`` steps on
+     caches of 1,024, then again with every launch held against its plain
+     version (bf16 2e-2), and a 2-layer fp32 cut's logits against tp 1
+     (1e-4); each rank's peak.  Phase 7 checks and times both kernels at
+     these local geometries.  A failure in either child fails the phase.
 
 Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
@@ -211,7 +227,10 @@ kill-and-resume (4 + 3 + 2 steps) x 2 x 2 x 2, over each twin of phase
 15 every counter its path reaches (> 0), and over each step-factory run of
 phase 16 ``flash_attention`` exactly its attention layers (gemma2-9b 42,
 seamless 72) and ``gqa_decode_attention`` exactly 42 and 48 a step, each
-added to its kernel's count.  Before the
+added to its kernel's count, and in each rank of phase 17
+``flash_attention`` exactly 3 x 2 x 24 x 2 over the Trainer's run (all
+``bf16_wgmma``) and 28 over the serving run, ``gqa_decode_attention``
+exactly 28 x 16, both ranks' counts added to the kernels'.  Before the
 last line it prints one ``{"kernels": [...]}`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -334,8 +353,19 @@ FAMILY_GEOMETRIES = {
                               [(4, 16, 16, 1024, 64, 1024, None, None, False),
                                (4, 16, 16, 1024, 64, 271, None, None, False)]),
 }
+# phase 17's geometries, a rank's local heads at tp 2: stablelm-1.6b's
+# training step (one microbatch of 2 x 2,048, 16 of 32 heads) and
+# deepseek-moe-16b's serving prefill (4 x 512) and step (pos 527 in caches of
+# 1,024), 8 of 16 heads
+TP_GEOMETRIES = {
+    "stablelm-1.6b tp 2 training": ([(2, 16, 16, 2048, 2048, 64, True, None, None, 0)], []),
+    "deepseek-moe-16b tp 2": ([(4, 8, 8, 512, 512, 128, True, None, None, 0)],
+                              [(4, 8, 8, 1024, 128, 527, None, None, False)]),
+}
 FAMILY_FLASH = [f for fs, _ in FAMILY_GEOMETRIES.values() for f in fs]
 FAMILY_DECODE = [d for _, ds in FAMILY_GEOMETRIES.values() for d in ds]
+TP_FLASH = [f for fs, _ in TP_GEOMETRIES.values() for f in fs]
+TP_DECODE = [d for _, ds in TP_GEOMETRIES.values() for d in ds]
 # phase 13: the decoder-only configs through Server.throughput_batch, and the
 # enc-dec through its prefill (4 x 1,024 source frames, a 256-token target
 # prompt: the reference's enc-dec prefill, repro/configs/shapes.py) and
@@ -758,7 +788,7 @@ def _phase7_attention(timings, builds, torch, np):
             variant = VARIANTS[dtype]
             for shape in FLASH_TEST + [FLASH_MAIN, FLASH_MAIN_LOCAL, FLASH_LONG] \
                     + [f for f, _ in SERVE_GEOMETRIES.values()] + [FLASH_TRAIN] \
-                    + FAMILY_FLASH:
+                    + FAMILY_FLASH + TP_FLASH:
                 q, k, v = flash_inputs(shape, dtype)
                 before = flash_attention.launches
                 on_variant = flash_attention.launches_by_variant[variant]
@@ -768,7 +798,8 @@ def _phase7_attention(timings, builds, torch, np):
                      dtype, flash_attention.launches == before + 1
                      and flash_attention.launches_by_variant[variant] == on_variant + 1)
             for shape in DECODE_TEST + [DECODE_MAIN, DECODE_STEP, DECODE_RING] \
-                    + [d for _, d in SERVE_GEOMETRIES.values()] + FAMILY_DECODE:
+                    + [d for _, d in SERVE_GEOMETRIES.values()] + FAMILY_DECODE \
+                    + TP_DECODE:
                 q, kc, vc, sp, p = decode_inputs(shape, dtype)
                 B, H, KV, _, hd = shape[:5]
                 want = decode_attention_torch(q.view(B, KV, H // KV, hd), kc, vc, sp,
@@ -806,7 +837,8 @@ def _phase7_attention(timings, builds, torch, np):
         else:
             raise AssertionError("gqa_decode_attention took a misaligned CUDA tensor")
         assert gqa_decode_attention.launches == before
-        n_flash = len(FLASH_TEST) + 4 + len(SERVE_GEOMETRIES) + len(FAMILY_FLASH)
+        n_flash = (len(FLASH_TEST) + 4 + len(SERVE_GEOMETRIES) + len(FAMILY_FLASH)
+                   + len(TP_FLASH))
         print(f"   max |kernel - plain|: flash {errs['flash']:.3e}, "
               f"decode {errs['decode']:.3e} over {2 * n_flash} and "
               f"{n_decode_checks} checks")
@@ -964,6 +996,16 @@ def _phase7_attention(timings, builds, torch, np):
                     shape=list(fshape), **time_flash(fshape, f"{name} [{i}]"))
             for i, dshape in enumerate(dshapes):
                 decode["family_geometries"][f"{name} {i}"] = dict(shape=list(dshape), **{
+                    k: v for k, v in time_decode(dshape, f"{name} [{i}]").items()
+                    if k in keep})
+        # phase 17's local geometries at tp 2
+        flash["tp_geometries"], decode["tp_geometries"] = {}, {}
+        for name, (fshapes, dshapes) in TP_GEOMETRIES.items():
+            for i, fshape in enumerate(fshapes):
+                flash["tp_geometries"][f"{name} {i}"] = dict(
+                    shape=list(fshape), **time_flash(fshape, f"{name} [{i}]"))
+            for i, dshape in enumerate(dshapes):
+                decode["tp_geometries"][f"{name} {i}"] = dict(shape=list(dshape), **{
                     k: v for k, v in time_decode(dshape, f"{name} [{i}]").items()
                     if k in keep})
         flash["max_abs_err"] = errs["flash"]
@@ -2932,7 +2974,8 @@ def _phase16_dryrun(readings, factories, np) -> dict:
     print(f"   dry-run gemma2-9b train_4k on the 16 x 16 mesh (256 fake ranks): "
           f"{pod['status']} in {secs:.2f} s; per device {r['hlo_flops_per_chip']:.4e} FLOP, "
           f"{r['hbm_bytes_per_chip']:.4e} bytes, {r['coll_bytes_per_chip']:.4e} "
-          f"collective bytes ({pod['collectives']['by_kind']}), bound {r['bound']}")
+          f"collective bytes ({pod['collectives']['by_kind']}), bound {r['bound']}, "
+          f"tp_compute {pod['tp_compute']!r}")
     out["pod"] = {"seconds": secs, "status": pod["status"], "roofline": r,
                   "memory": pod["memory"]}
     out["tune"] = {}
@@ -2967,6 +3010,327 @@ def _phase16_step_model_and_dryrun(timings, flash, decode, readings, torch, np) 
         model = _phase16_step_model(readings, np)
         dry = _phase16_dryrun(readings, factories, np)
     return {"factories": factories, "step_model": model, "dryrun": dry}
+
+
+TP_TRAIN_BATCH, TP_TRAIN_MICRO = 4, 2        # phase 17(a): 4 x 2,048 in 2 microbatches
+TP_CUT_ROWS, TP_CUT_SEQ = 2, 256             # phase 17's fp32 cuts
+P17_TIMEOUT_S = 600
+
+
+@contextlib.contextmanager
+def _attention_shapes(torch):
+    """Within, the (q, k) shapes of every flash and decode launch the
+    models make, by kernel."""
+    import repro_torch.models.attention as attention
+
+    real = (attention._flash_kernel, attention._decode_kernel)
+    seen = {"flash": set(), "decode": set()}
+
+    def flash(q, k, v, **kw):
+        seen["flash"].add((tuple(q.shape), tuple(k.shape), str(q.dtype)))
+        return real[0](q, k, v, **kw)
+
+    def decode(q, k_cache, v_cache, slot_pos, pos, **kw):
+        seen["decode"].add((tuple(q.shape), tuple(k_cache.shape), str(q.dtype)))
+        return real[1](q, k_cache, v_cache, slot_pos, pos, **kw)
+
+    attention._flash_kernel, attention._decode_kernel = flash, decode
+    try:
+        yield seen
+    finally:
+        attention._flash_kernel, attention._decode_kernel = real
+
+
+def _p17_trainer(rank, tmp, mesh, torch, np) -> dict:
+    """17(a): the Trainer at mesh (1, 2), stablelm-1.6b at full width and
+    depth, 3 steps; each rank computes its half of the heads, the MLP width
+    and the vocab."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, gqa_decode_attention
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = get_config("stablelm-1.6b")
+    tr = Trainer(cfg, TrainerConfig(
+        global_batch=TP_TRAIN_BATCH, seq_len=TRAIN_SEQ, n_microbatches=TP_TRAIN_MICRO,
+        ckpt_dir=str(tmp / "trainer"), ckpt_every=0, log_every=1, device="cuda",
+        mesh_shape=(1, 2)))
+    _zero_attention_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _attention_shapes(torch) as seen:
+        out = tr.run(TRAINER_STEPS, resume=False)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    L = len(tr.model.layers)
+    want = TRAINER_STEPS * TP_TRAIN_MICRO * L * 2
+    n_flash, by_variant = flash_attention.launches, dict(flash_attention.launches_by_variant)
+    q_shape = (TP_TRAIN_BATCH // TP_TRAIN_MICRO, cfg.n_heads // 2, TRAIN_SEQ, cfg.head_dim)
+    assert n_flash == want and by_variant["bf16_wgmma"] == want, (n_flash, by_variant)
+    assert gqa_decode_attention.launches == 0
+    assert seen["flash"] == {(q_shape, q_shape, "torch.bfloat16")}, seen["flash"]
+    local = tuple(tr.model.layers[0].attn.q.shape)
+    assert local == (cfg.d_model, cfg.n_heads // 2, cfg.head_dim), local
+    losses = [r["loss"] for r in tr.metrics_log]
+    step_s = [r["time_s"] for r in tr.metrics_log]
+    assert len(losses) == TRAINER_STEPS and all(np.isfinite(losses)), losses
+    del out, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": step_s, "peak_bytes": peak, "wall_s": wall,
+            "flash_launches": n_flash, "flash_by_variant": by_variant,
+            "flash_q_shape": list(q_shape), "local_q": list(local),
+            "tokens_per_s": TP_TRAIN_BATCH * TRAIN_SEQ / float(np.median(step_s))}
+
+
+def _p17_train_cut(rank, mesh, torch, np) -> dict:
+    """17(a), the fp32 cut: stablelm-1.6b's 2 layers at full width, the loss
+    and every gradient of the rank's split module against the whole module
+    in this process, at rtol 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.weights import init
+
+    cfg = get_config("stablelm-1.6b").replace(n_layers=2, dtype="float32")
+    batch = TokenPipeline(PipelineConfig(cfg.vocab_size, TP_CUT_SEQ, TP_CUT_ROWS)).batch(0)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+    def grads(model):
+        params = dict(model.named_parameters())
+        loss, _ = model.loss_fn(batch)
+        return loss.detach(), dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+    whole = init(cfg, torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    w_loss, w_grads = grads(whole)
+    specs = shd.param_pspecs(cfg, dict(whole.named_parameters()), {"model": 2})
+    del whole
+    part = init(cfg, torch.Generator(device="cuda").manual_seed(7), device="cuda",
+                model=(rank, 2))
+    with tp.model_group(mesh, ("data",)):
+        p_loss, p_grads = grads(part)
+    torch.testing.assert_close(p_loss, w_loss, rtol=1e-4, atol=0.0)
+    worst = 0.0
+    for k, g in p_grads.items():
+        want = shd.model_shard(w_grads[k], specs[k], {"model": 2}, rank)
+        torch.testing.assert_close(g, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()),
+                                   msg=lambda m, k=k: f"{k}: {m}")
+        worst = max(worst, float(((g - want).abs().max() / want.abs().max().clamp(min=1e-30))))
+    return {"loss_split": float(p_loss), "loss_whole": float(w_loss),
+            "grads": len(p_grads), "max_rel_grad_err": worst}
+
+
+def _p17_serve(rank, mesh, torch, np) -> dict:
+    """17(b): deepseek-moe-16b at full width and depth, ``moe_impl``
+    "shardmap" at tp 2 (32 of 64 experts a rank), through the step
+    factories: prefill 4 x 512, 16 greedy decode steps on caches of 1,024;
+    then again with every launch held against its plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import flash_attention, gqa_decode_attention
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import init_params, make_decode_step, make_prefill_step
+    from repro_torch.models import act_sharding
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.opt_flags import OptFlags, clear_flags, set_flags
+
+    cfg = get_config("deepseek-moe-16b")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        model=(rank, 2))
+    n_experts = model.layers[1].moe.experts.wi.shape[0]
+    prompts = torch.as_tensor(np.random.default_rng(17).integers(
+        2, cfg.vocab_size, (4, SERVE_PROMPT)), device="cuda")
+    set_flags(OptFlags(moe_impl="shardmap"))
+    act_sharding.set_policy(shd.activation_policy(
+        cfg, ShapeSpec("serve", SERVE_CACHE, 4, "prefill"), mesh))
+
+    def run():
+        prefill, step = make_prefill_step(cfg, SERVE_CACHE), make_decode_step(cfg)
+        out = prefill(model, {"inputs": prompts})
+        logits = [tp.gather_from_model(out["logits"])]
+        caches, pos = out["caches"], out["pos"]
+        for _ in range(SERVE_NEW):
+            tok = torch.argmax(logits[-1][:, -1:], dim=-1)
+            out = step(model, {"token": tok, "caches": caches, "pos": pos})
+            logits.append(tp.gather_from_model(out["logits"]))
+            caches, pos = out["caches"], pos + 1
+        return logits
+
+    try:
+        with tp.model_group(mesh, ("data",)):
+            _zero_attention_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _attention_shapes(torch) as seen:
+                logits = run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n_flash, n_decode = flash_attention.launches, gqa_decode_attention.launches
+            by_variant = dict(flash_attention.launches_by_variant)
+            checks = {}
+            with _checked_kernels(torch, checks):
+                again = run()
+    finally:
+        act_sharding.clear_policy()
+        clear_flags()
+    L = cfg.n_layers
+    assert n_flash == L and by_variant["bf16_wgmma"] == L, (n_flash, by_variant)
+    assert n_decode == L * SERVE_NEW, n_decode
+    assert checks["flash_attention"]["checks"] == L, checks
+    assert checks["decode_attention"]["checks"] == L * SERVE_NEW, checks
+    assert all(torch.isfinite(x).all() for x in logits)
+    assert logits[0].shape == (4, 1, cfg.vocab_size), logits[0].shape
+    tokens_same = all(torch.equal(torch.argmax(a, -1), torch.argmax(b, -1))
+                      for a, b in zip(logits, again))
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "flash_launches": n_flash, "decode_launches": n_decode,
+            "experts_per_rank": n_experts, "peak_bytes": peak,
+            "flash_shapes": sorted(str(x) for x in seen["flash"]),
+            "decode_shapes": sorted(str(x) for x in seen["decode"]),
+            "greedy_tokens_equal_checked_run": tokens_same,
+            "checked": {k: {"checks": r["checks"], "max_abs_err": r["max_abs_err"]}
+                        for k, r in checks.items()}}
+
+
+def _p17_serve_cut(rank, mesh, torch, np) -> dict:
+    """17(b), the fp32 cut: deepseek-moe-16b's first 2 layers (a dense one
+    and a MoE one) at full width, ``shardmap``: the prefill and 4 decode
+    steps' logits of the split module, gathered, against the whole module
+    at 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.opt_flags import OptFlags, clear_flags, set_flags
+    from repro_torch.models.weights import init
+
+    cfg = get_config("deepseek-moe-16b").replace(n_layers=2, dtype="float32")
+    prompts = torch.as_tensor(np.random.default_rng(18).integers(
+        2, cfg.vocab_size, (4, TP_CUT_SEQ)), device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(19).integers(
+        2, cfg.vocab_size, (4, 4)), device="cuda")
+
+    def run(model):
+        out = make_prefill_step(cfg, 2 * TP_CUT_SEQ)(model, {"inputs": prompts})
+        logits = [tp.gather_from_model(out["logits"])]
+        caches, pos = out["caches"], out["pos"]
+        for i in range(toks.shape[1]):
+            out = make_decode_step(cfg)(model, {"token": toks[:, i:i + 1],
+                                                "caches": caches, "pos": pos})
+            logits.append(tp.gather_from_model(out["logits"]))
+            caches, pos = out["caches"], pos + 1
+        return logits
+
+    set_flags(OptFlags(moe_impl="shardmap"))
+    try:
+        whole = run(init(cfg, torch.Generator(device="cuda").manual_seed(5), device="cuda"))
+        with tp.model_group(mesh, ("data",)):
+            split = run(init(cfg, torch.Generator(device="cuda").manual_seed(5),
+                             device="cuda", model=(rank, 2)))
+    finally:
+        clear_flags()
+    worst = 0.0
+    for a, b in zip(split, whole):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        worst = max(worst, float((a - b).abs().max()))
+    return {"steps": len(split), "max_abs_err": worst}
+
+
+def _phase17_rank(rank, world, port, tmp):
+    """One rank of phase 17's world: gloo over the one card."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("cuda:gloo,cpu:gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=P17_TIMEOUT_S))
+    try:
+        from repro_torch.launch.mesh import make_mesh
+
+        tmp = Path(tmp)
+        mesh = make_mesh((1, world), ("data", "model"), device="cuda")
+        out = {}
+        for key, fn in (("trainer", lambda: _p17_trainer(rank, tmp, mesh, torch, np)),
+                        ("train_cut", lambda: _p17_train_cut(rank, mesh, torch, np)),
+                        ("serve", lambda: _p17_serve(rank, mesh, torch, np)),
+                        ("serve_cut", lambda: _p17_serve_cut(rank, mesh, torch, np))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            out[key]["phase_s"] = time.perf_counter() - t0
+            dist.barrier()
+        with open(tmp / f"rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _phase17_tensor_parallel(timings, flash, decode, torch, np) -> dict:
+    """Phase 17: a world of 2 ranks on the one card over gloo (NCCL refuses
+    two ranks on one device): the Trainer at mesh (1, 2) and the serving
+    step factories at tp 2, each rank on its ``model`` shards."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with _phase("17_tensor_parallel", timings):
+        gc.collect()
+        torch.cuda.empty_cache()        # the children need the card's memory
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        ctx = mp.spawn(_phase17_rank, args=(2, port, str(tmp)), nprocs=2, join=False)
+        deadline = time.perf_counter() + P17_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    raise TimeoutError(f"phase 17's ranks ran past {P17_TIMEOUT_S} s")
+            ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in (0, 1)]
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+            shutil.rmtree(tmp, ignore_errors=True)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip().splitlines()[0]
+        for r, rec in enumerate(ranks):
+            t, c, sv, sc = rec["trainer"], rec["train_cut"], rec["serve"], rec["serve_cut"]
+            print(f"   rank {r} ({smi}): Trainer at mesh (1, 2), stablelm-1.6b 24 layers at "
+                  f"full width, {TP_TRAIN_BATCH} x {TRAIN_SEQ} in {TP_TRAIN_MICRO} "
+                  f"microbatches: losses {[round(x, 4) for x in t['losses']]}, steps "
+                  f"{[round(x, 3) for x in t['step_s']]} s ({t['tokens_per_s']:,.0f} "
+                  f"tokens/s at the median), peak {t['peak_bytes'] / 1e9:.2f} GB; flash "
+                  f"{t['flash_launches']} at q {t['flash_q_shape']} {t['flash_by_variant']}; "
+                  f"{t['phase_s']:.1f} s with the final save and gathers")
+            print(f"   rank {r}: 2-layer fp32 cut at tp 2 against tp 1: loss "
+                  f"{c['loss_split']:.6f} / {c['loss_whole']:.6f}, {c['grads']} gradients, "
+                  f"max relative error {c['max_rel_grad_err']:.2e} (rtol 1e-4)")
+            print(f"   rank {r}: deepseek-moe-16b shardmap at tp 2 ({sv['experts_per_rank']} "
+                  f"experts a rank): prefill 4 x {SERVE_PROMPT} + {SERVE_NEW} steps "
+                  f"{sv['seconds']:.2f} s, flash {sv['flash_launches']} at "
+                  f"{sv['flash_shapes']}, decode {sv['decode_launches']} at "
+                  f"{sv['decode_shapes']}; checked {sv['checked']}; peak "
+                  f"{sv['peak_bytes'] / 1e9:.2f} GB; fp32 2-layer cut's logits over "
+                  f"{sc['steps']} steps against tp 1: max |diff| {sc['max_abs_err']:.2e}")
+        train_flash = sum(rec["trainer"]["flash_launches"] for rec in ranks)
+        serve_flash = sum(rec["serve"]["flash_launches"] for rec in ranks)
+        serve_decode = sum(rec["serve"]["decode_launches"] for rec in ranks)
+        flash["launches_by_path"]["stablelm-1.6b Trainer at mesh (1, 2), 2 ranks"] = train_flash
+        flash["launches_by_path"]["deepseek-moe-16b step factories at tp 2, 2 ranks"] = \
+            serve_flash
+        decode["launches_by_path"]["deepseek-moe-16b step factories at tp 2, 2 ranks"] = \
+            serve_decode
+        for rec in (flash, decode):
+            rec["launches"] = sum(rec["launches_by_path"].values())
+    return {"ranks": ranks, "card": smi}
 
 
 def main() -> int:
@@ -3319,6 +3683,7 @@ def main() -> int:
     readings["twins"] = _phase15_twins(timings, kernel, flash, decode, torch, np)
     readings["step_model_and_dryrun"] = _phase16_step_model_and_dryrun(
         timings, flash, decode, readings, torch, np)
+    readings["tensor_parallel"] = _phase17_tensor_parallel(timings, flash, decode, torch, np)
     kernel["main_path_launches"] = kernel["launches"]
     kernel["distributed_launches"] = readings["distributed"]["launches"]
     kernel["launches"] += kernel["distributed_launches"] + kernel["twins_launches"]

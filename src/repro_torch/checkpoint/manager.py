@@ -26,10 +26,11 @@ Guarantees:
   :meth:`~CheckpointManager.wait`.
 * **Keep-N GC** — the oldest checkpoints are pruned after each save.
 * **Many ranks** — every rank calls ``save`` (gathering a DTensor is a
-  collective); rank 0 of the default process group writes, the others
-  return after the gather.
+  collective); rank 0 of the default process group copies and writes, the
+  others return after the gathers.
 * **Elastic restore** — leaves are global logical arrays: a DTensor is
-  gathered with ``full_tensor()`` on save, and ``restore(shardings=...)``
+  gathered on save (:func:`repro_torch.launch.mesh.full_tensor`, all-reduces
+  only, so gloo gathers CUDA tensors too), and ``restore(shardings=...)``
   spreads each leaf onto its (possibly different) mesh and placements with
   ``distribute_tensor``, so a run can move from dp=1 to dp=2 and back.
 
@@ -50,6 +51,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch.launch.mesh import full_tensor
 
 __all__ = ["CheckpointManager", "flatten", "unflatten"]
 
@@ -110,7 +113,7 @@ def _snapshot(leaf) -> torch.Tensor | np.ndarray:
     gathered, a device tensor copied without blocking (the caller
     synchronises once), a host tensor or array cloned."""
     if isinstance(leaf, DTensor):
-        leaf = leaf.full_tensor()
+        leaf = full_tensor(leaf)
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
         if leaf.device.type == "cpu":
@@ -163,12 +166,15 @@ class CheckpointManager:
         self.wait()  # one in-flight async save at a time
         t0 = time.perf_counter()
         leaves, treedef = flatten(tree)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            for leaf in leaves:         # the gathers are collectives; no copy
+                if isinstance(leaf, DTensor):
+                    full_tensor(leaf)
+            return
         host = [_snapshot(leaf) for leaf in leaves]
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         stats = {"step": step, "snapshot_s": time.perf_counter() - t0}
-        if dist.is_initialized() and dist.get_rank() != 0:
-            return
 
         def write():
             try:

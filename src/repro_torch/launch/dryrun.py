@@ -32,13 +32,21 @@ and no storage:
   (``set_attention_impl("torch")``, restored after): the kernels take no
   meta tensors, and the reference's dry-run compiles its XLA attention.
 
-The port's compute is replicated within a model group (``ROADMAP.md`` queue
-1 item 24): every rank gathers the full parameters and runs its batch rows
-at full width, so the compute term is the whole model's on B / dp rows, not
-the reference's tensor-parallel share.  The artifact says so
-(``tp_compute``).  Artifacts go to ``artifacts/dryrun_torch``, never to the
-reference's ``artifacts/dryrun``, whose tests read those.  No card is
-needed.
+Each rank traces its own module at local shapes (``weights.empty`` with
+``model=(rank, size)``) under the model group
+(:mod:`repro_torch.models.tensor_parallel`): tensor- and expert-parallel
+compute over ``model`` as the reference's GSPMD partitions it, so the
+FLOPs, bytes and memory a device are the rank's share, and the ``model``
+axis's all-reduces appear in the collective census by kind and bytes.  The
+parameters are gathered over the batch/FSDP axes only, the batch and the
+caches keep their batch and ``model`` shards (an SSM's state, which its
+replicated compute holds whole, is gathered).  A serving cell whose caches
+the rules sequence-shard over ``model`` (``n_kv_heads % tp != 0``,
+``ROADMAP.md`` queue 1 item 25) runs replicated within a model group
+instead: the whole module on the rank's batch rows.  Each artifact's
+``tp_compute`` says which: ``"model"``, or ``"replicated: <why>"``.
+Artifacts go to ``artifacts/dryrun_torch``, never to the reference's
+``artifacts/dryrun``, whose tests read those.  No card is needed.
 
 Usage::
 
@@ -76,14 +84,16 @@ from repro_torch.core.roofline import (
     roofline_terms,
 )
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import make_mesh, model_local
 from repro_torch.launch.steps import (
     MICROBATCH_RANGE,
     make_decode_step,
     make_prefill_step,
     micro_depth,
+    serve_split_reason,
 )
 from repro_torch.models import act_sharding
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.attention import get_attention_impl, set_attention_impl
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.opt_flags import OptFlags, clear_flags, set_flags
@@ -97,11 +107,12 @@ META = torch.device("meta")
 DEFAULT_OUT = os.path.join("artifacts", "dryrun_torch")
 #: the reference's artifacts, which its tests read; the port never writes there
 REFERENCE_OUT = os.path.join("artifacts", "dryrun")
-TP_COMPUTE = "replicated within a model group (ROADMAP item 24)"
+#: ``tp_compute`` of a cell whose compute splits over the ``model`` axis
+TP_COMPUTE = "model"
 
 # The reference's §Perf presets, every name.  The port refuses the ones
-# whose flags ``set_flags`` refuses (``moe_impl="shardmap"``,
-# ``cache_update="inplace"``): their cells come back as ``skip(...)``.
+# whose flags ``set_flags`` refuses (``cache_update="inplace"``): their
+# cells come back as ``skip(...)``.
 OPT_PRESETS: dict[str, OptFlags] = {
     "baseline": OptFlags(),
     "moe-gather": OptFlags(moe_impl="gather"),
@@ -340,15 +351,27 @@ def _place(t: torch.Tensor, spec) -> DTensor:
     return distribute_tensor(t, spec.mesh, spec.placements, src_data_rank=None)
 
 
-def _batch_rows(dt: DTensor, axes: tuple, mesh) -> torch.Tensor:
-    """The rank's local tensor with only the batch axes still sharded: the
-    other axes gathered (the compute is replicated within a model group)."""
+def _batch_rows(dt: DTensor, axes: tuple, mesh, keep_model: bool) -> torch.Tensor:
+    """The rank's local tensor with its batch shard kept, and its ``model``
+    shard when ``keep_model``; every other axis gathered."""
     names = mesh.mesh_dim_names
-    keep = tuple(p if (names[i] in axes and isinstance(p, Shard) and p.dim == 0)
-                 else Replicate() for i, p in enumerate(dt.placements))
+    keep = tuple(p if (isinstance(p, Shard) and (
+        (names[i] in axes and p.dim == 0) or (keep_model and names[i] == "model")))
+        else Replicate() for i, p in enumerate(dt.placements))
     if keep != tuple(dt.placements):
         dt = dt.redistribute(mesh, keep)
     return dt.to_local()
+
+
+def _serve_inputs(batch: dict, axes: tuple, mesh, split: bool) -> dict:
+    """The serving step's inputs on this rank: with ``split``, the caches
+    keep their ``model`` shards but an SSM's (B, H, P, N) state, whose
+    replicated compute holds it whole."""
+    def one(names, leaf):
+        ssm_state = names[-1] == "h" and leaf.ndim == 4
+        return _batch_rows(leaf, axes, mesh, split and not ssm_state)
+
+    return shd._map_named(one, batch)
 
 
 def _local_bytes(t: torch.Tensor, spec, sizes: dict, axes: tuple) -> int:
@@ -370,8 +393,14 @@ def _trace(cfg, shape: ShapeSpec, mesh, sizes: dict, cell: dict) -> Census:
     b_sh = shd.named(mesh, shd.input_pspecs(cfg, shape, specs, mesh))
     batch = tree_map(_place, specs, b_sh)
     train = shape.kind == "train"
-    model = empty(cfg, device=META, param_dtype=torch.float32 if train else None)
-    names = {k: p.detach() for k, p in model.named_parameters()}
+    size = sizes.get("model", 1)
+    why = None if train else serve_split_reason(cfg, size)
+    cell["tp_compute"] = f"replicated: {why}" if why else TP_COMPUTE
+    part = (0, 1) if why else (0, size)     # rank 0's place on the model axis
+    p_dtype = torch.float32 if train else None
+    model = empty(cfg, device=META, param_dtype=p_dtype, model=part)
+    full = model if part[1] == 1 else empty(cfg, device=META, param_dtype=p_dtype)
+    names = {k: p.detach() for k, p in full.named_parameters()}
     p_sh = shd.named(mesh, shd.param_pspecs(cfg, names, mesh))
     params = {k: _place(t, p_sh[k]) for k, t in names.items()}
     args = [*params.values(), *_tensors(batch)]
@@ -411,14 +440,20 @@ def _trace(cfg, shape: ShapeSpec, mesh, sizes: dict, cell: dict) -> Census:
         step = (make_prefill_step(cfg, max_len=shape.seq_len) if shape.kind == "prefill"
                 else make_decode_step(cfg))
         census = Census(base_bytes=arg_bytes + module_bytes, known=known)
+        split = why is None
         with census:
             with torch.no_grad():
                 for k, p in model.named_parameters():
-                    p.copy_(params[k].full_tensor())
-            local = tree_map(lambda v: _batch_rows(v, axes, mesh), batch)
-            out = step(model, local)
+                    p.copy_(model_local(params[k]) if split else params[k].full_tensor())
+            local = _serve_inputs(batch, axes, mesh, split)
+            if split:
+                with tp.model_group(mesh, axes):
+                    out = step(model, local)
+            else:
+                out = step(model, local)
         o_specs = shd.output_pspecs(cfg, shape, out, mesh)
-        out_bytes = sum(_local_bytes(t, s, sizes, axes)
+        held = axes + ("model",) if split else axes
+        out_bytes = sum(_local_bytes(t, s, sizes, held)
                         for t, s in zip(_tensors(out), tree_flatten(
                             o_specs, is_leaf=lambda x: isinstance(x, shd.P))[0])
                         if isinstance(t, torch.Tensor))
@@ -459,8 +494,7 @@ def run_cell(
     cell = {"arch": cfg.name, "shape": shape.name, "mesh": "x".join(map(str, sizes.values())),
             "chips": chips, "opt": opt, "hw": hw or "tpu_v5e",
             "flops_source": "FlopCounterMode",
-            "bytes_source": "each op's input and output bytes, unfused: an upper bound",
-            "tp_compute": TP_COMPUTE}
+            "bytes_source": "each op's input and output bytes, unfused: an upper bound"}
     hw_table(hw)                     # an unknown name raises before any trace
     try:
         set_flags(flags)

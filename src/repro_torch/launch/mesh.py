@@ -11,9 +11,9 @@ Mesh layouts (the reference's):
 * multi-pod:   (2, 16, 16)   axes ("pod", "data", "model")   = 512 ranks
 
 Axis roles: "pod" = cross-pod data parallelism, "data" = data parallelism
-+ FSDP parameter sharding, "model" = tensor/expert parallelism (the port
-shards storage over it; its compute stays replicated within a model group,
-``ROADMAP.md`` queue 1 item 24).
++ FSDP parameter sharding, "model" = tensor/expert parallelism: storage is
+sharded over it by the rules, and each rank computes on its ``model``
+shards (:mod:`repro_torch.models.tensor_parallel`).
 
 :func:`world` opens a process group of one rank when none exists (gloo on
 the CPU, NCCL on the card), so that one device runs the same code as many
@@ -28,11 +28,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.compat import resolve_device
 
-__all__ = ["make_host_mesh", "make_mesh", "make_production_mesh", "mesh_devices",
-           "world"]
+__all__ = ["full_tensor", "model_local", "make_host_mesh", "make_mesh", "make_production_mesh",
+           "mesh_devices", "world"]
 
 
 def mesh_devices(n: int) -> np.ndarray:
@@ -98,3 +99,39 @@ def world(device=None):
         yield
     finally:
         dist.destroy_process_group()
+
+
+def full_tensor(dt: DTensor) -> torch.Tensor:
+    """The whole tensor behind a DTensor on every rank, gathered one mesh
+    axis at a time by SUM all-reducing a zero-filled buffer into which each
+    rank writes its shard: ``dist.all_reduce`` is the one collective gloo
+    takes for CUDA tensors, so this runs alike on every backend.  Shards
+    split as DTensor splits them (ceil-sized chunks, the last ones short)."""
+    mesh = dt.device_mesh
+    t = dt.to_local()
+    for i, p in enumerate(dt.placements):
+        n = mesh.size(i)
+        if not isinstance(p, Shard) or n == 1:
+            continue
+        full = dt.shape[p.dim]
+        chunk = -(-full // n)
+        lo = min(mesh.get_local_rank(i) * chunk, full)
+        shape = list(t.shape)
+        shape[p.dim] = full
+        buf = t.new_zeros(shape)
+        buf.narrow(p.dim, lo, t.shape[p.dim]).copy_(t)
+        dist.all_reduce(buf, group=mesh.get_group(i))
+        t = buf
+    return t
+
+
+def model_local(dt: DTensor) -> torch.Tensor:
+    """The rank's ``model`` shard of a DTensor, gathered over every other
+    mesh axis (``redistribute`` to ``Replicate`` there): what a rank
+    computes with."""
+    mesh = dt.device_mesh
+    keep = tuple(p if mesh.mesh_dim_names[i] == "model" or mesh.size(i) == 1
+                 else Replicate() for i, p in enumerate(dt.placements))
+    if keep != tuple(dt.placements):       # a shard over an axis of one rank is whole
+        dt = dt.redistribute(mesh, keep)
+    return dt.to_local()

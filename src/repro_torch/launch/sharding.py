@@ -43,7 +43,9 @@ __all__ = [
     "activation_policy",
     "batch_axes",
     "input_pspecs",
+    "local_shape",
     "mesh_axes",
+    "model_shard",
     "named",
     "opt_pspecs",
     "output_pspecs",
@@ -68,7 +70,10 @@ REPL = P()
 
 
 def mesh_axes(mesh) -> dict[str, int]:
-    """Axis name -> size of a ``DeviceMesh`` or a reference-style mesh."""
+    """Axis name -> size of a ``DeviceMesh``, a reference-style mesh or an
+    ordered ``{axis: size}`` dict."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:
         return dict(zip(names, tuple(mesh.shape)))
@@ -158,6 +163,39 @@ def param_pspecs(cfg: ModelConfig, params_shape: dict, mesh) -> dict[str, P]:
     parameter names to tensors (meta tensors will do)."""
     return {name: _padded(_param_rule(name.split("."), cfg, mesh), t.ndim)
             for name, t in params_shape.items()}
+
+
+def _model_dims(spec: P, shape, mesh):
+    """(dim, ways) of each dimension ``spec`` puts on the ``model`` axis."""
+    ways = _axis_size(mesh, "model")
+    out = []
+    for d, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if "model" in names and ways > 1:
+            if shape[d] % ways:
+                raise ValueError(f"dimension {d} of {tuple(shape)} does not split "
+                                 f"evenly over a model axis of {ways}")
+            out.append((d, ways))
+    return out
+
+
+def local_shape(spec: P, shape, mesh) -> tuple:
+    """The shape of one rank's shard over the ``model`` axis of ``mesh`` of a
+    tensor of ``shape`` placed by ``spec``: what a rank computes with (the
+    other axes are gathered before compute)."""
+    out = list(shape)
+    for d, ways in _model_dims(spec, shape, mesh):
+        out[d] //= ways
+    return tuple(out)
+
+
+def model_shard(t, spec: P, mesh, rank: int):
+    """Model rank ``rank``'s shard of the whole tensor ``t`` placed by
+    ``spec`` (a view; ``t`` itself when ``spec`` leaves ``model`` out)."""
+    for d, ways in _model_dims(spec, t.shape, mesh):
+        n = t.shape[d] // ways
+        t = t.narrow(d, rank * n, n)
+    return t
 
 
 def opt_pspecs(cfg: ModelConfig, opt_shape: dict, mesh) -> dict:

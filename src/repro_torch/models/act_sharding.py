@@ -6,7 +6,7 @@ launchers install a policy mapping activation *kinds* to placements (a
 one DTensor placement per mesh dimension), and the model calls
 :func:`constrain` at layout-critical points (the residual stream, logits).
 With no policy installed, which is how every serving and training path of
-the port runs today, every hook is the identity.
+the port runs, every hook is the identity.
 
 Kinds:
 * ``residual``  — (B, S, d) stream between blocks
@@ -14,12 +14,14 @@ Kinds:
 * ``moe_ecd``   — (E, C, d) expert buffers
 
 :func:`constrain` redistributes a DTensor to the kind's placements; a plain
-tensor is a whole local value (the port's compute is replicated within a
-model group) and passes through unchanged, as does a tensor whose rank the
-placements do not fit (the reference skips a mismatch silently too).
-The Trainer and every server hand the model plain tensors, so until the
-model axis computes on DTensors (ROADMAP queue 1 item 24) a policy
-changes nothing on any path.
+tensor is a rank's local value and passes through unchanged, as does a
+tensor whose rank the placements do not fit (the reference skips a mismatch
+silently too).  The model computes on plain tensors, each rank on its
+``model`` shards, with the collectives GSPMD would insert written out in
+:mod:`~repro_torch.models.tensor_parallel`, which a launcher installs apart
+from this policy.  The one thing a policy selects is the MoE's
+``"shardmap"`` capacity rule: per data shard when the policy's mesh has a
+``model`` axis (:func:`current_mesh`), as in the reference.
 """
 
 from __future__ import annotations

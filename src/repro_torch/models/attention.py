@@ -29,6 +29,17 @@ KV caches come in two layouts (chosen per layer kind):
 Unlike the reference, whose arrays are immutable, the port preallocates each
 cache at prefill and updates it **in place** (``index_copy_`` at the slot) in
 every decode step: :func:`attn_block_decode` returns the cache it was given.
+
+Over a ``model`` mesh axis (:mod:`~repro_torch.models.tensor_parallel`) the
+blocks are Megatron's: q, k and v column-parallel (a rank holds its heads;
+:func:`project_heads` reads the head count from the weight), ``o``
+row-parallel and followed by one SUM all-reduce, the block's input under
+``copy_to_model``.  The blocks take ``heads=(n_heads, n_kv_heads)``, the
+whole counts, to tell a split weight from a whole one; where the rules shard
+q but replicate k and v (``n_kv_heads % tp != 0``), a rank slices out the kv
+heads its q heads read (:func:`~repro_torch.models.tensor_parallel.
+kv_head_slice`), so its group size is (H / tp) / (its kv heads).  Caches
+hold the rank's kv heads.  The kernels run at the rank's head counts.
 """
 
 from __future__ import annotations
@@ -40,11 +51,14 @@ from repro_torch.kernels import gqa_decode_attention as _decode_kernel
 from repro_torch.kernels.decode_attention import decode_attention_torch
 from repro_torch.kernels.flash_attention import chunked_backward, chunked_forward
 
+from . import tensor_parallel as tp
 from .layers import apply_rope
 from .opt_flags import get_flags
 
 __all__ = [
     "attention_projections",
+    "kv_projection",
+    "model_split",
     "project_heads",
     "chunked_attention",
     "flash_attention_chunked",
@@ -114,9 +128,33 @@ def _out_project(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.transpose(1, 2).reshape(B, S, H * hd) @ w
 
 
-def attention_projections(p, x: torch.Tensor):
-    """x: (B, S, d) -> q (B, H, S, hd), k/v (B, KV, S, hd)."""
-    return project_heads(x, p["q"]), project_heads(x, p["k"]), project_heads(x, p["v"])
+def attention_projections(p, x: torch.Tensor, kv_heads: tuple | None = None):
+    """x: (B, S, d) -> q (B, H, S, hd), k/v (B, KV, S, hd); ``kv_heads``
+    (lo, hi) projects only those heads of k and v."""
+    return project_heads(x, p["q"]), *kv_projection(p, x, kv_heads)
+
+
+def kv_projection(p, x: torch.Tensor, kv_heads: tuple | None = None):
+    """k and v (B, KV, S, hd) of ``x`` through ``p["k"]``, ``p["v"]``, or
+    through their heads ``kv_heads`` = (lo, hi) only."""
+    if kv_heads is None:
+        return project_heads(x, p["k"]), project_heads(x, p["v"])
+    lo, hi = kv_heads
+    return project_heads(x, p["k"][:, lo:hi]), project_heads(x, p["v"][:, lo:hi])
+
+
+def model_split(p, heads: tuple | None):
+    """``(split, kv_heads)`` of a block's weights over the model axis:
+    ``split`` when this rank holds a part of the heads (its input goes
+    under ``copy_to_model``, its output under ``reduce_from_model``), and
+    the kv heads its q heads read (None: all it holds).  ``heads`` is the
+    config's (n_heads, n_kv_heads); None means the weights are whole."""
+    if heads is None:
+        return False, None
+    kv = tp.kv_head_slice(p["q"].shape[1], p["k"].shape[1], *heads)
+    if kv is None:
+        return False, None
+    return True, (None if kv == (0, p["k"].shape[1]) else kv)
 
 
 def chunked_attention(
@@ -238,6 +276,7 @@ def attn_block_prefill(
     cache_size: int | None = None,   # build a cache of this size if not None
     kv_override: tuple | None = None,  # (k, v) for cross-attention
     q_offset: int = 0,
+    heads: tuple | None = None,      # (n_heads, n_kv_heads): split over model
 ):
     """Prefill attention; returns (y, cache or None).
 
@@ -251,8 +290,11 @@ def attn_block_prefill(
     if (kind == "cross") != (kv_override is not None):
         raise ValueError("kv_override is given exactly for kind 'cross'")
     B, S, _ = x.shape
+    split, kv_heads = model_split(p, heads)
+    if split:
+        x = tp.copy_to_model(x)
     if kv_override is None:
-        q, k, v = attention_projections(p, x)
+        q, k, v = attention_projections(p, x, kv_heads)
     else:
         q = project_heads(x, p["q"])
         k, v = kv_override
@@ -264,6 +306,8 @@ def attn_block_prefill(
     out = _dispatch_prefill(q, k, v, causal=kind in ("attn", "local"), window=win,
                             logit_cap=logit_cap, q_offset=q_offset)
     y = _out_project(out, p["o"])
+    if split:
+        y = tp.reduce_from_model(y)
 
     cache = None
     if cache_size is not None:
@@ -292,6 +336,7 @@ def attn_block_decode(
     window: int,
     logit_cap: float | None,
     slot_pos: torch.Tensor | None = None,
+    heads: tuple | None = None,      # (n_heads, n_kv_heads): split over model
 ):
     """One decode step: write this token's k, v into ``cache`` in place and
     attend over it.  ``slot_pos`` may be passed in when several layers share
@@ -309,14 +354,18 @@ def attn_block_decode(
         raise ValueError(f"attention kind {kind!r} has no decode step")
     B = x.shape[0]
     size = cache["k"].shape[2]
+    split, kv_heads = model_split(p, heads)
+    if split:
+        x = tp.copy_to_model(x)
     if kind == "cross":
         if slot_pos is None:
             slot_pos = full_slot_positions(size, x.device)
         out = _dispatch_decode(project_heads(x, p["q"]), cache["k"], cache["v"],
                                slot_pos, pos, window=None, logit_cap=logit_cap,
                                layout="full")
-        return _out_project(out, p["o"]), cache
-    q, k, v = attention_projections(p, x)
+        y = _out_project(out, p["o"])
+        return (tp.reduce_from_model(y) if split else y), cache
+    q, k, v = attention_projections(p, x, kv_heads)
     posb = pos.reshape(1, 1, 1).expand(B, 1, 1)
     q = apply_rope(q, posb, inv_freq)
     k = apply_rope(k, posb, inv_freq)
@@ -335,4 +384,5 @@ def attn_block_decode(
     cache["v"].index_copy_(2, index, v)
     out = _dispatch_decode(q, cache["k"], cache["v"], slot_pos, pos,
                            window=win, logit_cap=logit_cap, layout=layout)
-    return _out_project(out, p["o"]), cache
+    y = _out_project(out, p["o"])
+    return (tp.reduce_from_model(y) if split else y), cache

@@ -16,6 +16,12 @@ and ``"cross_pos"``, the 0-dim int32 position every cross decode attends at
 (the source length: every slot seen), made once at prefill so that a decode
 step makes no tensor from a host number and a CUDA graph can replay it.
 
+Over a ``model`` mesh axis every block splits as the decoder-only
+model's do (:mod:`~repro_torch.models.attention`, ``layers.apply_mlp``):
+the encoder, self and cross attention by heads (the cross keys and values
+of the rank's kv heads from the encoder output under ``copy_to_model``),
+the MLP by width, the tied embedding and the logits by vocab.
+
 Two differences from :class:`~repro_torch.models.lm.LM`, both the
 reference's: the decoder embeds its tokens *without* the ``sqrt(d)`` scale
 although the embeddings are tied, and ``loss_fn`` has no aux term and no
@@ -30,17 +36,19 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import resolve_device
 
+from . import tensor_parallel as tp
 from .attention import (
     attn_block_decode,
     attn_block_prefill,
     full_slot_positions,
     init_kv_cache,
-    project_heads,
+    kv_projection,
+    model_split,
 )
 from .act_sharding import constrain
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, rope_frequencies, softcap
-from .lm import _norm, attention_weights, mlp_weights
+from .lm import _norm, attention_weights, mlp_weights, vocab_embed
 
 __all__ = ["EncDec"]
 
@@ -60,7 +68,8 @@ class EncoderLayer(nn.Module):
         cfg = self.cfg
         h = apply_norm(self.ln1, x, cfg.norm_type, cfg.norm_eps)
         h, _ = attn_block_prefill(self.attn, h, inv_freq, kind="encoder",
-                                  window=cfg.window_size, logit_cap=None)
+                                  window=cfg.window_size, logit_cap=None,
+                                  heads=(cfg.n_heads, cfg.n_kv_heads))
         x = constrain(x + h, "residual")
         h = apply_norm(self.ln2, x, cfg.norm_type, cfg.norm_eps)
         return constrain(x + apply_mlp(self.mlp, h, cfg.mlp_type), "residual")
@@ -86,22 +95,29 @@ class CrossDecoderLayer(nn.Module):
 
     def cross_kv(self, enc_out):
         """The encoder output's keys and values (B, KV, S_src, hd),
-        contiguous: the decode kernel reads them as a cache."""
-        return (project_heads(enc_out, self.cross["k"]).contiguous(),
-                project_heads(enc_out, self.cross["v"]).contiguous())
+        contiguous: the decode kernel reads them as a cache.  Over the
+        ``model`` axis, the rank's kv heads."""
+        cfg = self.cfg
+        split, kv_heads = model_split(self.cross, (cfg.n_heads, cfg.n_kv_heads))
+        if split:
+            enc_out = tp.copy_to_model(enc_out)
+        k, v = kv_projection(self.cross, enc_out, kv_heads)
+        return k.contiguous(), v.contiguous()
 
     def prefill(self, x, enc_out, inv_freq, cache_len: int | None):
         """Returns (x, self cache, cross cache); the caches are None when
         ``cache_len`` is."""
         cfg = self.cfg
+        heads = (cfg.n_heads, cfg.n_kv_heads)
         h, self_cache = attn_block_prefill(
             self.self, self._norm("ln1", x), inv_freq, kind="attn",
-            window=cfg.window_size, logit_cap=None, cache_size=cache_len)
+            window=cfg.window_size, logit_cap=None, cache_size=cache_len,
+            heads=heads)
         x = constrain(x + h, "residual")
         k, v = self.cross_kv(enc_out)
         h, _ = attn_block_prefill(self.cross, self._norm("ln_x", x), inv_freq,
                                   kind="cross", window=cfg.window_size,
-                                  logit_cap=None, kv_override=(k, v))
+                                  logit_cap=None, kv_override=(k, v), heads=heads)
         x = constrain(x + h, "residual")
         x = constrain(x + apply_mlp(self.mlp, self._norm("ln2", x), cfg.mlp_type),
                       "residual")
@@ -114,15 +130,16 @@ class CrossDecoderLayer(nn.Module):
     def decode(self, x, self_cache, cross_cache, pos, cross_pos, inv_freq,
                slot_pos, cross_slot_pos):
         cfg = self.cfg
+        heads = (cfg.n_heads, cfg.n_kv_heads)
         h, _ = attn_block_decode(self.self, self._norm("ln1", x),
                                  self_cache, pos, inv_freq, kind="attn",
                                  window=cfg.window_size, logit_cap=None,
-                                 slot_pos=slot_pos)
+                                 slot_pos=slot_pos, heads=heads)
         x = x + h
         h, _ = attn_block_decode(self.cross, self._norm("ln_x", x), cross_cache,
                                  cross_pos, inv_freq, kind="cross",
                                  window=cfg.window_size, logit_cap=None,
-                                 slot_pos=cross_slot_pos)
+                                 slot_pos=cross_slot_pos, heads=heads)
         x = x + h
         return x + apply_mlp(self.mlp, self._norm("ln2", x), cfg.mlp_type)
 
@@ -154,8 +171,14 @@ class EncDec(nn.Module):
         self.dec = nn.ModuleList(CrossDecoderLayer(cfg, dtype=dtype, device=dev)
                                  for _ in range(cfg.n_layers))
         self.final_norm = _norm(cfg.d_model, cfg.norm_type, dev)
+        self.model_shard = (0, 1)
+        self.init_buffers(dev)
+
+    def init_buffers(self, device) -> None:
+        """The RoPE frequencies on ``device``."""
+        cfg = self.cfg
         self.register_buffer("inv_freq", rope_frequencies(
-            cfg.head_dim, cfg.rope_fraction, cfg.rope_theta, device=dev),
+            cfg.head_dim, cfg.rope_fraction, cfg.rope_theta, device=device),
             persistent=False)
 
     @property
@@ -166,8 +189,18 @@ class EncDec(nn.Module):
         return apply_norm(getattr(self, name), x, self.cfg.norm_type, self.cfg.norm_eps)
 
     def _logits(self, x):
-        logits = x @ self.embed.to(x.dtype).T
+        """(..., V) logits, or the rank's vocab shard of them."""
+        if self.embed.shape[0] < self.cfg.vocab_size:
+            x = tp.copy_to_model(x)
+        logits = x @ self.embed.T.to(x.dtype)
         return softcap(logits, self.cfg.final_logit_softcap)
+
+    def _check_shard(self) -> None:
+        have = (tp.model_rank(), tp.model_size())
+        if self.model_shard[1] != have[1] or (have[1] > 1 and self.model_shard != have):
+            raise RuntimeError(
+                f"{self.cfg.name}: a module built as model rank/size "
+                f"{self.model_shard} runs under model group {have}")
 
     def encode(self, src_embeds: torch.Tensor, *, remat: bool = False) -> torch.Tensor:
         """src_embeds (B, S_src, d) from the (stubbed) frontend -> the
@@ -184,8 +217,9 @@ class EncDec(nn.Module):
                 cache_len: int | None = None, logits_slice: int | None = None, *,
                 remat: bool = False):
         """Teacher-forced forward; returns (logits, caches or None)."""
+        self._check_shard()
         enc_out = self.encode(src_embeds, remat=remat)
-        x = self.embed[tokens].to(self.compute_dtype)
+        x = vocab_embed(self.embed, tokens, self.cfg.vocab_size, self.compute_dtype)
         self_caches, cross_caches = [], []
         for layer in self.dec:
             if remat and cache_len is None and torch.is_grad_enabled():
@@ -219,7 +253,8 @@ class EncDec(nn.Module):
         """One decode step for ``token`` (B, 1) at ``pos`` (0-dim int32 on the
         device); writes the self caches in place and returns (logits (B, 1,
         V), caches)."""
-        x = self.embed[token].to(self.compute_dtype)
+        self._check_shard()
+        x = vocab_embed(self.embed, token, self.cfg.vocab_size, self.compute_dtype)
         slot_pos = full_slot_positions(caches["self"][0]["k"].shape[2], x.device)
         cross_slot_pos = full_slot_positions(caches["cross"][0]["k"].shape[2], x.device)
         for layer, self_c, cross_c in zip(self.dec, caches["self"], caches["cross"]):
@@ -233,9 +268,10 @@ class EncDec(nn.Module):
         cross caches of ``src_len`` (the reference's
         ``cache_spec_encdec``), with their ``cross_pos``."""
         cfg, dev = self.cfg, self.device
+        kv = self.dec[0].self["k"].shape[1]       # the rank's kv heads
 
         def one(size):
-            return init_kv_cache(batch, cfg.n_kv_heads, size, cfg.head_dim,
+            return init_kv_cache(batch, kv, size, cfg.head_dim,
                                  self.compute_dtype, dev)
 
         return {"self": [one(max_len) for _ in self.dec],
@@ -248,6 +284,8 @@ class EncDec(nn.Module):
         (B, T) int, optional ``mask``.  Returns (loss, metrics ``loss``,
         ``tokens``), in fp32."""
         logits, _ = self.forward(batch["src_embeds"], batch["inputs"], remat=remat)
+        if logits.shape[-1] < self.cfg.vocab_size:
+            logits = tp.gather_from_model(logits)       # exact: before the cast
         logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]

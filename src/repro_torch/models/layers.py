@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import tensor_parallel as tp
+
 __all__ = ["ParamTree", "apply_norm", "apply_mlp", "rope_frequencies",
            "apply_rope", "softcap"]
 
@@ -58,11 +60,20 @@ def apply_norm(p: Mapping, x: torch.Tensor, norm_type: str, eps: float) -> torch
     return y.to(x.dtype)
 
 
-def apply_mlp(p: Mapping, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+def apply_mlp(p: Mapping, x: torch.Tensor, mlp_type: str, *,
+              reduce: bool = True) -> torch.Tensor:
     """swiglu / geglu: ``act(x @ wg) * (x @ wi) @ wo``; gelu: ``gelu(x @ wi) @ wo``.
 
-    GELU is the tanh approximation, ``jax.nn.gelu``'s default.
+    GELU is the tanh approximation, ``jax.nn.gelu``'s default.  Over a
+    ``model`` axis of more than one rank the rules always split the hidden
+    width, so ``wi``/``wg`` are column-parallel and ``wo`` row-parallel: the
+    input goes under ``copy_to_model`` and the output is SUM-reduced, unless
+    ``reduce=False``, which returns the rank's part (the MoE adds it to its
+    experts' part before one reduce) and leaves the input to the caller.
     """
+    split = tp.model_size() > 1
+    if split and reduce:
+        x = tp.copy_to_model(x)
     h = x @ p["wi"].to(x.dtype)
     if mlp_type in ("swiglu", "geglu"):
         g = x @ p["wg"].to(x.dtype)
@@ -70,7 +81,8 @@ def apply_mlp(p: Mapping, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
         h = act * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["wo"].to(x.dtype)
+    y = h @ p["wo"].to(x.dtype)
+    return tp.reduce_from_model(y) if split and reduce else y
 
 
 def rope_frequencies(head_dim: int, fraction: float, theta: float,

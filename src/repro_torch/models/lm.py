@@ -37,6 +37,17 @@ each use, so gradients and AdamW state are fp32, as in the reference.  The
 residual stream and the logits pass through ``act_sharding.constrain`` at
 the reference's sites (the identity while no policy is installed).
 Encoder-decoder configs are :class:`repro_torch.models.encdec.EncDec`.
+
+Over a ``model`` mesh axis a rank's module (``weights.empty(..., model=
+(rank, size))``, ``model_shard`` set) holds its shards at local shapes and
+runs only under that model group (:mod:`~repro_torch.models.
+tensor_parallel`): attention by heads, the MLP by width, the MoE by
+experts, the RG-LRU by width, the SSM replicated (its rules replicate it);
+where the rules split the vocab, the embedding is a vocab-parallel lookup
+(ids outside the rank's rows zeroed, then SUM-reduced), the logits are the
+rank's vocab shard (what ``prefill`` and ``decode_step`` return), and
+``loss_fn`` gathers them (or, with ``OptFlags.sharded_loss``, reduces the
+max, the partition sums and the gold logit over ``model``).
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ from .attention import (
     full_slot_positions,
     ring_slot_positions,
 )
+from . import tensor_parallel as tp
 from .act_sharding import constrain
 from .config import ModelConfig
 from .layers import ParamTree, apply_mlp, apply_norm, rope_frequencies, softcap
@@ -62,7 +74,8 @@ from .opt_flags import get_flags
 from .rglru import rglru_decode, rglru_prefill, rglru_spec
 from .ssm import ssm_decode, ssm_prefill, ssm_spec
 
-__all__ = ["LM", "DecoderLayer", "ffn_kind", "layer_kinds", "prefix_kinds"]
+__all__ = ["LM", "DecoderLayer", "cross_entropy", "ffn_kind", "layer_kinds",
+           "prefix_kinds", "vocab_embed"]
 
 
 def prefix_kinds(cfg: ModelConfig) -> list[str]:
@@ -90,6 +103,48 @@ def ffn_kind(cfg: ModelConfig, kind: str) -> str:
     if kind == "attn_dense":
         return "dense"
     return "moe" if cfg.n_experts else "dense"
+
+
+def vocab_embed(embed: torch.Tensor, tokens: torch.Tensor, vocab: int,
+                dtype) -> torch.Tensor:
+    """``embed[tokens]`` in ``dtype``; where ``embed`` holds the rank's rows
+    ``[base, base + V / tp)`` of a vocab split over ``model``, each rank
+    looks up the ids in its range, zeros the others and the ranks' rows are
+    SUM-reduced (one non-zero term a token: exact)."""
+    n = embed.shape[0]
+    if n == vocab:
+        return embed[tokens].to(dtype)
+    base = tp.model_rank() * n
+    local = tokens - base
+    inside = (local >= 0) & (local < n)
+    x = embed[torch.where(inside, local, 0)].to(dtype)
+    return tp.reduce_from_model(torch.where(inside[..., None], x, 0.0))
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """Per-position ``logsumexp(logits) - logits[target]``, in fp32.
+    ``OptFlags.sharded_loss`` picks the vocab-shard form (every (B, S, V)
+    op elementwise; over a vocab split on ``model``: a MAX-reduce of the
+    detached max, SUM-reduces of the partition sums and of the gold logit);
+    otherwise a split vocab's logits are gathered first, in their own dtype
+    (a gather is exact, so that halves a bf16 model's traffic)."""
+    n = logits.shape[-1]
+    if not get_flags().sharded_loss and n < vocab:
+        logits = tp.gather_from_model(logits)
+    logits = logits.float()
+    if get_flags().sharded_loss:
+        m = tp.max_from_model(logits.amax(dim=-1, keepdim=True).detach()) \
+            if n < vocab else logits.amax(dim=-1, keepdim=True).detach()
+        z = torch.exp(logits - m).sum(dim=-1)
+        base = tp.model_rank() * n if n < vocab else 0
+        ids = base + torch.arange(n, device=logits.device)
+        gold = torch.where(ids == targets[..., None], logits, 0.0).sum(dim=-1)
+        if n < vocab:
+            z, gold = tp.reduce_from_model(z), tp.reduce_from_model(gold)
+        return torch.log(z) + m[..., 0] - gold
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - torch.gather(logits, -1, targets[..., None])[..., 0]
 
 
 def _norm(d: int, norm_type: str, device) -> nn.ParameterDict:
@@ -200,7 +255,8 @@ class DecoderLayer(nn.Module):
                     else cache_len
             h, cache = attn_block_prefill(
                 self.attn, h, inv_freq, kind=self.mixer, window=cfg.window_size,
-                logit_cap=cfg.attn_logit_softcap, cache_size=size)
+                logit_cap=cfg.attn_logit_softcap, cache_size=size,
+                heads=(cfg.n_heads, cfg.n_kv_heads))
         else:
             fn = rglru_prefill if self.mixer == "rglru" else ssm_prefill
             h, cache = fn(getattr(self, self.mixer), h, cfg)
@@ -211,20 +267,20 @@ class DecoderLayer(nn.Module):
 
     def decode(self, x, cache, pos, inv_freq, slot_pos):
         """One token; writes ``cache`` in place and returns (x, cache).  The
-        MoE FFN runs dropless (capacity = B tokens, from the shape)."""
+        MoE FFN runs dropless (capacity = the global batch's B tokens)."""
         cfg = self.cfg
         h = self._apply_norm("ln1", x)
         if self.mixer in ("attn", "local"):
             h, cache = attn_block_decode(
                 self.attn, h, cache, pos, inv_freq, kind=self.mixer,
                 window=cfg.window_size, logit_cap=cfg.attn_logit_softcap,
-                slot_pos=slot_pos)
+                slot_pos=slot_pos, heads=(cfg.n_heads, cfg.n_kv_heads))
         else:
             fn = rglru_decode if self.mixer == "rglru" else ssm_decode
             h, new = fn(getattr(self, self.mixer), h, cache, cfg)
             for key, value in new.items():
                 cache[key].copy_(value)
-        x, _ = self._residual(x, h, x.shape[0] * x.shape[1])
+        x, _ = self._residual(x, h, x.shape[0] * x.shape[1] * tp.batch_size())
         return x, cache
 
 
@@ -258,22 +314,37 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 torch.empty((cfg.d_model, cfg.vocab_size), dtype=dtype, device=dev))
+        self.model_shard = (0, 1)
+        self.init_buffers(dev)
+
+    def init_buffers(self, device) -> None:
+        """The RoPE frequencies and the embedding scale on ``device``."""
+        cfg = self.cfg
         self.register_buffer("inv_freq", rope_frequencies(
-            cfg.head_dim, cfg.rope_fraction, cfg.rope_theta, device=dev),
+            cfg.head_dim, cfg.rope_fraction, cfg.rope_theta, device=device),
             persistent=False)
         # the reference multiplies by jnp.asarray(d_model**0.5, dtype): in
         # bf16 that is 59.75 for gemma2-9b, not 59.866
         self.register_buffer("embed_scale", torch.tensor(
-            cfg.d_model ** 0.5, dtype=self.compute_dtype, device=dev),
+            cfg.d_model ** 0.5, dtype=self.compute_dtype, device=device),
             persistent=False)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
+    def _check_shard(self) -> None:
+        """A module split over ``model`` runs only under its model group, and
+        a whole one only outside any group of more than one rank."""
+        have = (tp.model_rank(), tp.model_size())
+        if self.model_shard[1] != have[1] or (have[1] > 1 and self.model_shard != have):
+            raise RuntimeError(
+                f"{self.cfg.name}: a module built as model rank/size "
+                f"{self.model_shard} runs under model group {have}")
+
     def _embed(self, tokens: torch.Tensor,
                extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
-        x = self.embed[tokens].to(self.compute_dtype)
+        x = vocab_embed(self.embed, tokens, self.cfg.vocab_size, self.compute_dtype)
         if self.cfg.tie_embeddings:
             x = x * self.embed_scale
         if extra_embeds is not None:
@@ -281,10 +352,12 @@ class LM(nn.Module):
         return constrain(x, "residual")
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
-            logits = x @ self.embed.to(x.dtype).T
-        else:
-            logits = x @ self.lm_head.to(x.dtype)
+        """(..., V) logits, or the rank's vocab shard (..., V / tp) where the
+        rules split the vocab over ``model``."""
+        w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        if w.shape[1] < self.cfg.vocab_size:
+            x = tp.copy_to_model(x)
+        logits = x @ w.to(x.dtype)
         return constrain(softcap(logits, self.cfg.final_logit_softcap), "logits")
 
     def forward(self, tokens: torch.Tensor, cache_len: int | None = None,
@@ -299,6 +372,7 @@ class LM(nn.Module):
         in the backward pass (training only).  ``aux_loss``: the MoE layers'
         load-balancing losses summed (fp32; 0 without MoE).
         """
+        self._check_shard()
         x = self._embed(tokens, extra_embeds)
         caches = [] if cache_len is not None else None
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -343,18 +417,7 @@ class LM(nn.Module):
                                       remat=remat)
         if extra is not None:
             logits = logits[:, extra.shape[1]:]
-        logits = logits.float()
-        targets = batch["targets"].long()
-        if get_flags().sharded_loss:
-            m = logits.amax(dim=-1, keepdim=True).detach()
-            z = torch.exp(logits - m).sum(dim=-1)
-            logz = torch.log(z) + m[..., 0]
-            vocab = torch.arange(logits.shape[-1], device=logits.device)
-            gold = torch.where(vocab == targets[..., None], logits, 0.0).sum(dim=-1)
-        else:
-            logz = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-        nll = logz - gold
+        nll = cross_entropy(logits, batch["targets"].long(), self.cfg.vocab_size)
         mask = batch.get("mask")
         mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
         loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
@@ -366,6 +429,7 @@ class LM(nn.Module):
         """One decode step for ``token`` (B, 1) at position ``pos`` (0-dim
         int32 on the device).  Writes the caches in place and returns
         (logits (B, 1, V), caches)."""
+        self._check_shard()
         x = self._embed(token)
         slot_pos: dict[tuple, torch.Tensor] = {}    # one per (mixer, size)
         for layer, cache in zip(self.layers, caches):

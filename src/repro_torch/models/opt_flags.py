@@ -15,17 +15,17 @@ What the port reads today:
 * ``n_micro_override`` — the accumulation depth of the train launcher
   (``repro_torch.launch.steps.micro_depth``);
 * ``moe_impl`` — :func:`repro_torch.models.moe.apply_moe`'s dispatch,
-  ``"einsum"`` or ``"gather"``;
+  ``"einsum"``, ``"gather"`` or ``"shardmap"`` (expert-parallel, with
+  capacity per data shard under an activation policy whose mesh has a
+  ``model`` axis, as in the reference);
 * ``mesh_factor`` — the (data, model) split of the dry-run's production
   mesh (:mod:`repro_torch.launch.dryrun`), its only reader, as in the
   reference.
 
 The other fields keep the reference's defaults, and :func:`set_flags`
 refuses any other value of them, so that no setting silently does nothing
-(:data:`WAITS` says why for each): ``moe_impl="shardmap"`` is
-expert-parallel compute over the ``model`` axis (``ROADMAP.md`` queue 1
-item 24);
-no code of the reference reads ``bf16_collectives``; ``cache_update``
+(:data:`WAITS` says why for each): no code of the reference reads
+``bf16_collectives``; ``cache_update``
 selects nothing, since the port's decode step always updates its caches in
 place.
 """
@@ -42,6 +42,8 @@ class OptFlags:
     # MoE dispatch implementation:
     #   "einsum" — capacity one-hot einsums (baseline; O(T^2) dispatch flops)
     #   "gather" — sort/scatter token indexing (O(T*K*d); same routing rule)
+    #   "shardmap" — expert-parallel layout, capacity per data shard under a
+    #                policy with a model axis
     moe_impl: str = "einsum"
     # Mesh factorization override (logical): (dp, tp) with dp*tp = chips per
     # pod.  None -> the launcher's default (16, 16).
@@ -73,7 +75,7 @@ _FLAGS = OptFlags()
 #: the fields the port reads; any other must keep its default
 READ = ("sharded_loss", "flash_bwd", "n_micro_override", "moe_impl", "mesh_factor")
 #: the MoE dispatches the port has
-MOE_IMPLS = ("einsum", "gather")
+MOE_IMPLS = ("einsum", "gather", "shardmap")
 #: why each unread field must keep its default
 WAITS = {
     "bf16_collectives": "no code of the reference reads it",
@@ -92,9 +94,8 @@ def set_flags(flags: OptFlags) -> None:
         raise ValueError(f"OptFlags {unread} are not read by the port; leave "
                          f"them at their defaults ({why})")
     if flags.moe_impl not in MOE_IMPLS:
-        raise ValueError(f"OptFlags moe_impl {flags.moe_impl!r} is not ported "
-                         "(expert-parallel compute over the model axis, ROADMAP.md "
-                         f"queue 1 item 24); the port has {MOE_IMPLS}")
+        raise ValueError(f"OptFlags moe_impl {flags.moe_impl!r} is not a MoE "
+                         f"dispatch; the port has {MOE_IMPLS}")
     global _FLAGS
     _FLAGS = flags
 

@@ -17,6 +17,16 @@ the reference's ``associative_scan`` with the same combine.  (A closed form
 through cumulative log-decays would overflow: ``log a`` reaches about
 ``-8 softplus(lam)`` a step.)  Decode is the exact O(1) update.  GELU is
 the tanh form, ``jax.nn.gelu``'s default.
+
+Over a ``model`` mesh axis (:mod:`~repro_torch.models.tensor_parallel`),
+where the rules split the width r: ``in_x`` and ``in_g`` are
+column-parallel (the input under ``copy_to_model``), the conv channels,
+``lam``, the states and the scan are the rank's r / tp, and the biases
+``conv_b``, ``ba``, ``bx``, which the rules replicate, are sliced to them.
+The gates' ``wa`` and ``wx`` (r, r / tp) read every channel, so the conv
+output is gathered (``gather_from_model``, then ``copy_to_model``: what
+follows is the rank's own columns) before them; ``out`` is row-parallel,
+followed by one SUM all-reduce.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
+from . import tensor_parallel as tp
 from .config import ModelConfig
 
 __all__ = ["init_rglru_state", "linear_scan", "lam_init", "rglru_decode",
@@ -65,11 +76,21 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def _gates(p: Mapping, x: torch.Tensor):
-    """x: (..., r) conv output -> (a, gated input u), fp32."""
+def _width(p: Mapping, cfg: ModelConfig) -> slice | None:
+    """The rank's channels of the width when split over ``model``, else
+    None."""
+    r = p["in_x"].shape[1]
+    return None if r == cfg.d_rnn else tp.local_slice(r, cfg.d_rnn)
+
+
+def _gates(p: Mapping, x: torch.Tensor, part: slice | None = None):
+    """x: (..., r) conv output (the rank's channels ``part`` of it) ->
+    (a, gated input u), fp32."""
     xf = x.float()
-    r_gate = torch.sigmoid(xf @ p["wa"] + p["ba"])
-    i_gate = torch.sigmoid(xf @ p["wx"] + p["bx"])
+    every = xf if part is None else tp.copy_to_model(tp.gather_from_model(xf))
+    ba, bx = (p["ba"], p["bx"]) if part is None else (p["ba"][part], p["bx"][part])
+    r_gate = torch.sigmoid(every @ p["wa"] + ba)
+    i_gate = torch.sigmoid(every @ p["wx"] + bx)
     a = torch.exp(-_C * r_gate * F.softplus(p["lam"]))
     u = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i_gate * xf)
     return a, u
@@ -93,6 +114,9 @@ def rglru_prefill(p: Mapping, x: torch.Tensor, cfg: ModelConfig
     """x: (B, S, d) -> (y (B, S, d), final state)."""
     B, S, _ = x.shape
     dtype = x.dtype
+    part = _width(p, cfg)
+    if part is not None:
+        x = tp.copy_to_model(x)
     gate = _gelu(x @ p["in_g"].to(dtype))
     xr_raw = x @ p["in_x"].to(dtype)                               # (B, S, r)
     km1 = cfg.rglru_conv - 1
@@ -101,11 +125,13 @@ def rglru_prefill(p: Mapping, x: torch.Tensor, cfg: ModelConfig
     conv = torch.zeros_like(xr_raw)
     for i in range(cfg.rglru_conv):
         conv = conv + pad[:, i:i + S, :] * w[i]
-    conv = conv + p["conv_b"].to(dtype)
+    conv = conv + _bias(p, part).to(dtype)
 
-    a, u = _gates(p, conv)
+    a, u = _gates(p, conv, part)
     h_all = linear_scan(a, u, dim=1)                               # (B, S, r)
     y = (h_all.to(dtype) * gate) @ p["out"].to(dtype)
+    if part is not None:
+        y = tp.reduce_from_model(y)
     take = min(S, km1)
     state_conv = torch.zeros((B, km1, xr_raw.shape[-1]), dtype=dtype, device=x.device)
     state_conv[:, km1 - take:] = xr_raw[:, S - take:]
@@ -117,11 +143,21 @@ def rglru_decode(p: Mapping, x: torch.Tensor, state: Mapping, cfg: ModelConfig
     """One-token decode; x: (B, 1, d).  Returns (y, the new state); the
     caller writes the state where it keeps it."""
     dtype = x.dtype
+    part = _width(p, cfg)
+    if part is not None:
+        x = tp.copy_to_model(x)
     gate = _gelu(x @ p["in_g"].to(dtype))                          # (B, 1, r)
     xr = x @ p["in_x"].to(dtype)
     hist = torch.cat([state["conv"], xr], dim=1)                   # (B, K, r)
-    conv = torch.einsum("bkr,kr->br", hist, p["conv_w"].to(dtype)) + p["conv_b"].to(dtype)
-    a, u = _gates(p, conv)                                         # (B, r)
+    conv = torch.einsum("bkr,kr->br", hist, p["conv_w"].to(dtype)) \
+        + _bias(p, part).to(dtype)
+    a, u = _gates(p, conv, part)                                   # (B, r)
     h = a * state["h"] + u
     y = (h[:, None, :].to(dtype) * gate) @ p["out"].to(dtype)
+    if part is not None:
+        y = tp.reduce_from_model(y)
     return y, {"h": h, "conv": hist[:, 1:]}
+
+
+def _bias(p: Mapping, part: slice | None) -> torch.Tensor:
+    return p["conv_b"] if part is None else p["conv_b"][part]

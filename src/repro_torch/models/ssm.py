@@ -21,6 +21,11 @@ Three details follow the reference exactly:
 
 A single B/C group is shared by every head (n_groups 1, as mamba2-130m);
 dt, A and D are per-head scalars kept in fp32.
+
+Over a ``model`` mesh axis the sharding rules replicate every SSM
+parameter (``launch/sharding.py``: ``in_proj`` and ``out_proj`` only FSDP
+over ``data``), so each rank computes the whole block and its state: no
+collective over ``model`` here.
 """
 
 from __future__ import annotations

@@ -22,6 +22,14 @@ and conversion from the reference's parameter pytree.
   mi``; an enc-dec's stacked ``enc`` / ``dec`` trees become ``enc.i`` /
   ``dec.i``.
 
+``model=(rank, size)`` builds one rank's module for a ``model`` mesh axis
+of ``size``: every parameter at its local shape, which the sharding rules
+give (:func:`repro_torch.launch.sharding.local_shape`), and holding that
+rank's shard (:func:`~repro_torch.launch.sharding.model_shard`).  Each leaf
+is drawn (or read) whole, one at a time, and only the shard is kept, so no
+process holds the whole model; the draws are the unsharded module's, so the
+shards of every rank together are its weights.
+
 Matmul weights are stored in ``cfg.dtype`` (or ``dtype``), norm parameters
 and the recurrent blocks' fp32 parameters in fp32.  The reference keeps
 fp32 weights and casts them at every use, so a cast at load changes no
@@ -38,6 +46,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.compat import resolve_device
+from repro_torch.launch import sharding as shd
 
 from .config import ModelConfig
 from .encdec import EncDec
@@ -68,35 +79,73 @@ def _std(name: str, shape: tuple) -> float:
     return shape[0] ** -0.5
 
 
+def _specs(cfg: ModelConfig, net: nn.Module, size: int) -> dict:
+    return shd.param_pspecs(cfg, dict(net.named_parameters()), {"model": size})
+
+
 def empty(cfg: ModelConfig, *, device=None,
-          param_dtype: torch.dtype | None = None) -> nn.Module:
+          param_dtype: torch.dtype | None = None,
+          model: tuple[int, int] = (0, 1)) -> nn.Module:
     """An :class:`LM` (:class:`EncDec` for an enc-dec config) with
     uninitialised weights: the shapes to restore a checkpoint into, or, on
-    the ``meta`` device, to read names and shapes from."""
+    the ``meta`` device, to read names and shapes from.  ``model=(rank,
+    size)``: rank ``rank``'s module over a ``model`` axis of ``size``
+    (local shapes, ``model_shard`` set)."""
     kind = EncDec if cfg.is_encdec else LM
-    return kind(cfg, device=device, param_dtype=param_dtype)
+    rank, size = model
+    if size == 1:
+        return kind(cfg, device=device, param_dtype=param_dtype)
+    dev = resolve_device(device)
+    net = kind(cfg, device="meta", param_dtype=param_dtype)
+    specs = _specs(cfg, net, size)
+    for name, p in list(net.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        module = net.get_submodule(owner) if owner else net
+        shape = shd.local_shape(specs[name], p.shape, {"model": size})
+        setattr(module, leaf, nn.Parameter(torch.empty(shape, dtype=p.dtype, device=dev)))
+    net.init_buffers(dev)
+    net.model_shard = (rank, size)
+    return net
+
+
+def _fill(cfg: ModelConfig, net: nn.Module, model: tuple[int, int], whole):
+    """Copy into each parameter of ``net`` its rank's shard of
+    ``whole(name, full shape)``, one leaf at a time."""
+    rank, size = model
+    full = empty(cfg, device="meta", param_dtype=torch.float32) if size > 1 else net
+    shapes = {k: tuple(p.shape) for k, p in full.named_parameters()}
+    specs = _specs(cfg, full, size) if size > 1 else None
+    for name, param in net.named_parameters():
+        w = whole(name, shapes[name])
+        if specs is not None:
+            w = shd.model_shard(w, specs[name], {"model": size}, rank)
+        param.copy_(w)
 
 
 @torch.no_grad()
 def init(cfg: ModelConfig, generator: torch.Generator, *, device=None,
-         param_dtype: torch.dtype | None = None) -> nn.Module:
+         param_dtype: torch.dtype | None = None,
+         model: tuple[int, int] = (0, 1)) -> nn.Module:
     """An :class:`LM` (an :class:`EncDec` for an enc-dec config) with seeded
     weights at the reference's scales, made on ``device`` (None: the CUDA
     card); ``generator`` lives on that device.  The draws are fp32 whatever
     ``param_dtype`` (default ``cfg.dtype``), so one seed gives a bf16
-    serving model and an fp32 master copy of the same weights."""
-    model = empty(cfg, device=device, param_dtype=param_dtype)
-    for name, param in model.named_parameters():
+    serving model and an fp32 master copy of the same weights; and whatever
+    ``model``, so each rank's shards are the whole model's."""
+    net = empty(cfg, device=device, param_dtype=param_dtype, model=model)
+    dev = net.device
+
+    def whole(name, shape):
         leaf = name.rsplit(".", 1)[-1]
         if leaf in _CONSTANT:
-            param.fill_(_CONSTANT[leaf])
-        elif leaf == "lam":
-            param.copy_(lam_init(param.shape[0], device=param.device))
-        else:
-            w = torch.randn(param.shape, generator=generator, device=param.device,
-                            dtype=torch.float32)
-            param.copy_(w.mul_(_std(name, tuple(param.shape))))
-    return model
+            return torch.full(shape, _CONSTANT[leaf], device=dev)
+        if leaf == "lam":
+            return lam_init(shape[0], device=dev)
+        w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+        return w.mul_(_std(name, shape))
+
+    _fill(cfg, net, model, whole)
+    return net
 
 
 def _layers(tree: Mapping, prefix: str = "") -> dict[str, Any]:
@@ -143,19 +192,21 @@ def jax_leaf_names(cfg: ModelConfig, params: Mapping) -> dict[str, Any]:
 @torch.no_grad()
 def from_jax_params(cfg: ModelConfig, params_np: Mapping, *, device=None,
                     dtype: torch.dtype | None = None,
-                    param_dtype: torch.dtype | None = None) -> nn.Module:
+                    param_dtype: torch.dtype | None = None,
+                    model: tuple[int, int] = (0, 1)) -> nn.Module:
     """The reference's ``lm.init`` (``encdec.init_encdec``) parameters, a
     pytree of numpy arrays, as an :class:`LM` (:class:`EncDec`) on
     ``device``: compute dtype ``dtype`` (default ``cfg.dtype``), matmul
     weights stored in ``param_dtype`` (default the compute dtype; fp32 for
     training), norm parameters and the recurrent blocks' fp32 parameters in
-    fp32.  Raises unless every reference leaf fills exactly one port
-    parameter of the same shape and every port parameter is filled."""
+    fp32; with ``model=(rank, size)``, rank ``rank``'s shards.  Raises
+    unless every reference leaf fills exactly one port parameter of the
+    same (whole) shape and every port parameter is filled."""
     if dtype is not None:
         cfg = cfg.replace(dtype=str(dtype).removeprefix("torch."))
-    model = empty(cfg, device=device, param_dtype=param_dtype)
+    net = empty(cfg, device=device, param_dtype=param_dtype, model=model)
     flat = jax_leaf_names(cfg, params_np)
-    params = dict(model.named_parameters())
+    params = dict(net.named_parameters())
     extra, missing = set(flat) - set(params), set(params) - set(flat)
     if extra:
         raise ValueError(f"{cfg.name}: reference leaves without a port "
@@ -163,10 +214,12 @@ def from_jax_params(cfg: ModelConfig, params_np: Mapping, *, device=None,
     if missing:
         raise ValueError(f"{cfg.name}: port parameters without a reference "
                          f"leaf: {sorted(missing)}")
-    for name, param in params.items():
+
+    def whole(name, shape):
         arr = np.asarray(flat[name])
-        if tuple(arr.shape) != tuple(param.shape):
-            raise ValueError(f"{name}: reference shape {arr.shape}, port "
-                             f"{tuple(param.shape)}")
-        param.copy_(torch.from_numpy(np.array(arr, np.float32)))
-    return model
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{name}: reference shape {arr.shape}, port {shape}")
+        return torch.from_numpy(np.array(arr, np.float32))
+
+    _fill(cfg, net, model, whole)
+    return net

@@ -17,17 +17,30 @@ pieces built elsewhere:
                  CRC-checked, elastic)
   stragglers     repro_torch.runtime.stragglers.StragglerDetector
 
-Each step gathers the full parameters (``full_tensor``) into a plain
-``nn.Module``, so every kernel runs on plain tensors, never through DTensor
-dispatch; runs the microbatches of the rank's batch shard; averages the
-gradients and the loss over the ``data`` axis; and updates each rank's
-shard with the global gradient norm.  At one rank the numbers are
-``make_train_step``'s.  Over the ``model`` axis storage is sharded by the
-rules, but the compute is replicated within a model group (tensor- and
-expert-parallel compute is ``ROADMAP.md`` queue 1 item 24).  With no
-process group, :func:`~repro_torch.launch.mesh.world` opens one of a single
-rank for each :meth:`Trainer.run`, so one device runs the same code as many
-ranks.
+Each step gathers the rank's ``model`` shards of the parameters over the
+batch/FSDP axes only (``redistribute`` to ``Replicate`` on ``pod``/``data``,
+``Shard`` kept on ``model``) into a plain ``nn.Module`` of local shapes
+(:func:`repro_torch.models.weights.empty` with ``model=(rank, size)``), so
+every kernel runs on plain tensors, never through DTensor dispatch; installs
+the model group (:mod:`repro_torch.models.tensor_parallel`: tensor- and
+expert-parallel compute over ``model``, Megatron-style, and the MoE's
+global routing over the batch axes), not the activation policy, which stays
+cleared as in the reference's Trainer; runs the microbatches of the rank's
+batch shard; averages the gradients and the loss over the batch axes,
+SUM-reduces over ``model`` the gradients of parameters the rules replicate
+while a rank computes with a slice of them; and updates each rank's shard
+with the global gradient norm (squares of ``model``-sharded leaves summed
+over the axis, replicated ones counted once).  Each rank holds and
+computes only its ``model`` shards.  At one rank the numbers are
+``make_train_step``'s.  With no process group,
+:func:`~repro_torch.launch.mesh.world` opens one of a single rank for each
+:meth:`Trainer.run`, so one device runs the same code as many ranks.
+
+Data: the reference splits the global batch into microbatches of
+consecutive rows and shards each over the batch axis, so data rank ``r``'s
+microbatch ``i`` holds global rows ``i B / n + r B / (n dp)`` onward; each
+rank draws just those rows (:class:`~repro_torch.data.TokenPipeline` is
+stateless by row), so that the MoE's global microbatch is the reference's.
 
 ``grad_compression``: the reference keeps the field but its Trainer never
 reads it (``crosspod_reduce`` is called only by its tests).  The port keeps
@@ -54,17 +67,19 @@ from collections import namedtuple
 from dataclasses import dataclass, field
 from typing import Any
 
+import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.compat import resolve_device
 from repro_torch.data import PipelineConfig, TokenPipeline
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.mesh import make_mesh, world
+from repro_torch.launch.mesh import full_tensor, make_mesh, model_local, world
 from repro_torch.launch.steps import accumulate_grads, init_params
 from repro_torch.models import act_sharding
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.weights import empty
 from repro_torch.optim import AdamWConfig, adamw_update, global_norm
@@ -119,10 +134,17 @@ class Trainer:
         # ranks are row-major over the mesh (launch.mesh.make_mesh)
         self.dp = shape[0]
         self.data_rank = rank // math.prod(shape[1:])
-        self.pipeline = TokenPipeline(PipelineConfig(
+        axes = tuple(tcfg.mesh_axes)
+        m = axes.index("model") if "model" in axes else None
+        # this rank's (place, size) on the model axis: its module's shards
+        self.model_part = ((0, 1) if m is None else
+                           (rank // math.prod(shape[m + 1:]) % shape[m], shape[m]))
+        n = tcfg.n_microbatches
+        self.pipelines = [TokenPipeline(PipelineConfig(
             vocab_size=cfg.vocab_size, seq_len=tcfg.seq_len,
             global_batch=tcfg.global_batch, seed=tcfg.seed,
-            num_hosts=self.dp, host_index=self.data_rank))
+            num_hosts=self.dp * n, host_index=i * self.dp + self.data_rank))
+            for i in range(n)]
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
         self.stragglers = StragglerDetector()
         self.metrics_log: list[dict] = []
@@ -146,14 +168,22 @@ class Trainer:
                     "m": {k: p.detach() for k, p in names.items()},
                     "v": {k: p.detach() for k, p in names.items()}}}
 
+    def batch(self, step: int) -> dict:
+        """The rank's rows of global batch ``step``: its shard of each
+        microbatch, in microbatch order."""
+        parts = [p.batch(step) for p in self.pipelines]
+        if len(parts) == 1:
+            return parts[0]
+        return {k: np.concatenate([b[k] for b in parts]) for k in parts[0]}
+
     def _init_state(self, p_sh, o_sh):
-        """Seeded parameters (every rank draws the same, keeps its shards)
-        and zeroed AdamW state."""
+        """Seeded parameters (every rank draws each leaf whole, one at a
+        time, and keeps its shards) and zeroed AdamW state."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         self.model = init_params(gen, self.cfg, device=self.device,
-                                 param_dtype=torch.float32)
-        params = {k: distribute_tensor(p.detach(), p_sh[k].mesh, p_sh[k].placements,
-                                       src_data_rank=None)
+                                 param_dtype=torch.float32, model=self.model_part)
+        shapes = self._example["params"]
+        params = {k: _from_model_local(p.detach(), p_sh[k], shapes[k].shape)
                   for k, p in self.model.named_parameters()}
         opt = {"m": {k: torch.zeros_like(p) for k, p in params.items()},
                "v": {k: torch.zeros_like(p) for k, p in params.items()},
@@ -196,14 +226,14 @@ class Trainer:
                 restored = manifest["step"]
                 start = restored + 1
                 self.model = empty(self.cfg, device=self.device,
-                                   param_dtype=torch.float32)
+                                   param_dtype=torch.float32, model=self.model_part)
         if params is None:
             params, opt = self._init_state(p_sh, o_sh)
 
         act_sharding.clear_policy()
         last_loss = float("nan")
         for step in range(start, num_steps):
-            batch = self.pipeline.batch(step)
+            batch = self.batch(step)
             t0 = time.perf_counter()
             params, opt, metrics = self._step(params, opt, batch)
             loss = float(metrics["loss"])
@@ -225,7 +255,7 @@ class Trainer:
         if start < num_steps or restored != num_steps - 1:
             self.ckpt.save(num_steps - 1, {"params": params, "opt": opt})
         dist.barrier()      # rank 0's files are on disk for every rank
-        full = lambda t: t.full_tensor()                       # noqa: E731
+        full = full_tensor
         return {
             "params": {k: full(p) for k, p in params.items()},
             "opt": {"m": {k: full(t) for k, t in opt["m"].items()},
@@ -242,34 +272,63 @@ class Trainer:
                 f.write(json.dumps(rec) + "\n")
 
 
+def _over_batch(t: torch.Tensor, placements, mesh) -> torch.Tensor:
+    """The rank's shard over the non-``model`` axes of a ``model``-local
+    tensor (the split DTensor makes, no collective)."""
+    rest = tuple(Replicate() if mesh.mesh_dim_names[i] == "model" else p
+                 for i, p in enumerate(placements))
+    return distribute_tensor(t, mesh, rest, src_data_rank=None).to_local()
+
+
+def _from_model_local(t: torch.Tensor, place, shape) -> DTensor:
+    """A DTensor of global ``shape`` under ``place`` (a NamedPlacement) from
+    the rank's ``model``-local tensor ``t``."""
+    mesh = place.mesh
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(_over_batch(t, place.placements, mesh), mesh,
+                              place.placements, run_check=False, shape=shape,
+                              stride=stride)
+
+
 def sharded_step(model: torch.nn.Module, mesh, params: dict, opt: dict, batch: dict,
                  *, n_microbatches: int, opt_cfg: AdamWConfig,
                  batch_axes: tuple = ("data",)):
-    """The Trainer's step on one rank: gather the full parameters (DTensors
-    under the rules' placements) into the plain ``model``, accumulate the
-    rank's rows of ``batch`` over ``n_microbatches``, average the gradients
-    and the loss over the mesh axes ``batch_axes`` (an all-reduce over each
-    axis of more than one rank), and update the rank's shards of the
-    parameters and the AdamW state with the global gradient norm.  Returns
-    (params, opt, metrics) as DTensors on ``mesh``.  The dry-run
-    (:mod:`repro_torch.launch.dryrun`) traces this function."""
+    """The Trainer's step on one rank: gather the rank's ``model`` shards of
+    the parameters (DTensors under the rules' placements) over the other
+    axes into ``model``, a plain module of local shapes; accumulate the
+    rank's rows of ``batch`` over ``n_microbatches`` under the model group
+    (tensor- and expert-parallel compute, the MoE's global routing over
+    ``batch_axes``); average the gradients and the loss over the mesh axes
+    ``batch_axes`` (an all-reduce over each axis of more than one rank),
+    SUM-reduce over ``model`` the gradients of parameters used in slices;
+    and update the rank's shards of the parameters and the AdamW state with
+    the global gradient norm.  Returns (params, opt, metrics) as DTensors on
+    ``mesh``.  The dry-run (:mod:`repro_torch.launch.dryrun`) traces this
+    function."""
     with torch.no_grad():
         for k, p in model.named_parameters():
-            p.copy_(params[k].full_tensor())
-    acc, loss = accumulate_grads(model, batch, n_microbatches)
+            p.copy_(model_local(params[k]))
+    batch_axes = tuple(a for a in batch_axes if a in mesh.mesh_dim_names)
+    with tp.model_group(mesh, batch_axes) as group:
+        acc, loss = accumulate_grads(model, batch, n_microbatches)
     sizes = shd.mesh_axes(mesh)
     dp = math.prod(sizes[a] for a in batch_axes)
     if dp > 1:
         groups = [mesh.get_group(a) for a in batch_axes if sizes[a] > 1]
         for g in [*acc.values(), loss]:
-            for group in groups:
-                dist.all_reduce(g, group=group)
+            for axis_group in groups:
+                dist.all_reduce(g, group=axis_group)
             g.div_(dp)
-    gnorm = global_norm(acc)
+    if group.size > 1:
+        for k, g in acc.items():
+            if tp.sliced_replicated(model.cfg, k, group.size):
+                dist.all_reduce(g, group=group.group)
+        gnorm = _global_norm(acc, params, mesh, group)
+    else:
+        gnorm = global_norm(acc)
     grads = {}
     for k in list(acc):
-        grads[k] = distribute_tensor(acc.pop(k), mesh, params[k].placements,
-                                     src_data_rank=None).to_local()
+        grads[k] = _over_batch(acc.pop(k), params[k].placements, mesh)
     local = {k: p.to_local() for k, p in params.items()}
     state = {"m": {k: t.to_local() for k, t in opt["m"].items()},
              "v": {k: t.to_local() for k, t in opt["v"].items()},
@@ -288,3 +347,20 @@ def sharded_step(model: torch.nn.Module, mesh, params: dict, opt: dict, batch: d
            "v": {k: wrap(new_s["v"][k], opt["v"][k]) for k in params},
            "count": wrap(new_s["count"], opt["count"])}
     return params, opt, {"loss": loss, **metrics}
+
+
+def _global_norm(grads: dict, params: dict, mesh, group) -> torch.Tensor:
+    """The norm of the whole gradient from the ranks' ``model``-local ones:
+    the squares of leaves sharded over ``model`` summed over the axis, those
+    of replicated leaves (equal on every rank) counted once."""
+    axis = mesh.mesh_dim_names.index("model")
+    zero = next(iter(grads.values())).new_zeros((), dtype=torch.float32)
+    split, whole = zero.clone(), zero.clone()
+    for k in sorted(grads):
+        sq = torch.sum(torch.square(grads[k].float()))
+        if isinstance(params[k].placements[axis], Shard):
+            split += sq
+        else:
+            whole += sq
+    dist.all_reduce(split, group=group.group)
+    return torch.sqrt(split + whole)

@@ -133,7 +133,7 @@ def test_run_cell_on_a_fake_mesh_is_ok_and_closes_its_group(cells, name, kind):
     assert not dist.is_initialized()
     assert (cell["mesh"], cell["chips"], cell["hw"]) == ("4x2", 8, "tpu_v5e")
     assert cell["flops_source"] == "FlopCounterMode"
-    assert cell["tp_compute"] == dryrun.TP_COMPUTE
+    assert cell["tp_compute"] == "model"
     for key in ("memory", "cost", "collectives", "roofline"):
         assert key in cell
     r = cell["roofline"]
@@ -142,10 +142,12 @@ def test_run_cell_on_a_fake_mesh_is_ok_and_closes_its_group(cells, name, kind):
         assert math.isfinite(r[term]) and r[term] > 0, term
     mem = cell["memory"]
     assert 0 < mem["argument_size_in_bytes"] < mem["peak_memory_in_bytes"]
-    # every rank gathers the parameters its shards hold: all-gathers; a
-    # train step also all-reduces its gradients over the 4 data ranks
+    # every rank gathers its model shards of the parameters over the data
+    # axis: all-gathers; the compute over the model axis all-reduces (the
+    # row-parallel outputs), and a train step its gradients over the 4 data
+    # ranks
     kinds = set(cell["collectives"]["by_kind"])
-    assert kinds == ({"all-gather", "all-reduce"} if kind == "train" else {"all-gather"})
+    assert kinds == {"all-gather", "all-reduce"}
     # one device runs no collective
     assert cells[name, kind, "1x1"]["collectives"]["total_bytes"] == 0.0
 
@@ -233,11 +235,15 @@ def test_train_flops_beside_the_reference_hlo(cells, name, monkeypatch):
 
 def test_refused_presets_come_back_skipped():
     cfg, (shape, _) = get_config(MOE).smoke(), _shape("train")
-    for opt in ("moe-shardmap", "moe-shardmap+flash", "inplace-cache", "inplace-cache+moe",
-                "moe-shardmap+dp64+flash", "moe-shardmap+dp32+flash"):
+    # cache_update="inplace" selects nothing in the port; since the compute
+    # splits over model (ROADMAP.md item 24) the shardmap presets trace
+    for opt in ("inplace-cache", "inplace-cache+moe"):
         cell = dryrun.run_cell(cfg, shape, False, opt=opt, mesh=MESH)
         assert cell["status"].startswith(f"skip(opt {opt}:"), cell["status"]
-        assert "not read by the port" in cell["status"] or "not ported" in cell["status"]
+        assert "not read by the port" in cell["status"]
+    for opt in ("moe-shardmap", "moe-shardmap+flash"):
+        cell = dryrun.run_cell(cfg, shape, False, opt=opt, mesh=MESH)
+        assert cell["status"] == "ok" and cell["tp_compute"] == "model", cell["status"]
     assert not dist.is_initialized()
     # a preset the port takes traces on the production mesh's refactoring
     cell = dryrun.run_cell(cfg, shape, False, opt="moe-gather+dp64+loss")

@@ -27,7 +27,7 @@ from repro.models import lm as j_lm
 from repro_torch.configs import get_config
 from repro_torch.models import attention, layers
 from repro_torch.models.lm import LM
-from repro_torch.models.opt_flags import OptFlags, set_flags
+from repro_torch.models.opt_flags import OptFlags, clear_flags, set_flags
 from repro_torch.models.weights import from_jax_params, init, jax_leaf_names
 
 RTOL = dict(rtol=1e-6, atol=1e-6)
@@ -281,15 +281,18 @@ def test_init_scales_and_seed():
 
 def test_unported_families_raise_naming_the_roadmap():
     # every family of the reference is ported: the ten configs resolve and
-    # build; what a config can still ask for and not get is the MoE's
-    # shard_map dispatch, which waits for the mesh (ROADMAP.md item 18)
+    # build, and every MoE dispatch of the reference is taken (the shard_map
+    # one since tensor-parallel compute, ROADMAP.md item 24); an unknown
+    # dispatch is refused, naming the ones there are
     for arch in ("deepseek-moe-16b", "moonshot-v1-16b-a3b", "mamba2-130m",
                  "recurrentgemma-9b", "seamless-m4t-large-v2"):
         assert get_config(arch).name == arch
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        set_flags(OptFlags(moe_impl="shardmap"))
+    set_flags(OptFlags(moe_impl="shardmap"))
+    clear_flags()
+    with pytest.raises(ValueError, match="einsum.*gather.*shardmap"):
+        set_flags(OptFlags(moe_impl="no-such-dispatch"))
     with pytest.raises(ValueError, match="EncDec"):
         LM(get_config("seamless-m4t-large-v2").smoke(), device="cpu")
 

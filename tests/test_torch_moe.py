@@ -24,7 +24,7 @@ from repro.models.opt_flags import clear_flags as j_clear_flags
 from repro.models.opt_flags import set_flags as j_set_flags
 from repro_torch.configs import get_config
 from repro_torch.models import moe
-from repro_torch.models.opt_flags import OptFlags, clear_flags, set_flags
+from repro_torch.models.opt_flags import OptFlags, clear_flags, get_flags, set_flags
 
 CFG = get_config("deepseek-moe-16b").smoke()
 J_CFG = j_get_config("deepseek-moe-16b").smoke()
@@ -218,7 +218,12 @@ def test_moe_grads_match_reference():
 
 
 def test_set_flags_takes_both_dispatches_and_refuses_shardmap():
-    for impl in ("einsum", "gather"):
+    # since tensor-parallel compute (ROADMAP.md item 24) all three of the
+    # reference's dispatches are taken; an unknown one is refused
+    for impl in ("einsum", "gather", "shardmap"):
         set_flags(OptFlags(moe_impl=impl))
-    with pytest.raises(ValueError, match="item 24"):
-        set_flags(OptFlags(moe_impl="shardmap"))
+        assert get_flags().moe_impl == impl
+    clear_flags()
+    with pytest.raises(ValueError, match="not a MoE dispatch"):
+        set_flags(OptFlags(moe_impl="no-such-dispatch"))
+    assert get_flags() == OptFlags()

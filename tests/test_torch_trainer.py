@@ -539,7 +539,7 @@ def test_trainer_refuses_grad_compression():
 @pytest.mark.parametrize("field,value,why", [
     ("cache_update", "inplace", "updates its caches in place"),
     ("bf16_collectives", True, "no code of the reference reads it"),
-    ("moe_impl", "shardmap", "item 24"),
+    ("moe_impl", "no-such-dispatch", "not a MoE dispatch"),
 ])
 def test_set_flags_refusals_name_why(field, value, why):
     with pytest.raises(ValueError, match=why):

@@ -387,7 +387,7 @@ def test_accumulated_gradients_of_microbatches_equal_the_full_batch():
                                        atol=1e-4 * float(want.abs().max()), msg=k)
 
 
-@pytest.mark.parametrize("field,value", [("moe_impl", "shardmap"),
+@pytest.mark.parametrize("field,value", [("moe_impl", "no-such-dispatch"),
                                          ("bf16_collectives", True),
                                          ("cache_update", "inplace")])
 def test_set_flags_refuses_a_flag_the_port_does_not_read(field, value):
