@@ -267,6 +267,7 @@ FP32_OPS_PER_S = 67e12                        # H100 SXM, outside tensor cores
 BF16_OPS_PER_S = 989e12                       # H100 SXM, dense tensor cores
 RTOL, ATOL = 1e-4, 1e-3                       # fp32 atomics reorder sums
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # the reference's kernel tolerances
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}   # the decode kernel's lse, absolute
 # flash's bf16 device time at FLASH_MAIN before the wgmma kernel: the CUDA-core
 # kernel (csrc/flash_attention.cu's former bf16 instance), as this script
 # measured it on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md keeps the run
@@ -364,6 +365,12 @@ TP_GEOMETRIES = {
 }
 FAMILY_FLASH = [f for fs, _ in FAMILY_GEOMETRIES.values() for f in fs]
 FAMILY_DECODE = [d for _, ds in FAMILY_GEOMETRIES.values() for d in ds]
+# phase 17(c)'s split geometry: a rank's span of 512 slots of
+# recurrentgemma-9b's ring of 1,024 at the serving step (pos 527), all 16 q
+# heads over its one kv head, read whole (layout None) with the lse out;
+# rank 0's span (all 512 slots live) and rank 1's (16 live)
+DECODE_SPLIT = (4, 16, 1, 512, 256, 527, 2048, None, False)
+SPLIT_RING = 1024
 TP_FLASH = [f for fs, _ in TP_GEOMETRIES.values() for f in fs]
 TP_DECODE = [d for _, ds in TP_GEOMETRIES.values() for d in ds]
 # phase 13: the decoder-only configs through Server.throughput_batch, and the
@@ -624,17 +631,18 @@ def _flash_bound(shape, dtype_bytes: int, ops_per_s: float) -> tuple[float, str,
             n_bytes, flop)
 
 
-def _decode_bound(shape, slot_pos, dtype_bytes: int,
-                  ops_per_s: float) -> tuple[float, str, int, float]:
+def _decode_bound(shape, slot_pos, dtype_bytes: int, ops_per_s: float,
+                  lse: bool = False) -> tuple[float, str, int, float]:
     """(bound ms, what bounds it, bytes, FLOP) of one decode call: q read
-    once, the K and V rows of the visible slots read once, out written
-    once; 4 * hd FLOP per (head, visible slot)."""
+    once, the K and V rows of the visible slots read once, out (and, with
+    ``lse``, the fp32 log-sum-exps) written once; 4 * hd FLOP per (head,
+    visible slot)."""
     B, H, KV, S, hd, pos, window, _, _ = shape
     ok = (slot_pos >= 0) & (slot_pos <= pos)
     if window:
         ok &= slot_pos > pos - window
     valid = int(ok.sum())
-    n_bytes = (2 * B * H * hd + 2 * B * KV * valid * hd) * dtype_bytes
+    n_bytes = (2 * B * H * hd + 2 * B * KV * valid * hd) * dtype_bytes + 4 * B * H * lse
     flop = 4.0 * hd * B * H * valid
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flop / ops_per_s * 1e3
@@ -774,6 +782,12 @@ def _phase7_attention(timings, builds, torch, np):
         def decode_layout(shape):
             return "ring" if shape[8] else "full"
 
+        def split_slot_positions(p, first):
+            """The positions of a rank's span of 17(c)'s ring at ``p``."""
+            i = torch.arange(SPLIT_RING, dtype=torch.int32, device=dev)
+            ring = p - torch.remainder(p - i, SPLIT_RING)
+            return ring[first:first + DECODE_SPLIT[3]].contiguous()
+
         errs = {"flash": 0.0, "decode": 0.0}
         n_decode_checks = 0
 
@@ -843,6 +857,44 @@ def _phase7_attention(timings, builds, torch, np):
               f"decode {errs['decode']:.3e} over {2 * n_flash} and "
               f"{n_decode_checks} checks")
 
+        # the lse output: the output of a call that asks for it equals the
+        # call's without it bit for bit, and the lse is the plain version's
+        # at the test shapes and at 17(c)'s split geometry (both ranks'
+        # spans, read whole)
+        lse_err = {"float32": 0.0, "bfloat16": 0.0}
+        n_lse = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).removeprefix("torch.")
+            spans = [(DECODE_SPLIT, 0), (DECODE_SPLIT, DECODE_SPLIT[3])]
+            for shape, first in [(d, None) for d in DECODE_TEST] + spans:
+                q, kc, vc, sp, p = decode_inputs(shape, dtype)
+                B, H, KV, S, hd = shape[:5]
+                layouts = (decode_layout(shape), None)
+                if first is not None:           # a rank's span of the split ring
+                    sp = split_slot_positions(p, first)
+                    layouts = (None,)
+                want, want_lse = decode_attention_torch(
+                    q.view(B, KV, H // KV, hd), kc, vc, sp, p, **decode_kw(shape),
+                    return_lse=True)
+                for layout in layouts:
+                    before = gqa_decode_attention.launches
+                    got, lse = gqa_decode_attention(q, kc, vc, sp, p, layout=layout,
+                                                    return_lse=True, **decode_kw(shape))
+                    plain = gqa_decode_attention(q, kc, vc, sp, p, layout=layout,
+                                                 **decode_kw(shape))
+                    torch.cuda.synchronize()
+                    assert gqa_decode_attention.launches == before + 2
+                    assert torch.equal(got, plain), "return_lse changed the output"
+                    held("decode", got, want.view(B, H, 1, hd), dtype, True)
+                    torch.testing.assert_close(lse, want_lse.view(B, H, 1), rtol=0.0,
+                                               atol=LSE_TOL[tag])
+                    lse_err[tag] = max(lse_err[tag], float(torch.where(
+                        lse == want_lse.view(B, H, 1), 0.0,
+                        (lse - want_lse.view(B, H, 1)).abs()).max()))
+                n_lse += 1
+        print(f"   decode lse out: max |kernel - plain| {lse_err} (atol {LSE_TOL}) over "
+              f"{n_lse} shapes, outputs with and without it equal bit for bit")
+
         # one decode call captured in a CUDA graph and replayed at three
         # advancing positions, written in place: the kernel reads pos on the
         # device and its merge counters are back at 0 after every replay
@@ -905,32 +957,41 @@ def _phase7_attention(timings, builds, torch, np):
                                              "without softcap")
             return times
 
-        def time_decode(shape, label) -> dict:
+        def time_decode(shape, label, *, span=None, lse=False) -> dict:
             """Times with the cache cold in L2, as a decode step finds it (the
             step reads 42 layers' caches in turn): each call reads the next of
             enough copies of the caches that the calls before it moved more
             than the 50 MB L2.  The kernel's device time warm (one copy, as
-            earlier PRs timed it) is kept beside it."""
+            earlier PRs timed it) is kept beside it.  ``span``: the cache is
+            the span from that slot of 17(c)'s split ring, read whole
+            (layout None); ``lse``: the call returns the lse too."""
             q, kc, vc, sp, p = decode_inputs(shape, torch.bfloat16)
             B, H, KV, S, hd, pos = shape[:6]
             kw = decode_kw(shape)
+            layout = decode_layout(shape)
+            if span is not None:
+                sp, layout = split_slot_positions(p, span), None
+            kw_k = dict(kw, layout=layout, return_lse=True) if lse else \
+                dict(kw, layout=layout)
             qg = q.view(B, KV, H // KV, hd)
             bound, by, n_bytes, flop = _decode_bound(
-                shape, sp.cpu().numpy(), 2, BF16_OPS_PER_S)
+                shape, sp.cpu().numpy(), 2, BF16_OPS_PER_S, lse)
             n_copies = 2 + int(L2_COLD_BYTES // n_bytes)
             caches = itertools.cycle(
                 [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n_copies - 1)])
-            # SDPA over the live slots of a full cache (all of a ring's)
+            # SDPA over the live slots of a full cache (all of a ring's; a
+            # split span's live slots, which lead it)
             live = S if shape[8] else min(S, pos + 1)
+            if span is not None:
+                live = int(((sp >= 0) & (sp <= pos)).sum())
 
             def call():
                 k, v = next(caches)
-                return gqa_decode_attention(q, k, v, sp, p, layout=decode_layout(shape),
-                                            **kw)
+                return gqa_decode_attention(q, k, v, sp, p, **kw_k)
 
             def plain():
                 k, v = next(caches)
-                return decode_attention_torch(qg, k, v, sp, p, **kw)
+                return decode_attention_torch(qg, k, v, sp, p, return_lse=lse, **kw)
 
             def sdpa():
                 k, v = next(caches)
@@ -940,10 +1001,10 @@ def _phase7_attention(timings, builds, torch, np):
             k_ms = _median_ms(call)
             k_dev = _back_to_back_ms(call)
             warm_dev = _back_to_back_ms(lambda: gqa_decode_attention(
-                q, kc, vc, sp, p, layout=decode_layout(shape), **kw))
+                q, kc, vc, sp, p, **kw_k))
             prof_dev = _device_profile(call, 20)[0]
             k_n, n_nodes = _graph_nodes(lambda: gqa_decode_attention(
-                q, kc, vc, sp, p, layout=decode_layout(shape), **kw))
+                q, kc, vc, sp, p, **kw_k))
             assert k_n == n_nodes == 1, \
                 f"a decode call put {n_nodes} nodes ({k_n} kernels) on the device, not 1"
             p_ms = _median_ms(plain)
@@ -1008,8 +1069,21 @@ def _phase7_attention(timings, builds, torch, np):
                 decode["tp_geometries"][f"{name} {i}"] = dict(shape=list(dshape), **{
                     k: v for k, v in time_decode(dshape, f"{name} [{i}]").items()
                     if k in keep})
+        # 17(c)'s split geometry: rank 0's span (its 512 slots live) and
+        # rank 1's (16 live: read whole, as layout None reads it), with the
+        # lse and without
+        decode["split_geometry"] = {}
+        for first, who in ((0, "rank 0"), (DECODE_SPLIT[3], "rank 1")):
+            for lse in (False, True):
+                decode["split_geometry"][f"{who}{' lse' if lse else ''}"] = dict(
+                    shape=list(DECODE_SPLIT), span_first=first, return_lse=lse, **{
+                        k: v for k, v in time_decode(
+                            DECODE_SPLIT, f"17(c) split, {who}'s span, "
+                            f"return_lse={lse}", span=first, lse=lse).items()
+                        if k in keep + ("warm_device_ms",)})
         flash["max_abs_err"] = errs["flash"]
         decode["max_abs_err"] = errs["decode"]
+        decode["lse_max_abs_err"] = lse_err
     return flash, decode
 
 
@@ -2656,14 +2730,15 @@ def _checked_kernels(torch, checks):
             "decode": attention._decode_kernel}
 
     def hold(name, got, want, geometry, rtol, atol):
-        got = got.detach().float()
-        torch.testing.assert_close(got, want.float(), rtol=rtol, atol=atol,
+        got, want = got.detach().float(), want.float()
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
                                    msg=lambda m: f"{name} at {geometry}: {m}")
         rec = checks.setdefault(name, {"checks": 0, "max_abs_err": 0.0,
                                        "geometries": set()})
         rec["checks"] += 1
-        rec["max_abs_err"] = max(rec["max_abs_err"],
-                                 float((got - want.float()).abs().max()))
+        # equal infinities (the lse of a span that sees no slot) differ by 0
+        err = torch.where(got == want, 0.0, (got - want).abs())
+        rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
         rec["geometries"].add(geometry)
 
     def checking(t):
@@ -2692,12 +2767,18 @@ def _checked_kernels(torch, checks):
         if checking(q):
             B, H, _, hd = q.shape
             KV = k_cache.shape[1]
-            tol = ATTN_TOL[str(q.dtype).removeprefix("torch.")]
+            dtype = str(q.dtype).removeprefix("torch.")
+            tol = ATTN_TOL[dtype]
             want = decode_attention_torch(q.view(B, KV, H // KV, hd), k_cache, v_cache,
-                                          slot_pos, pos, **kw).view(B, H, 1, hd)
-            hold("decode_attention", out, want,
-                 (B, H, KV, k_cache.shape[2], hd, layout, *kw.values(), str(q.dtype)),
-                 tol, tol)
+                                          slot_pos, pos, **kw)
+            geometry = (B, H, KV, k_cache.shape[2], hd, layout, *kw.values(), dtype)
+            if kw.get("return_lse"):
+                hold("decode_attention", out[0], want[0].view(B, H, 1, hd), geometry,
+                     tol, tol)
+                hold("decode_attention lse", out[1], want[1].view(B, H, 1), geometry,
+                     0.0, LSE_TOL[dtype])
+            else:
+                hold("decode_attention", out, want.view(B, H, 1, hd), geometry, tol, tol)
         return out
 
     engine.seg_combine, attention._flash_kernel, attention._decode_kernel = \
@@ -3012,6 +3093,9 @@ def _phase16_step_model_and_dryrun(timings, flash, decode, readings, torch, np) 
     return {"factories": factories, "step_model": model, "dryrun": dry}
 
 
+# phase 17(c): recurrentgemma-9b's second run, a prompt of 2,100 on caches of
+# 4,096 (rings of 2,048, wrapped inside rank 0's span)
+P17C_LONG, P17C_LONG_CACHE = 2100, 4096
 TP_TRAIN_BATCH, TP_TRAIN_MICRO = 4, 2        # phase 17(a): 4 x 2,048 in 2 microbatches
 TP_CUT_ROWS, TP_CUT_SEQ = 2, 256             # phase 17's fp32 cuts
 P17_TIMEOUT_S = 600
@@ -3020,11 +3104,11 @@ P17_TIMEOUT_S = 600
 @contextlib.contextmanager
 def _attention_shapes(torch):
     """Within, the (q, k) shapes of every flash and decode launch the
-    models make, by kernel."""
+    models make, by kernel, and each decode call's (layout, return_lse)."""
     import repro_torch.models.attention as attention
 
     real = (attention._flash_kernel, attention._decode_kernel)
-    seen = {"flash": set(), "decode": set()}
+    seen = {"flash": set(), "decode": set(), "decode_options": set()}
 
     def flash(q, k, v, **kw):
         seen["flash"].add((tuple(q.shape), tuple(k.shape), str(q.dtype)))
@@ -3032,6 +3116,7 @@ def _attention_shapes(torch):
 
     def decode(q, k_cache, v_cache, slot_pos, pos, **kw):
         seen["decode"].add((tuple(q.shape), tuple(k_cache.shape), str(q.dtype)))
+        seen["decode_options"].add((kw.get("layout"), kw.get("return_lse", False)))
         return real[1](q, k_cache, v_cache, slot_pos, pos, **kw)
 
     attention._flash_kernel, attention._decode_kernel = flash, decode
@@ -3239,6 +3324,136 @@ def _p17_serve_cut(rank, mesh, torch, np) -> dict:
     return {"steps": len(split), "max_abs_err": worst}
 
 
+def _p17_serve_seq(rank, mesh, torch, np) -> dict:
+    """17(c): recurrentgemma-9b at full width and depth at tp 2, mesh (1, 2):
+    8 of the 16 q heads and the one kv head a rank, and, as the rules place
+    a cache whose kv heads do not split over ``model`` (1 % 2 != 0), half
+    of every ring's slots.  Through the step factories: 4 x 512 on caches
+    of 1,024 (rings of 1,024, spans of 512; decoding moves into rank 1's
+    span), then 1 x 2,100 on caches of 4,096 (rings of 2,048, wrapped inside
+    rank 0's span), 16 greedy decode steps each; then both again with every
+    launch, and each lse, held against the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, gqa_decode_attention
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import init_params, make_decode_step, make_prefill_step
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.lm import layer_kinds
+
+    cfg = get_config("recurrentgemma-9b")
+    local = sum(k == "local" for k in layer_kinds(cfg))
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        model=(rank, 2))
+    rng = np.random.default_rng(25)
+    runs = [(torch.as_tensor(rng.integers(2, cfg.vocab_size, (B, S)), device="cuda"), M)
+            for B, S, M in ((4, SERVE_PROMPT, SERVE_CACHE), (1, P17C_LONG, P17C_LONG_CACHE))]
+    seq = {int(p.shape[0]): shd.cache_seq_axes(cfg, mesh, int(p.shape[0])) for p, _ in runs}
+    assert set(seq.values()) == {("model",)}, seq
+
+    def run(prompts, max_len):
+        B = prompts.shape[0]
+        with tp.model_group(mesh, ("data",), seq[B]):
+            out = make_prefill_step(cfg, max_len)(model, {"inputs": prompts})
+            logits = [tp.gather_from_model(out["logits"])]
+            caches, pos = out["caches"], out["pos"]
+            step = make_decode_step(cfg)
+            for _ in range(SERVE_NEW):
+                tok = torch.argmax(logits[-1][:, -1:], dim=-1)
+                out = step(model, {"token": tok, "caches": caches, "pos": pos})
+                logits.append(tp.gather_from_model(out["logits"]))
+                caches, pos = out["caches"], pos + 1
+        ring = next(c for c, k in zip(caches, layer_kinds(cfg)) if k == "local")["k"]
+        return logits, tuple(ring.shape)
+
+    _zero_attention_counts()
+    secs, spans, logits = [], [], []
+    with _attention_shapes(torch) as seen:
+        for prompts, max_len in runs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, span = run(prompts, max_len)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            spans.append(span)
+            logits.append(got)
+    n_flash, n_decode = flash_attention.launches, gqa_decode_attention.launches
+    by_variant = dict(flash_attention.launches_by_variant)
+    checks = {}
+    with _checked_kernels(torch, checks):
+        again = [run(prompts, max_len)[0] for prompts, max_len in runs]
+    peak = torch.cuda.max_memory_allocated()
+    hd = cfg.head_dim
+    assert n_flash == local * len(runs) and by_variant["bf16_wgmma"] == n_flash, \
+        (n_flash, by_variant)
+    assert n_decode == local * SERVE_NEW * len(runs), n_decode
+    assert seen["decode_options"] == {(None, True)}, seen["decode_options"]
+    assert seen["decode"] == {((4, 16, 1, hd), (4, 1, 512, hd), "torch.bfloat16"),
+                              ((1, 16, 1, hd), (1, 1, 1024, hd), "torch.bfloat16")}, \
+        seen["decode"]
+    assert spans == [(4, 1, 512, hd), (1, 1, 1024, hd)], spans
+    for name in ("decode_attention", "decode_attention lse"):
+        assert checks[name]["checks"] == n_decode, (name, checks[name])
+    assert checks["flash_attention"]["checks"] == n_flash, checks
+    for got in logits:
+        assert all(torch.isfinite(x).all() for x in got)
+        assert got[0].shape[-1] == cfg.vocab_size
+    tokens_same = all(torch.equal(torch.argmax(a, -1), torch.argmax(b, -1))
+                      for r, r2 in zip(logits, again) for a, b in zip(r, r2))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "flash_launches": n_flash, "decode_launches": n_decode,
+            "local_layers": local, "ring_spans": [list(x) for x in spans],
+            "peak_bytes": peak,
+            "flash_shapes": sorted(str(x) for x in seen["flash"]),
+            "decode_shapes": sorted(str(x) for x in seen["decode"]),
+            "decode_options": sorted(str(x) for x in seen["decode_options"]),
+            "greedy_tokens_equal_checked_run": tokens_same,
+            "checked": {k: {"checks": r["checks"], "max_abs_err": r["max_abs_err"]}
+                        for k, r in checks.items()}}
+
+
+def _p17_serve_seq_cut(rank, mesh, torch, np) -> dict:
+    """17(c), the fp32 cut: recurrentgemma-9b's three-layer pattern (rglru,
+    rglru, local) at full width, fp32: prefill 1 x 2,100 on caches of 4,096
+    (a wrapped ring of 2,048) and 4 decode steps at tp 2 over split rings,
+    the gathered logits against the whole module at 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.weights import init
+
+    cfg = get_config("recurrentgemma-9b").replace(n_layers=3, prefix_pattern=(),
+                                                  dtype="float32")
+    prompts = torch.as_tensor(np.random.default_rng(26).integers(
+        2, cfg.vocab_size, (1, P17C_LONG)), device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(27).integers(
+        2, cfg.vocab_size, (1, 4)), device="cuda")
+
+    def run(model):
+        out = make_prefill_step(cfg, P17C_LONG_CACHE)(model, {"inputs": prompts})
+        logits = [tp.gather_from_model(out["logits"])]
+        caches, pos = out["caches"], out["pos"]
+        for i in range(toks.shape[1]):
+            out = make_decode_step(cfg)(model, {"token": toks[:, i:i + 1],
+                                                "caches": caches, "pos": pos})
+            logits.append(tp.gather_from_model(out["logits"]))
+            caches, pos = out["caches"], pos + 1
+        return logits
+
+    whole = run(init(cfg, torch.Generator(device="cuda").manual_seed(5), device="cuda"))
+    with tp.model_group(mesh, ("data",), shd.cache_seq_axes(cfg, mesh, 1)):
+        split = run(init(cfg, torch.Generator(device="cuda").manual_seed(5),
+                         device="cuda", model=(rank, 2)))
+    worst = 0.0
+    for a, b in zip(split, whole):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        worst = max(worst, float((a - b).abs().max()))
+    return {"steps": len(split), "max_abs_err": worst}
+
+
 def _phase17_rank(rank, world, port, tmp):
     """One rank of phase 17's world: gloo over the one card."""
     import datetime
@@ -3260,7 +3475,10 @@ def _phase17_rank(rank, world, port, tmp):
         for key, fn in (("trainer", lambda: _p17_trainer(rank, tmp, mesh, torch, np)),
                         ("train_cut", lambda: _p17_train_cut(rank, mesh, torch, np)),
                         ("serve", lambda: _p17_serve(rank, mesh, torch, np)),
-                        ("serve_cut", lambda: _p17_serve_cut(rank, mesh, torch, np))):
+                        ("serve_cut", lambda: _p17_serve_cut(rank, mesh, torch, np)),
+                        ("serve_seq", lambda: _p17_serve_seq(rank, mesh, torch, np)),
+                        ("serve_seq_cut", lambda: _p17_serve_seq_cut(rank, mesh, torch,
+                                                                     np))):
             t0 = time.perf_counter()
             out[key] = fn()
             out[key]["phase_s"] = time.perf_counter() - t0
@@ -3274,7 +3492,8 @@ def _phase17_rank(rank, world, port, tmp):
 def _phase17_tensor_parallel(timings, flash, decode, torch, np) -> dict:
     """Phase 17: a world of 2 ranks on the one card over gloo (NCCL refuses
     two ranks on one device): the Trainer at mesh (1, 2) and the serving
-    step factories at tp 2, each rank on its ``model`` shards."""
+    step factories at tp 2, each rank on its ``model`` shards, and (c) over
+    caches whose sequence the rules split over ``model``."""
     import socket
 
     import torch.multiprocessing as mp
@@ -3320,6 +3539,22 @@ def _phase17_tensor_parallel(timings, flash, decode, torch, np) -> dict:
                   f"{sv['decode_shapes']}; checked {sv['checked']}; peak "
                   f"{sv['peak_bytes'] / 1e9:.2f} GB; fp32 2-layer cut's logits over "
                   f"{sc['steps']} steps against tp 1: max |diff| {sc['max_abs_err']:.2e}")
+            sq, qc = rec["serve_seq"], rec["serve_seq_cut"]
+            print(f"   rank {r} 17(c) served over split rings: recurrentgemma-9b at full "
+                  f"width and depth at tp 2 ({sq['local_layers']} local layers), its rings' "
+                  f"slots split over model, a rank's ring span {sq['ring_spans']}: 4 x "
+                  f"{SERVE_PROMPT} on caches of {SERVE_CACHE} + {SERVE_NEW} steps "
+                  f"{sq['seconds'][0]:.2f} s, 1 x {P17C_LONG} on caches of "
+                  f"{P17C_LONG_CACHE} (the ring wrapped) + {SERVE_NEW} steps "
+                  f"{sq['seconds'][1]:.2f} s; flash {sq['flash_launches']} at "
+                  f"{sq['flash_shapes']}; peak {sq['peak_bytes'] / 1e9:.2f} GB")
+            print(f"   rank {r} 17(c) decode kernel with return_lse: {sq['decode_launches']} "
+                  f"launches at {sq['decode_shapes']}, (layout, return_lse) "
+                  f"{sq['decode_options']}; every launch held against its plain version: "
+                  f"{sq['checked']}")
+            print(f"   rank {r} 17(c) fp32 cut (rglru, rglru, local) at full width over "
+                  f"split rings, 1 x {P17C_LONG} + {qc['steps'] - 1} steps, logits against "
+                  f"tp 1: max |diff| {qc['max_abs_err']:.2e} (held at 1e-4)")
         train_flash = sum(rec["trainer"]["flash_launches"] for rec in ranks)
         serve_flash = sum(rec["serve"]["flash_launches"] for rec in ranks)
         serve_decode = sum(rec["serve"]["decode_launches"] for rec in ranks)
@@ -3328,6 +3563,11 @@ def _phase17_tensor_parallel(timings, flash, decode, torch, np) -> dict:
             serve_flash
         decode["launches_by_path"]["deepseek-moe-16b step factories at tp 2, 2 ranks"] = \
             serve_decode
+        split = "recurrentgemma-9b step factories over split rings at tp 2, 2 ranks"
+        flash["launches_by_path"][split] = sum(rec["serve_seq"]["flash_launches"]
+                                               for rec in ranks)
+        decode["launches_by_path"][split] = sum(rec["serve_seq"]["decode_launches"]
+                                                for rec in ranks)
         for rec in (flash, decode):
             rec["launches"] = sum(rec["launches_by_path"].values())
     return {"ranks": ranks, "card": smi}

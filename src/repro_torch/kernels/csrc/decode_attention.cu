@@ -5,7 +5,10 @@
 // int32 on the device.  Slot s is seen when 0 <= slot_pos[s] <= pos and, with
 // a window, slot_pos[s] > pos - window.  Scores are scaled by hd**-0.5, soft-
 // capped to cap * tanh(s / cap), and go through an fp32 online softmax; the
-// output is rounded once.
+// output is rounded once.  Optionally it also writes each row's log-sum-exp
+// (fp32 (B, KV, G); -inf for a row that sees no slot), with which a caller
+// merges partial attentions over disjoint slots, as the ranks of a cache
+// split over its sequence do.
 //
 // Replaces the TPU kernel repro/kernels/decode_attention.py::
 // decode_attention_kernel, which walks a sequential (B, KV, cache block)
@@ -61,6 +64,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include <mutex>
@@ -242,6 +246,7 @@ struct Args {
   float* part_acc;
   int32_t* counters;
   void* out;
+  float* lse;  // (B, KV, G) log-sum-exp of each row's scores, or null
   int B, KV, G, S, hd, n_splits, layout, window;
   float scale, cap;
 };
@@ -711,6 +716,11 @@ decode_attention_kernel(const Args a) {
         o[3] = fmaf(xi[i].w, c, o[3]);
       }
     }
+    // each row's log-sum-exp, for a caller that merges this call's output
+    // with another's over other slots (a cache split over ranks); -inf
+    // where no slot is seen, whose output is then 0
+    if (a.lse != nullptr && c4 == 0)
+      a.lse[bk * G + g] = L > 0.f ? M + logf(L) : -CUDART_INF_F;
     L = fmaxf(L, 1e-30f);
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[e] = o[e] / L;
@@ -782,11 +792,11 @@ int dispatch(const Args& a, int smem_bytes, void* stream) {
 
 Args make_args(const void* q, const void* kc, const void* vc, const void* slot_pos,
                const void* pos, void* part_m, void* part_l, void* part_acc,
-               void* counters, void* out, int B, int KV, int G, int S, int hd,
-               int n_splits, int layout, float scale, int window, float cap) {
+               void* counters, void* out, void* lse, int B, int KV, int G, int S,
+               int hd, int n_splits, int layout, float scale, int window, float cap) {
   return Args{q, kc, vc, (const int32_t*)slot_pos, (const int32_t*)pos,
               (float*)part_m, (float*)part_l, (float*)part_acc, (int32_t*)counters,
-              out, B, KV, G, S, hd, n_splits, layout, window, scale, cap};
+              out, (float*)lse, B, KV, G, S, hd, n_splits, layout, window, scale, cap};
 }
 
 }  // namespace
@@ -794,25 +804,26 @@ Args make_args(const void* q, const void* kc, const void* vc, const void* slot_p
 // window <= 0: no window; cap <= 0: no softcap; layout 0 (any slot_pos), 1
 // (full cache) or 2 (ring cache).  part_m and part_l hold B*KV*G*n_splits
 // floats, part_acc that times hd, counters B*KV int32 that are 0 before the
-// call and 0 after it: scratch the caller owns.
+// call and 0 after it: scratch the caller owns.  lse, when not null, receives
+// B*KV*G floats: each row's log-sum-exp over the slots it sees.
 extern "C" int decode_attention_f32(
     const void* q, const void* kc, const void* vc, const void* slot_pos,
     const void* pos, void* part_m, void* part_l, void* part_acc, void* counters,
-    void* out, int B, int KV, int G, int S, int hd, int n_splits, int layout,
-    float scale, int window, float cap, int smem_bytes, void* stream) {
+    void* out, void* lse, int B, int KV, int G, int S, int hd, int n_splits,
+    int layout, float scale, int window, float cap, int smem_bytes, void* stream) {
   return dispatch<float>(make_args(q, kc, vc, slot_pos, pos, part_m, part_l, part_acc,
-                                   counters, out, B, KV, G, S, hd, n_splits, layout,
-                                   scale, window, cap),
+                                   counters, out, lse, B, KV, G, S, hd, n_splits,
+                                   layout, scale, window, cap),
                          smem_bytes, stream);
 }
 
 extern "C" int decode_attention_bf16(
     const void* q, const void* kc, const void* vc, const void* slot_pos,
     const void* pos, void* part_m, void* part_l, void* part_acc, void* counters,
-    void* out, int B, int KV, int G, int S, int hd, int n_splits, int layout,
-    float scale, int window, float cap, int smem_bytes, void* stream) {
+    void* out, void* lse, int B, int KV, int G, int S, int hd, int n_splits,
+    int layout, float scale, int window, float cap, int smem_bytes, void* stream) {
   return dispatch<__nv_bfloat16>(
-      make_args(q, kc, vc, slot_pos, pos, part_m, part_l, part_acc, counters, out, B,
-                KV, G, S, hd, n_splits, layout, scale, window, cap),
+      make_args(q, kc, vc, slot_pos, pos, part_m, part_l, part_acc, counters, out, lse,
+                B, KV, G, S, hd, n_splits, layout, scale, window, cap),
       smem_bytes, stream);
 }

@@ -8,7 +8,9 @@ cache, with the slot mask ``0 <= slot_pos <= pos`` (and ``slot_pos > pos -
 window`` with a window), softcap and an online softmax in fp32.  It is one
 launch a call: CTAs share the cache's live span, and the last CTA of each
 (batch row, kv head) merges their partials; the source says why.  ``pos``
-and ``slot_pos`` stay on the device.
+and ``slot_pos`` stay on the device.  On request the merging CTA also
+writes each row's log-sum-exp, with which the ranks of a cache split over
+its sequence merge their partial attentions.
 
 :func:`live_span` and :func:`split_plan` are the Python copy of the split the
 kernel decides on the device from ``pos``: which slots each CTA reads, so
@@ -46,7 +48,7 @@ _NEG = -1e30
 #: the cache layout a call declares -> the kernel's code for it
 LAYOUTS = {None: 0, "full": 1, "ring": 2}
 
-_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
          + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
             ctypes.c_void_p])
 _SIGNATURES = {"decode_attention_f32": _ARGS, "decode_attention_bf16": _ARGS}
@@ -157,18 +159,22 @@ def decode_attention_cuda(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     slot_pos: torch.Tensor, pos: torch.Tensor, *, window: int | None,
     logit_cap: float | None, layout: str | None, spec: LaunchSpec,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on the current stream; no checks, no synchronise.
 
     ``q`` is (B, KV, G, hd).  Callers go through
     :func:`repro_torch.kernels.gqa_decode_attention`, which checks shapes,
     types, devices, alignment and the launch's shared memory.  Allocates
-    the output only; the scratch is kept per device and shape.
+    the output (and, with ``return_lse``, the fp32 (B, KV, G) log-sum-exp,
+    returned beside it) only; the scratch is kept per device and shape.
     """
     B, KV, G, hd = q.shape
     S = k_cache.shape[2]
     n_splits = spec.grid[0]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     part_m, part_l, part_acc, counters = _scratch(q.device, B, KV, G, hd, n_splits)
     lib = load("decode_attention", _SIGNATURES)
     fn = (lib.decode_attention_f32 if q.dtype == torch.float32
@@ -176,7 +182,8 @@ def decode_attention_cuda(
     args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             slot_pos.data_ptr(), pos.data_ptr(), part_m.data_ptr(),
             part_l.data_ptr(), part_acc.data_ptr(), counters.data_ptr(),
-            out.data_ptr(), B, KV, G, S, hd, n_splits, LAYOUTS[layout],
+            out.data_ptr(), lse.data_ptr() if return_lse else None,
+            B, KV, G, S, hd, n_splits, LAYOUTS[layout],
             hd ** -0.5, window or 0, logit_cap or 0.0, spec.smem_bytes)
     if q.device.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -184,7 +191,7 @@ def decode_attention_cuda(
         with torch.cuda.device(q.device):
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
     check(err, "decode_attention")
-    return out
+    return (out, lse) if return_lse else out
 
 
 def decode_attention_torch(
@@ -196,10 +203,13 @@ def decode_attention_torch(
     *,
     window: int | None = None,
     logit_cap: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Plain version: scores over every slot, masked, softmax, P.V, all in
     fp32 and rounded once at the end, as the kernel computes them.  Masked
-    slots get probability 0, as in the kernel."""
+    slots get probability 0, as in the kernel.  With ``return_lse`` also
+    each row's fp32 (B, KV, G) ``logsumexp`` of the seen scores (-inf, and
+    an output of 0, for a row that sees no slot)."""
     hd = q.shape[-1]
     s = torch.einsum("bngh,bnch->bngc", q.float(), k_cache.float()) * hd ** -0.5
     if logit_cap is not None:
@@ -210,4 +220,7 @@ def decode_attention_torch(
     s = s.masked_fill(~ok, _NEG)
     p = torch.where(ok, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
     w = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return torch.einsum("bngc,bnch->bngh", w, v_cache.float()).to(q.dtype)
+    out = torch.einsum("bngc,bnch->bngh", w, v_cache.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(s.masked_fill(~ok, -torch.inf), dim=-1)

@@ -192,7 +192,8 @@ def gqa_decode_attention(
     window: int | None = None,
     logit_cap: float | None = None,
     layout: str | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """One token's attention over a full or ring cache, (B, H, 1, hd).
 
     Slot s is seen when ``0 <= slot_pos[s] <= pos`` and, with a window,
@@ -204,6 +205,10 @@ def gqa_decode_attention(
     live span at ``pos`` (``decode_attention.live_span``).  ``None``, for
     any other ``slot_pos``, reads all S slots.  The mask holds either way.
     On the card every input must start at a 16-byte-aligned address.
+    ``return_lse`` returns beside the output each row's fp32 (B, H, 1)
+    log-sum-exp of its seen scores, -inf (and an output of 0) where it sees
+    no slot: what a cache split over ranks merges the ranks' partial
+    attentions by (``tensor_parallel.merge_partials``).
     """
     what = "gqa_decode_attention"
     _check_attention(what, q, k_cache, v_cache, window=window, logit_cap=logit_cap)
@@ -231,21 +236,27 @@ def gqa_decode_attention(
     qg = q.view(B, KV, G, hd)
     on_cpu = _check_device(what, q, k_cache, v_cache, slot_pos, pos) == "cpu"
     if q.numel() == 0 or S == 0:
-        return torch.zeros_like(q)
+        out = torch.zeros_like(q)
+        if not return_lse:
+            return out
+        return out, torch.full((B, H, 1), -torch.inf, device=q.device)
     if on_cpu:
         out = _da.decode_attention_torch(qg, k_cache, v_cache, slot_pos, pos,
-                                         window=window, logit_cap=logit_cap)
-        return out.view(B, H, 1, hd)
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} must start at a 16-byte-aligned "
-                             "address, which the kernel's 16-byte loads need")
-    out = _da.decode_attention_cuda(
-        qg, k_cache, v_cache, slot_pos, pos, window=window,
-        logit_cap=logit_cap, layout=layout, spec=spec)
-    gqa_decode_attention.launches += 1
-    gqa_decode_attention.geometries.add(
-        (spec, *_da.coverage(B, KV, G, S, spec.grid[0])))
+                                         window=window, logit_cap=logit_cap,
+                                         return_lse=return_lse)
+    else:
+        for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{what}: {name} must start at a 16-byte-aligned "
+                                 "address, which the kernel's 16-byte loads need")
+        out = _da.decode_attention_cuda(
+            qg, k_cache, v_cache, slot_pos, pos, window=window,
+            logit_cap=logit_cap, layout=layout, spec=spec, return_lse=return_lse)
+        gqa_decode_attention.launches += 1
+        gqa_decode_attention.geometries.add(
+            (spec, *_da.coverage(B, KV, G, S, spec.grid[0])))
+    if return_lse:
+        return out[0].view(B, H, 1, hd), out[1].view(B, H, 1)
     return out.view(B, H, 1, hd)
 
 

@@ -39,13 +39,12 @@ compute over ``model`` as the reference's GSPMD partitions it, so the
 FLOPs, bytes and memory a device are the rank's share, and the ``model``
 axis's all-reduces appear in the collective census by kind and bytes.  The
 parameters are gathered over the batch/FSDP axes only, the batch and the
-caches keep their batch and ``model`` shards (an SSM's state, which its
-replicated compute holds whole, is gathered).  A serving cell whose caches
-the rules sequence-shard over ``model`` (``n_kv_heads % tp != 0``,
-``ROADMAP.md`` queue 1 item 25) runs replicated within a model group
-instead: the whole module on the rank's batch rows.  Each artifact's
-``tp_compute`` says which: ``"model"``, or ``"replicated: <why>"``.
-Artifacts go to ``artifacts/dryrun_torch``, never to the reference's
+caches keep every shard the rules give them (an SSM's state, which its
+replicated compute holds whole, is gathered): a kv cache whose sequence
+the rules shard (over ``model`` where ``n_kv_heads % tp != 0``, over
+``data`` where the batch does not split over it) keeps the rank's span,
+and the model group carries that sequence group.  Each artifact's
+``tp_compute`` is ``"model"``.  Artifacts go to ``artifacts/dryrun_torch``, never to the reference's
 ``artifacts/dryrun``, whose tests read those.  No card is needed.
 
 Usage::
@@ -69,7 +68,7 @@ import weakref
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map
 from torch.utils.flop_counter import FlopCounterMode
@@ -90,7 +89,6 @@ from repro_torch.launch.steps import (
     make_decode_step,
     make_prefill_step,
     micro_depth,
-    serve_split_reason,
 )
 from repro_torch.models import act_sharding
 from repro_torch.models import tensor_parallel as tp
@@ -351,39 +349,21 @@ def _place(t: torch.Tensor, spec) -> DTensor:
     return distribute_tensor(t, spec.mesh, spec.placements, src_data_rank=None)
 
 
-def _batch_rows(dt: DTensor, axes: tuple, mesh, keep_model: bool) -> torch.Tensor:
-    """The rank's local tensor with its batch shard kept, and its ``model``
-    shard when ``keep_model``; every other axis gathered."""
+def _serve_inputs(batch: dict, mesh) -> dict:
+    """The serving step's inputs on this rank: every shard the rules give
+    them, but an SSM's (B, H, P, N) state's ``model`` shard (its replicated
+    compute holds it whole)."""
     names = mesh.mesh_dim_names
-    keep = tuple(p if (isinstance(p, Shard) and (
-        (names[i] in axes and p.dim == 0) or (keep_model and names[i] == "model")))
-        else Replicate() for i, p in enumerate(dt.placements))
-    if keep != tuple(dt.placements):
-        dt = dt.redistribute(mesh, keep)
-    return dt.to_local()
 
-
-def _serve_inputs(batch: dict, axes: tuple, mesh, split: bool) -> dict:
-    """The serving step's inputs on this rank: with ``split``, the caches
-    keep their ``model`` shards but an SSM's (B, H, P, N) state, whose
-    replicated compute holds it whole."""
-    def one(names, leaf):
-        ssm_state = names[-1] == "h" and leaf.ndim == 4
-        return _batch_rows(leaf, axes, mesh, split and not ssm_state)
+    def one(path, dt):
+        if path[-1] == "h" and dt.ndim == 4:
+            keep = tuple(Replicate() if names[i] == "model" else p
+                         for i, p in enumerate(dt.placements))
+            if keep != tuple(dt.placements):
+                dt = dt.redistribute(mesh, keep)
+        return dt.to_local()
 
     return shd._map_named(one, batch)
-
-
-def _local_bytes(t: torch.Tensor, spec, sizes: dict, axes: tuple) -> int:
-    """Bytes of a rank's shard under ``spec`` of a tensor already split over
-    the batch ``axes`` (rank 0's chunk: ceil division, as DTensor splits)."""
-    n = t.element_size()
-    for d, size in enumerate(t.shape):
-        entry = spec[d] if d < len(spec) else None
-        names = entry if isinstance(entry, tuple) else (entry,)
-        ways = math.prod(sizes[a] for a in names if a is not None and a not in axes)
-        n *= -(-size // ways)
-    return n
 
 
 def _trace(cfg, shape: ShapeSpec, mesh, sizes: dict, cell: dict) -> Census:
@@ -394,9 +374,8 @@ def _trace(cfg, shape: ShapeSpec, mesh, sizes: dict, cell: dict) -> Census:
     batch = tree_map(_place, specs, b_sh)
     train = shape.kind == "train"
     size = sizes.get("model", 1)
-    why = None if train else serve_split_reason(cfg, size)
-    cell["tp_compute"] = f"replicated: {why}" if why else TP_COMPUTE
-    part = (0, 1) if why else (0, size)     # rank 0's place on the model axis
+    cell["tp_compute"] = TP_COMPUTE
+    part = (0, size)                        # rank 0's place on the model axis
     p_dtype = torch.float32 if train else None
     model = empty(cfg, device=META, param_dtype=p_dtype, model=part)
     full = model if part[1] == 1 else empty(cfg, device=META, param_dtype=p_dtype)
@@ -440,23 +419,16 @@ def _trace(cfg, shape: ShapeSpec, mesh, sizes: dict, cell: dict) -> Census:
         step = (make_prefill_step(cfg, max_len=shape.seq_len) if shape.kind == "prefill"
                 else make_decode_step(cfg))
         census = Census(base_bytes=arg_bytes + module_bytes, known=known)
-        split = why is None
+        seq = shd.cache_seq_axes(cfg, mesh, shape.global_batch)
         with census:
             with torch.no_grad():
                 for k, p in model.named_parameters():
-                    p.copy_(model_local(params[k]) if split else params[k].full_tensor())
-            local = _serve_inputs(batch, axes, mesh, split)
-            if split:
-                with tp.model_group(mesh, axes):
-                    out = step(model, local)
-            else:
+                    p.copy_(model_local(params[k]))
+            local = _serve_inputs(batch, mesh)
+            with tp.model_group(mesh, axes, seq):
                 out = step(model, local)
-        o_specs = shd.output_pspecs(cfg, shape, out, mesh)
-        held = axes + ("model",) if split else axes
-        out_bytes = sum(_local_bytes(t, s, sizes, held)
-                        for t, s in zip(_tensors(out), tree_flatten(
-                            o_specs, is_leaf=lambda x: isinstance(x, shd.P))[0])
-                        if isinstance(t, torch.Tensor))
+        # what the step returns is the rank's shards of its outputs
+        out_bytes = sum(_nbytes(t) for t in _tensors(out))
     cell["memory"]["output_size_in_bytes"] = out_bytes
     cell["memory"]["peak_memory_in_bytes"] = census.peak_bytes
     cell["memory"]["total_per_device_bytes"] = census.peak_bytes

@@ -42,6 +42,7 @@ __all__ = [
     "NamedPlacement",
     "activation_policy",
     "batch_axes",
+    "cache_seq_axes",
     "input_pspecs",
     "local_shape",
     "mesh_axes",
@@ -234,6 +235,19 @@ def _cache_rule(names: list[str], leaf, cfg: ModelConfig, mesh, B: int) -> P:
             ch_ax = "model"
         return P(bax, None, ch_ax)
     return REPL
+
+
+def cache_seq_axes(cfg: ModelConfig, mesh, B: int) -> tuple[str, ...]:
+    """The mesh axes over which the rules shard a kv cache's sequence
+    dimension at global batch ``B``, outermost first: ``("model",)`` where
+    ``n_kv_heads % model != 0``, else (); ``_cache_rule`` puts ``"data"``
+    before it only where :func:`batch_axes` is None, which it never is (it
+    gives () when no batch axis divides B), as in the reference.  Every kv
+    leaf of a config (self, local, cross) has the same rule."""
+    entry = _cache_rule(["k"], None, cfg, mesh, B)[2]
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
 
 
 def _map_named(fn, tree, names=()):

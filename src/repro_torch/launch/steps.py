@@ -24,12 +24,10 @@ kernels, like every caller of the model.
 
 Under a model group of more than one rank
 (:mod:`repro_torch.models.tensor_parallel`) the serving steps run each
-rank's ``model`` shards: caches of the rank's kv heads and the rank's vocab
-shard of the logits, where ``output_pspecs`` places them.  Where a config
-with attention has ``n_kv_heads % tp != 0`` the rules place its caches
-sequence-sharded over ``model`` instead, which the port does not compute
-yet (``ROADMAP.md`` queue 1 item 25): the steps raise ``ValueError``
-(:func:`serve_split_reason`).
+rank's shards where ``output_pspecs`` places them: the rank's vocab shard
+of the logits, and caches of the rank's kv heads or, where the rules shard
+a cache's sequence (``sharding.cache_seq_axes``, installed with the group),
+of the rank's span of slots.
 """
 
 from __future__ import annotations
@@ -40,15 +38,13 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from repro_torch.models import tensor_parallel as tp
 from repro_torch.models import weights
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import layer_kinds
 from repro_torch.models.opt_flags import get_flags
 from repro_torch.optim import AdamWConfig, adamw_update
 
 __all__ = ["accumulate_grads", "init_params", "make_decode_step", "make_prefill_step",
-           "make_train_step", "micro_depth", "pick_microbatches", "serve_split_reason"]
+           "make_train_step", "micro_depth", "pick_microbatches"]
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
@@ -61,26 +57,6 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     An enc-dec config gives an :class:`~repro_torch.models.encdec.EncDec`."""
     return weights.init(cfg, generator, device=device, param_dtype=param_dtype,
                         model=model)
-
-
-def serve_split_reason(cfg: ModelConfig, size: int) -> str | None:
-    """Why the serving steps cannot split ``cfg`` over a ``model`` axis of
-    ``size`` (None when they can): the rules shard the kv caches by head
-    only when ``n_kv_heads % size == 0``, and sequence-shard them over
-    ``model`` otherwise (ROADMAP.md queue 1 item 25)."""
-    if size <= 1 or cfg.n_kv_heads % size == 0:
-        return None
-    mixers = {"attn", "local", "attn_dense"}
-    if not cfg.is_encdec and not mixers & set(layer_kinds(cfg)):
-        return None
-    return (f"n_kv_heads {cfg.n_kv_heads} % tp {size} != 0: the rules place the "
-            "kv caches sequence-sharded over model (ROADMAP.md queue 1 item 25)")
-
-
-def _check_serving_split(cfg: ModelConfig) -> None:
-    why = serve_split_reason(cfg, tp.model_size())
-    if why:
-        raise ValueError(f"{cfg.name}: no serving step over the model axis: {why}")
 
 
 def pick_microbatches(
@@ -181,18 +157,14 @@ def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
     """``prefill_step(model, batch) -> {"logits", "caches", "pos"}``: the
     reference's ``make_prefill_step``.  ``batch`` holds ``inputs`` (B, S)
     and optionally ``extra_embeds``; an enc-dec config's ``src_embeds``
-    (B, S_src, d) and its ``inputs`` prompt.  Caches are sized ``max_len``.
-    Raises ``ValueError`` under a model group the config's caches cannot
-    split over (:func:`serve_split_reason`)."""
+    (B, S_src, d) and its ``inputs`` prompt.  Caches are sized ``max_len``."""
     if cfg.is_encdec:
         def prefill_step(model: nn.Module, batch: dict) -> dict:
-            _check_serving_split(cfg)
             logits, caches, pos = model.prefill(batch["src_embeds"], batch["inputs"],
                                                 max_len)
             return {"logits": logits, "caches": caches, "pos": pos}
     else:
         def prefill_step(model: nn.Module, batch: dict) -> dict:
-            _check_serving_split(cfg)
             logits, caches, pos = model.prefill(batch["inputs"], max_len,
                                                 extra_embeds=batch.get("extra_embeds"))
             return {"logits": logits, "caches": caches, "pos": pos}
@@ -204,7 +176,6 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     reference's ``make_decode_step``.  ``batch`` holds ``token`` (B, 1),
     ``caches`` (written in place) and ``pos``, a 0-dim int32 tensor."""
     def decode_step(model: nn.Module, batch: dict) -> dict:
-        _check_serving_split(cfg)     # one model method serves both families
         logits, caches = model.decode_step(batch["token"], batch["caches"], batch["pos"])
         return {"logits": logits, "caches": caches}
     return decode_step

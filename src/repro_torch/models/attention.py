@@ -40,6 +40,23 @@ q but replicate k and v (``n_kv_heads % tp != 0``), a rank slices out the kv
 heads its q heads read (:func:`~repro_torch.models.tensor_parallel.
 kv_head_slice`), so its group size is (H / tp) / (its kv heads).  Caches
 hold the rank's kv heads.  The kernels run at the rank's head counts.
+
+Where the rules shard a kv cache's **sequence** (``sharding.cache_seq_axes``:
+over ``model`` where ``n_kv_heads % tp != 0``), the model group carries the
+sequence group (:func:`~repro_torch.models.tensor_parallel.seq_span`) and
+each rank holds
+its span of every cache's slots, for every kv head the rules give it.
+Prefill computes the whole prompt's k and v on every rank (the rules
+replicate the k and v weights then), attends as above and fills the rank's
+span.  A decode step writes the token's k and v only on the rank whose span
+holds its slot (a masked write on the device: ``pos`` is never read on the
+host), attends over the rank's span with every q head (gathered over
+``model`` where the sequence is on it and q is sharded) through the decode
+kernel with ``layout=None`` and ``return_lse=True``, merges the ranks'
+partial softmaxes (:func:`~repro_torch.models.tensor_parallel.
+merge_partials`) and projects the rank's q heads through ``o``.  The split
+must be even; a rank's cache of n slots is then one of ``seq_size()`` equal
+spans.
 """
 
 from __future__ import annotations
@@ -105,12 +122,13 @@ def _dispatch_prefill(q, k, v, *, causal, window, logit_cap, q_offset):
 
 
 def _dispatch_decode(q, k_cache, v_cache, slot_pos, pos, *, window, logit_cap,
-                     layout):
+                     layout, return_lse=False):
     if _IMPL == "kernel":
         return _decode_kernel(q.contiguous(), k_cache, v_cache, slot_pos, pos,
-                              window=window, logit_cap=logit_cap, layout=layout)
+                              window=window, logit_cap=logit_cap, layout=layout,
+                              return_lse=return_lse)
     return decode_attention(q, k_cache, v_cache, slot_pos, pos, window=window,
-                            logit_cap=logit_cap)
+                            logit_cap=logit_cap, return_lse=return_lse)
 
 
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -228,13 +246,19 @@ def decode_attention(
     *,
     window: int | None = None,
     logit_cap: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Single-token attention over a (full or ring) KV cache, in plain
-    PyTorch: the decode kernel's plain version in the model's layout."""
+    PyTorch: the decode kernel's plain version in the model's layout; with
+    ``return_lse`` also each row's (B, H, 1) log-sum-exp, as
+    ``gqa_decode_attention`` gives it."""
     B, H, _, hd = q.shape
     KV = k_cache.shape[1]
     out = decode_attention_torch(q.reshape(B, KV, H // KV, hd), k_cache, v_cache,
-                                 slot_pos, pos, window=window, logit_cap=logit_cap)
+                                 slot_pos, pos, window=window, logit_cap=logit_cap,
+                                 return_lse=return_lse)
+    if return_lse:
+        return out[0].reshape(B, H, 1, hd), out[1].reshape(B, H, 1)
     return out.reshape(B, H, 1, hd)
 
 
@@ -293,8 +317,10 @@ def attn_block_prefill(
     split, kv_heads = model_split(p, heads)
     if split:
         x = tp.copy_to_model(x)
+    # a cache whose sequence is split over model holds every kv head
+    all_kv = cache_size is not None and tp.seq_on_model()
     if kv_override is None:
-        q, k, v = attention_projections(p, x, kv_heads)
+        q, k, v = attention_projections(p, x, None if all_kv else kv_heads)
     else:
         q = project_heads(x, p["q"])
         k, v = kv_override
@@ -303,14 +329,21 @@ def attn_block_prefill(
         q = apply_rope(q, positions[None, None, :], inv_freq)
         k = apply_rope(k, positions[None, None, :], inv_freq)
     win = window if kind == "local" else None
-    out = _dispatch_prefill(q, k, v, causal=kind in ("attn", "local"), window=win,
+    ka, va = k, v
+    if kv_heads is not None and k.shape[1] == heads[1]:
+        # every kv head, for a cache split over its sequence: attend over
+        # those the rank's q heads read
+        ka, va = k[:, kv_heads[0]:kv_heads[1]], v[:, kv_heads[0]:kv_heads[1]]
+    out = _dispatch_prefill(q, ka, va, causal=kind in ("attn", "local"), window=win,
                             logit_cap=logit_cap, q_offset=q_offset)
     y = _out_project(out, p["o"])
     if split:
         y = tp.reduce_from_model(y)
 
     cache = None
-    if cache_size is not None:
+    if cache_size is not None and tp.seq_size() > 1:
+        cache = _span_cache(k, v, cache_size, ring=kind == "local")
+    elif cache_size is not None:
         cache = init_kv_cache(B, k.shape[1], cache_size, k.shape[3], x.dtype,
                               x.device)
         if kind == "local" and cache_size < S:
@@ -323,6 +356,64 @@ def attn_block_prefill(
             cache["k"][:, :, :upto] = k[:, :, :upto]
             cache["v"][:, :, :upto] = v[:, :, :upto]
     return y, cache
+
+
+def _span_cache(k: torch.Tensor, v: torch.Tensor, size: int, *, ring: bool) -> dict:
+    """The rank's span of a cache of ``size`` slots filled from a prompt's
+    k and v (B, KV, S, hd), as the whole cache would hold them: a ring's
+    global slot s the latest position p < S with p == s (mod size), a full
+    cache's slot s position s; slots holding none stay zero."""
+    B, KV, S, hd = k.shape
+    first, n = tp.seq_span(size)
+    cache = init_kv_cache(B, KV, n, hd, k.dtype, k.device)
+    slots = torch.arange(first, first + n)
+    src = (S - 1) - torch.remainder(S - 1 - slots, size) if ring else slots
+    held = (src >= 0) & (src < S)
+    local = torch.arange(n)[held].to(k.device)
+    src = src[held].to(k.device)
+    cache["k"].index_copy_(2, local, k.index_select(2, src))
+    cache["v"].index_copy_(2, local, v.index_select(2, src))
+    return cache
+
+
+def _write_token(cache: dict, k: torch.Tensor, v: torch.Tensor, slot: torch.Tensor,
+                 first: int) -> None:
+    """Write one token's k and v (B, KV, 1, hd) at the global ``slot``
+    (0-dim, on the device) of a cache whose local slots start at global slot
+    ``first``.  Under a sequence split only the rank whose span holds the
+    slot changes its cache: every rank writes at the slot clamped into its
+    span either the new row or the row already there."""
+    n = cache["k"].shape[2]
+    if tp.seq_size() == 1:
+        index = slot.reshape(1).long()
+        cache["k"].index_copy_(2, index, k)
+        cache["v"].index_copy_(2, index, v)
+        return
+    local = slot - first
+    own = (local >= 0) & (local < n)
+    index = local.clamp(0, n - 1).reshape(1).long()
+    for key, new in (("k", k), ("v", v)):
+        c = cache[key]
+        c.index_copy_(2, index, torch.where(own, new, c.index_select(2, index)))
+
+
+def _attend(q: torch.Tensor, cache: dict, slot_pos, pos, *, window, logit_cap,
+            layout, gather: bool) -> torch.Tensor:
+    """One token's attention over ``cache``; under a sequence split the
+    rank's span with every q head (``gather``: q's heads gathered over
+    ``model`` first, the rank's own kept after), merged over the sequence
+    group."""
+    if tp.seq_size() == 1:
+        return _dispatch_decode(q, cache["k"], cache["v"], slot_pos, pos,
+                                window=window, logit_cap=logit_cap, layout=layout)
+    h = q.shape[1]
+    if gather:
+        q = tp.gather_from_model(q, dim=1)
+    out, lse = _dispatch_decode(q, cache["k"], cache["v"], slot_pos, pos,
+                                window=window, logit_cap=logit_cap, layout=None,
+                                return_lse=True)
+    out = tp.merge_partials(out, lse)
+    return out.narrow(1, tp.model_rank() * h, h) if gather else out
 
 
 def attn_block_decode(
@@ -343,7 +434,9 @@ def attn_block_decode(
     the cache size (it is computed from ``pos`` otherwise); it must be the
     layout of ``kind``: :func:`ring_slot_positions` at ``pos`` for a local
     layer, :func:`full_slot_positions` otherwise, which the decode kernel is
-    told, so that it reads only the live span.  Returns (y, cache).
+    told, so that it reads only the live span.  Under a sequence split it
+    is the rank's span of that layout (the whole cache's positions, sliced).
+    Returns (y, cache).
 
     ``"cross"`` attends over the encoder's static cache without writing it
     and without RoPE: every slot is seen, so ``pos`` must be the cache size
@@ -353,36 +446,36 @@ def attn_block_decode(
     if kind not in ("attn", "local", "cross"):
         raise ValueError(f"attention kind {kind!r} has no decode step")
     B = x.shape[0]
-    size = cache["k"].shape[2]
+    size = cache["k"].shape[2] * tp.seq_size()      # the whole cache's slots
+    first, n = tp.seq_span(size)
     split, kv_heads = model_split(p, heads)
     if split:
         x = tp.copy_to_model(x)
+    all_kv = tp.seq_on_model()
+    gather = all_kv and heads is not None and p["q"].shape[1] < heads[0]
     if kind == "cross":
         if slot_pos is None:
-            slot_pos = full_slot_positions(size, x.device)
-        out = _dispatch_decode(project_heads(x, p["q"]), cache["k"], cache["v"],
-                               slot_pos, pos, window=None, logit_cap=logit_cap,
-                               layout="full")
+            slot_pos = full_slot_positions(size, x.device)[first:first + n]
+        out = _attend(project_heads(x, p["q"]), cache, slot_pos, pos, window=None,
+                      logit_cap=logit_cap, layout="full", gather=gather)
         y = _out_project(out, p["o"])
         return (tp.reduce_from_model(y) if split else y), cache
-    q, k, v = attention_projections(p, x, kv_heads)
+    q, k, v = attention_projections(p, x, None if all_kv else kv_heads)
     posb = pos.reshape(1, 1, 1).expand(B, 1, 1)
     q = apply_rope(q, posb, inv_freq)
     k = apply_rope(k, posb, inv_freq)
     if kind == "local":
         slot = torch.remainder(pos, size)
         if slot_pos is None:
-            slot_pos = ring_slot_positions(pos, size)
+            slot_pos = ring_slot_positions(pos, size)[first:first + n]
         win, layout = window, "ring"
     else:
         slot = pos
         if slot_pos is None:
-            slot_pos = full_slot_positions(size, x.device)
+            slot_pos = full_slot_positions(size, x.device)[first:first + n]
         win, layout = None, "full"
-    index = slot.reshape(1).long()
-    cache["k"].index_copy_(2, index, k)
-    cache["v"].index_copy_(2, index, v)
-    out = _dispatch_decode(q, cache["k"], cache["v"], slot_pos, pos,
-                           window=win, logit_cap=logit_cap, layout=layout)
+    _write_token(cache, k, v, slot, first)
+    out = _attend(q, cache, slot_pos, pos, window=win, logit_cap=logit_cap,
+                  layout=layout, gather=gather)
     y = _out_project(out, p["o"])
     return (tp.reduce_from_model(y) if split else y), cache

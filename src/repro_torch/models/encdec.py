@@ -20,7 +20,10 @@ Over a ``model`` mesh axis every block splits as the decoder-only
 model's do (:mod:`~repro_torch.models.attention`, ``layers.apply_mlp``):
 the encoder, self and cross attention by heads (the cross keys and values
 of the rank's kv heads from the encoder output under ``copy_to_model``),
-the MLP by width, the tied embedding and the logits by vocab.
+the MLP by width, the tied embedding and the logits by vocab.  Where the
+rules shard the caches' sequence, a rank holds its span of the self caches'
+slots and of the cross caches' source positions, and attends over them as
+:mod:`~repro_torch.models.attention` says.
 
 Two differences from :class:`~repro_torch.models.lm.LM`, both the
 reference's: the decoder embeds its tokens *without* the ``sqrt(d)`` scale
@@ -96,12 +99,14 @@ class CrossDecoderLayer(nn.Module):
     def cross_kv(self, enc_out):
         """The encoder output's keys and values (B, KV, S_src, hd),
         contiguous: the decode kernel reads them as a cache.  Over the
-        ``model`` axis, the rank's kv heads."""
+        ``model`` axis, the rank's kv heads (every kv head where the cache's
+        sequence is split over ``model``)."""
         cfg = self.cfg
         split, kv_heads = model_split(self.cross, (cfg.n_heads, cfg.n_kv_heads))
         if split:
             enc_out = tp.copy_to_model(enc_out)
-        k, v = kv_projection(self.cross, enc_out, kv_heads)
+        k, v = kv_projection(self.cross, enc_out,
+                             None if tp.seq_on_model() else kv_heads)
         return k.contiguous(), v.contiguous()
 
     def prefill(self, x, enc_out, inv_freq, cache_len: int | None):
@@ -121,7 +126,12 @@ class CrossDecoderLayer(nn.Module):
         x = constrain(x + h, "residual")
         x = constrain(x + apply_mlp(self.mlp, self._norm("ln2", x), cfg.mlp_type),
                       "residual")
-        cross_cache = {"k": k, "v": v} if cache_len is not None else None
+        cross_cache = None
+        if cache_len is not None:
+            # the rank's span of the source positions under a sequence split
+            first, n = tp.seq_span(k.shape[2])
+            cross_cache = {"k": k[:, :, first:first + n].contiguous(),
+                           "v": v[:, :, first:first + n].contiguous()}
         return x, self_cache, cross_cache
 
     def train_forward(self, x, enc_out, inv_freq):
@@ -255,13 +265,21 @@ class EncDec(nn.Module):
         V), caches)."""
         self._check_shard()
         x = vocab_embed(self.embed, token, self.cfg.vocab_size, self.compute_dtype)
-        slot_pos = full_slot_positions(caches["self"][0]["k"].shape[2], x.device)
-        cross_slot_pos = full_slot_positions(caches["cross"][0]["k"].shape[2], x.device)
+        slot_pos, cross_slot_pos = (
+            self._span_positions(caches[key][0]["k"].shape[2], x.device)
+            for key in ("self", "cross"))
         for layer, self_c, cross_c in zip(self.dec, caches["self"], caches["cross"]):
             x = layer.decode(x, self_c, cross_c, pos, caches["cross_pos"],
                              self.inv_freq, slot_pos, cross_slot_pos)
         x = self._norm("final_norm", x)
         return self._logits(x), caches
+
+    @staticmethod
+    def _span_positions(local: int, device) -> torch.Tensor:
+        """The positions of a full cache's slots held by this rank, whose
+        cache has ``local`` of them (its span under a sequence split)."""
+        first, n = tp.seq_span(local * tp.seq_size())
+        return full_slot_positions(local * tp.seq_size(), device)[first:first + n]
 
     def cache_spec(self, batch: int, max_len: int, src_len: int) -> dict:
         """Zeroed caches in the compute dtype: self caches of ``max_len``,
@@ -271,7 +289,7 @@ class EncDec(nn.Module):
         kv = self.dec[0].self["k"].shape[1]       # the rank's kv heads
 
         def one(size):
-            return init_kv_cache(batch, kv, size, cfg.head_dim,
+            return init_kv_cache(batch, kv, tp.seq_span(size)[1], cfg.head_dim,
                                  self.compute_dtype, dev)
 
         return {"self": [one(max_len) for _ in self.dec],

@@ -435,12 +435,15 @@ class LM(nn.Module):
         for layer, cache in zip(self.layers, caches):
             key = None
             if layer.mixer in ("attn", "local"):
-                size = cache["k"].shape[2]
+                # the whole cache's slots, and the rank's span of them under
+                # a sequence split
+                size = cache["k"].shape[2] * tp.seq_size()
                 key = (layer.mixer, size)
                 if key not in slot_pos:
-                    slot_pos[key] = (ring_slot_positions(pos, size)
-                                     if layer.mixer == "local"
-                                     else full_slot_positions(size, x.device))
+                    first, n = tp.seq_span(size)
+                    sp = (ring_slot_positions(pos, size) if layer.mixer == "local"
+                          else full_slot_positions(size, x.device))
+                    slot_pos[key] = sp[first:first + n]
             x, _ = layer.decode(x, cache, pos, self.inv_freq, slot_pos.get(key))
         x = apply_norm(self.final_norm, x, self.cfg.norm_type, self.cfg.norm_eps)
         return self._logits(x), caches

@@ -20,7 +20,13 @@ the collectives that GSPMD would insert:
 * :func:`mean_over_batch` and :func:`batch_counts` — the MoE's aux-loss
   means and capacity counts over the batch axes (``pod``, ``data``), so
   that a rank's routing sees the global microbatch, as the reference's
-  jitted step does.
+  jitted step does;
+* :func:`merge_partials` — over the **sequence group**, the mesh axes over
+  which the rules shard a kv cache's sequence (``sharding.cache_seq_axes``:
+  ``model`` where ``n_kv_heads % tp != 0``): each rank attends over its
+  span of the cache
+  (:func:`seq_span`) and the ranks' partial softmaxes merge by one MAX and
+  two SUM all-reduces of their log-sum-exps and outputs.
 
 Every collective is a ``dist.all_reduce``: a gather writes the rank's slice
 into a zero-filled buffer and SUM-reduces it, because gloo takes only
@@ -29,7 +35,8 @@ every backend.
 
 A launcher installs the group with :func:`set_model_group` (or the
 :func:`model_group` context): the rank and size of the mesh's ``model``
-axis, and the batch axes' groups.  It is kept apart from
+axis, the batch axes' groups and the sequence group, whose axes the caller
+takes from the rules.  It is kept apart from
 :mod:`~repro_torch.models.act_sharding`'s policy, because the reference's
 Trainer computes over ``model`` with that policy cleared.  With no group, or
 a group of size 1, every function here is the identity.
@@ -38,6 +45,7 @@ a group of size 1, every function here is the identity.
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass
 from typing import Any
 
@@ -56,11 +64,16 @@ __all__ = [
     "local_slice",
     "max_from_model",
     "mean_over_batch",
+    "merge_partials",
     "model_group",
     "model_rank",
     "model_size",
     "reduce_from_model",
+    "seq_on_model",
+    "seq_size",
+    "seq_span",
     "set_model_group",
+    "shard_span",
     "sliced_replicated",
 ]
 
@@ -76,6 +89,10 @@ class ModelGroup:
     batch_groups: tuple         # ProcessGroups of the batch axes of size > 1
     batch_rank: int             # the rank's index in the global row order
     batch_size: int             # ranks over which the rows are split
+    seq_axes: tuple = ()        # the axes of size > 1 a kv cache's sequence is on
+    seq_group: Any = None       # their ProcessGroup (data-major over two)
+    seq_ways: tuple = ()        # their sizes
+    seq_coords: tuple = ()      # the rank's coordinate on each
 
 
 _GROUP: ModelGroup | None = None
@@ -85,10 +102,20 @@ def _axes(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
 
 
-def set_model_group(mesh, batch_axes: tuple = ()) -> None:
-    """Install the ``model`` axis of ``mesh`` (a ``DeviceMesh``) and the
-    batch axes ``batch_axes`` (outermost first, as the global rows are
-    ordered) for this rank."""
+def _seq_group(mesh, axes: tuple):
+    """The ProcessGroup of ``axes`` of ``mesh``: one axis's own group, or
+    the group of the sub-mesh over two (flattened in mesh order, so its
+    ranks run data-major, as DTensor splits a dimension over both)."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def set_model_group(mesh, batch_axes: tuple = (), seq_axes: tuple = ()) -> None:
+    """Install the ``model`` axis of ``mesh`` (a ``DeviceMesh``), the batch
+    axes ``batch_axes`` (outermost first, as the global rows are ordered)
+    and the sequence axes ``seq_axes`` of the kv caches (outermost first;
+    a caller takes them from ``sharding.cache_seq_axes``) for this rank."""
     global _GROUP
     sizes = _axes(mesh)
     size = sizes.get("model", 1)
@@ -101,7 +128,11 @@ def set_model_group(mesh, batch_axes: tuple = ()) -> None:
         b_size *= n
         if n > 1:
             b_groups.append(mesh.get_group(axis))
-    _GROUP = ModelGroup(group, rank, size, tuple(b_groups), b_rank, b_size)
+    seq = tuple(a for a in seq_axes if sizes.get(a, 1) > 1)
+    _GROUP = ModelGroup(
+        group, rank, size, tuple(b_groups), b_rank, b_size, seq,
+        _seq_group(mesh, seq) if seq else None, tuple(sizes[a] for a in seq),
+        tuple(mesh.get_local_rank(a) for a in seq))
 
 
 def clear_model_group() -> None:
@@ -110,11 +141,11 @@ def clear_model_group() -> None:
 
 
 @contextlib.contextmanager
-def model_group(mesh, batch_axes: tuple = ()):
+def model_group(mesh, batch_axes: tuple = (), seq_axes: tuple = ()):
     """:func:`set_model_group` inside, the previous group restored after."""
     global _GROUP
     prev = _GROUP
-    set_model_group(mesh, batch_axes)
+    set_model_group(mesh, batch_axes, seq_axes)
     try:
         yield _GROUP
     finally:
@@ -173,16 +204,18 @@ class _ReduceFromModel(torch.autograd.Function):
 
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mg):
-        n = x.shape[-1]
-        ctx.span = (mg.rank * n, (mg.rank + 1) * n)
-        buf = x.new_zeros(x.shape[:-1] + (n * mg.size,))
-        buf[..., ctx.span[0]:ctx.span[1]] = x
+    def forward(ctx, x, mg, dim):
+        n = x.shape[dim]
+        ctx.span, ctx.dim = (mg.rank * n, n), dim
+        shape = list(x.shape)
+        shape[dim] = n * mg.size
+        buf = x.new_zeros(shape)
+        buf.narrow(dim, *ctx.span).copy_(x)
         return _all_reduce(buf, (mg.group,))
 
     @staticmethod
     def backward(ctx, g):
-        return g[..., ctx.span[0]:ctx.span[1]].contiguous(), None
+        return g.narrow(ctx.dim, *ctx.span).contiguous(), None, None
 
 
 class _MeanOverBatch(torch.autograd.Function):
@@ -210,10 +243,10 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     return _ReduceFromModel.apply(x, _GROUP) if _active() else x
 
 
-def gather_from_model(x: torch.Tensor) -> torch.Tensor:
-    """Every model rank's ``x`` concatenated on the last dimension, in rank
+def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated on dimension ``dim``, in rank
     order; the gradient of the rank's slice is its slice of the gradient."""
-    return _GatherFromModel.apply(x, _GROUP) if _active() else x
+    return _GatherFromModel.apply(x, _GROUP, dim) if _active() else x
 
 
 def max_from_model(x: torch.Tensor) -> torch.Tensor:
@@ -239,6 +272,62 @@ def batch_counts(counts: torch.Tensor) -> torch.Tensor:
     buf = counts.new_zeros((_GROUP.batch_size,) + tuple(counts.shape))
     buf[_GROUP.batch_rank] = counts
     return _all_reduce(buf, _GROUP.batch_groups)
+
+
+# ------------------------------------------------------ sequence split
+
+def shard_span(size: int, ways, coords) -> tuple[int, int]:
+    """(first index, length) of a rank's chunk of a dimension of ``size``
+    sharded over mesh axes of sizes ``ways`` at the rank's ``coords`` on
+    them, outermost first: DTensor's ``Shard`` over each axis in turn, a
+    ceil split (the last chunks may be shorter, or empty)."""
+    first, n = 0, size
+    for w, c in zip(ways, coords):
+        chunk = -(-n // w)
+        lo = min(c * chunk, n)
+        first, n = first + lo, min(chunk, n - lo)
+    return first, n
+
+
+def seq_size() -> int:
+    """The number of spans a kv cache's sequence is split into (1: whole)."""
+    return math.prod(_GROUP.seq_ways) if _GROUP is not None else 1
+
+
+def seq_on_model() -> bool:
+    """Whether the sequence split runs over the ``model`` axis: the rules
+    then keep every kv head on each rank (``n_kv_heads % tp != 0``), so a
+    rank attends with every q head over its span."""
+    return _GROUP is not None and "model" in _GROUP.seq_axes
+
+
+def seq_span(size: int) -> tuple[int, int]:
+    """(first slot, slots) of the rank's span of a kv cache of ``size``
+    slots: the whole cache with no sequence split.  The split must be even,
+    so that a rank's span of ``n`` slots says the cache has ``n *
+    seq_size()``."""
+    if seq_size() == 1:
+        return 0, size
+    if size % seq_size():
+        raise ValueError(f"a kv cache of {size} slots does not split evenly into "
+                         f"{seq_size()} spans over {_GROUP.seq_axes}")
+    return shard_span(size, _GROUP.seq_ways, _GROUP.seq_coords)
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The attention over every rank's span from the rank's attention ``o``
+    (..., hd) over its span and its rows' log-sum-exps ``lse`` (...), in
+    fp32: with M the MAX of ``lse`` over the sequence group and w = exp(lse
+    - M), the SUM of w o over the SUM of w.  A rank whose span sees no slot
+    has lse = -inf and weighs nothing.  Returns ``o``'s dtype; the identity
+    with no sequence split."""
+    if seq_size() == 1:
+        return o
+    groups = (_GROUP.seq_group,)
+    lse = lse.float()
+    w = torch.exp(lse - _all_reduce(lse.clone(), groups, op=dist.ReduceOp.MAX))
+    num = _all_reduce(o.float() * w[..., None], groups)
+    return (num / _all_reduce(w, groups)[..., None]).to(o.dtype)
 
 
 # ------------------------------------------------------------ head layout

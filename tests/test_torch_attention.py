@@ -653,3 +653,74 @@ def test_fully_masked_rows_are_zero():
                                torch.full((8,), -1, dtype=torch.int32),
                                torch.tensor(3, dtype=torch.int32))
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# ---------------------------------------------- the merge of split caches
+
+# A cache cut into spans of uneven lengths, as ranks holding spans of its
+# slots see it: (S, span starts, pos, window, softcap, ring).  Each case
+# has a span whose slots are all unseen (past pos, before the window, or
+# never written), whose partial must weigh nothing.
+MERGE_SPANS = {
+    "full_two_spans_one_empty": (40, [0, 23], 20, None, None, False),
+    "full_three_uneven": (48, [0, 5, 31], 25, None, 50.0, False),
+    "full_window_empty_head": (64, [0, 7, 30, 41], 60, 16, None, False),
+    "ring_wrapped_window_cap": (32, [0, 3, 14, 26], 45, 20, 30.0, True),
+    "ring_never_written_tail": (32, [0, 9, 20], 12, 24, None, True),
+}
+
+
+def _merge(parts):
+    """The attention over every span from each span's (out, lse): with M
+    the max lse and w = exp(lse - M), sum w out / sum w (the ranks' merge,
+    ``tensor_parallel.merge_partials``)."""
+    lse = torch.stack([p[1] for p in parts])
+    w = torch.exp(lse - lse.amax(dim=0))
+    num = sum(wi[..., None] * p[0].float() for wi, p in zip(w, parts))
+    return num / w.sum(dim=0)[..., None]
+
+
+@pytest.mark.parametrize("name", list(MERGE_SPANS))
+def test_decode_partials_over_spans_merge_to_the_whole_call(name):
+    S, starts, pos, window, cap, ring = MERGE_SPANS[name]
+    B, KV, G, hd = 2, 2, 3, 32
+    q, k, v = (torch.from_numpy(a) for a in _arrays(
+        zlib.crc32(name.encode()), (B, KV, G, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    p = torch.tensor(pos, dtype=torch.int32)
+    sp = ring_slot_positions(p, S) if ring else torch.arange(S, dtype=torch.int32)
+    kw = dict(window=window, logit_cap=cap)
+    whole, whole_lse = decode_attention_torch(q, k, v, sp, p, **kw, return_lse=True)
+    assert torch.equal(whole, decode_attention_torch(q, k, v, sp, p, **kw))
+    # the log-sum-exp is logsumexp over the seen, scaled, softcapped scores
+    s = torch.einsum("bngh,bnch->bngc", q, k) * hd ** -0.5
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    seen = (sp >= 0) & (sp <= pos) & ((sp > pos - window) if window else True)
+    torch.testing.assert_close(whole_lse, torch.logsumexp(s[..., seen], dim=-1),
+                               rtol=1e-6, atol=1e-6)
+    parts, empty = [], 0
+    for a, b in zip(starts, starts[1:] + [S]):
+        out, lse = decode_attention_torch(q, k[:, :, a:b], v[:, :, a:b], sp[a:b], p, **kw,
+                                          return_lse=True)
+        if not seen[a:b].any():
+            empty += 1
+            assert torch.equal(lse, torch.full_like(lse, -torch.inf))
+            assert torch.equal(out, torch.zeros_like(out))
+        parts.append((out, lse))
+    assert empty >= 1
+    torch.testing.assert_close(_merge(parts), whole, rtol=1e-6, atol=1e-6)
+    # the wrapper's CPU path, in the model's layout, gives the same pair
+    got, got_lse = gqa_decode_attention(q.reshape(B, KV * G, 1, hd), k, v, sp, p, **kw,
+                                        return_lse=True)
+    assert torch.equal(got, whole.reshape(B, KV * G, 1, hd))
+    assert torch.equal(got_lse, whole_lse.reshape(B, KV * G, 1))
+
+
+def test_decode_lse_of_a_row_that_sees_nothing_is_minus_inf():
+    q, k, v = (torch.from_numpy(a) for a in _arrays(
+        5, (1, 2, 4, 16), (1, 2, 8, 16), (1, 2, 8, 16)))
+    out, lse = gqa_decode_attention(q.reshape(1, 8, 1, 16), k, v,
+                                    torch.full((8,), -1, dtype=torch.int32),
+                                    torch.tensor(3, dtype=torch.int32), return_lse=True)
+    assert torch.equal(out, torch.zeros_like(out)) and lse.shape == (1, 8, 1)
+    assert torch.equal(lse, torch.full_like(lse, -torch.inf))

@@ -581,3 +581,34 @@ def test_step_factories_through_the_kernels_on_the_card(cuda_device, name, dtype
         pos = pos + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,lse_tol", [(torch.float32, 1e-5, 1e-5),
+                                               (torch.bfloat16, 2e-2, 1e-3)])
+@pytest.mark.parametrize("first", [0, 512])
+def test_decode_lse_at_a_split_span_on_the_card(cuda_device, dtype, tol, lse_tol, first):
+    """A rank's span of a ring of 1,024 split over two ranks, as
+    recurrentgemma-9b serves it at tp 2 (B 4, 16 q heads over its one kv
+    head, hd 256, window 2,048, pos 527), read whole (layout None): rank 0's
+    span has all 512 slots live, rank 1's 16, and a span past pos none.
+    The kernel's output and lse equal the plain version's; asking for the
+    lse leaves the output bit for bit."""
+    B, H, KV, S, hd, pos = 4, 16, 1, 512, 256, 527
+    q, kc, vc, _ = _decode_inputs(cuda_device, dtype, B=B, H=H, KV=KV, S=S, hd=hd, seed=25)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+    i = torch.arange(2 * S, dtype=torch.int32, device=cuda_device)
+    ring = p - torch.remainder(p - i, 2 * S)
+    for sp in (ring[first:first + S].contiguous(),
+               torch.full((S,), -1, dtype=torch.int32, device=cuda_device)):
+        kw = dict(window=2048, logit_cap=None)
+        out, lse = gqa_decode_attention(q, kc, vc, sp, p, return_lse=True, **kw)
+        assert torch.equal(out, gqa_decode_attention(q, kc, vc, sp, p, **kw))
+        want, want_lse = decode_attention_torch(q.view(B, KV, H // KV, hd), kc, vc, sp, p,
+                                                return_lse=True, **kw)
+        torch.testing.assert_close(out.float(), want.view(B, H, 1, hd).float(),
+                                   rtol=tol, atol=tol)
+        torch.testing.assert_close(lse, want_lse.view(B, H, 1), rtol=0.0, atol=lse_tol)
+    # the last span sees no slot: -inf and a zero output
+    assert torch.equal(lse, torch.full_like(lse, -torch.inf))
+    assert torch.equal(out, torch.zeros_like(out))

@@ -31,10 +31,19 @@ results come back in ``.npz`` files.  Every subprocess has a ``timeout``.
   policy, as its dry-run runs them, against the port's factories: gathered
   logits at 1e-4 (fp32), gemma2-9b and deepseek-moe-16b (``shardmap``
   under the policy: capacity per data shard, capacity factor 1.0 so that
-  it matters).  recurrentgemma-9b's smoke cut has one kv head, so its
-  factories raise naming ``ROADMAP.md`` queue 1 item 25.
+  it matters).
+* Serving over sequence-sharded caches (``SERVE_SEQ``): configs whose
+  ``n_kv_heads % 2 != 0`` (recurrentgemma-9b's rings; gemma2-9b with one
+  kv head, full and ring caches; starcoder2-7b with 3 q heads, q and ``o``
+  replicated), whose rules put each cache's sequence over ``model``: every
+  step's gathered logits, and each rank's caches after prefill and after
+  the last step against the reference's restricted to the rank's shard,
+  at 1e-4.  Two more cases install the sequence group by hand, over
+  ("data", "model") (4 spans) and over ``data`` alone, which the rules
+  never give.
 * The dry-run on a fake 4 x 2 mesh: per-device FLOPs against one device's
-  divided by the split, ``tp_compute``.
+  divided by the split, ``tp_compute``, the argument and output bytes
+  under the rules.
 """
 
 import os
@@ -69,6 +78,25 @@ FAMILIES = [("dense", "stablelm-1.6b", "einsum", None),
 SERVE = [("serve_tied", "gemma2-9b", "einsum", None),
          ("serve_moe_shardmap", "deepseek-moe-16b", "shardmap", 1.0)]
 SERVE_B, SERVE_S, SERVE_MAX, SERVE_STEPS = 4, 8, 16, 3
+# serving over sequence-sharded caches at mesh (2, 2): (case, arch, config
+# changes, global batch, the sequence axes installed by hand or None: the
+# rules' own, sharding.cache_seq_axes).  The rules never put the sequence
+# on ``data``: ``batch_axes`` gives () at B 1, not None, so ``_cache_rule``'s
+# data branch is never taken, in either package.  The last two cases
+# install the sequence group over ("data", "model") and over ``data`` by
+# hand, to hold the port's merge over those groups against the reference's
+# numbers; their caches are compared under that split.
+SERVE_SEQ = [("serve_seq_rglru", "recurrentgemma-9b", {}, 4, None),
+             ("serve_seq_tied", "gemma2-9b", {"n_kv_heads": 1}, 4, None),
+             ("serve_seq_qrep", "starcoder2-7b", {"n_heads": 3, "n_kv_heads": 1}, 4, None),
+             ("serve_seq_long", "recurrentgemma-9b", {}, 1, ["data", "model"]),
+             ("serve_seq_data", "gemma2-9b", {}, 1, ["data"])]
+# A prompt of 10 and caches of 32: full caches of 32 slots (spans of 16,
+# or 8 over four ranks) and rings of the smoke window, 16 (spans of 8, or
+# 4), so the prompt crosses a ring span and 10 decode steps (positions 10 to
+# 19) pass the window and max_len / 2, wrap the ring and cross a full
+# cache's span.
+SEQ_S, SEQ_MAX, SEQ_STEPS = 10, 32, 10
 ENCDEC = "seamless-m4t-large-v2"
 ENC_B, ENC_SRC, ENC_T, ENC_STEPS = 4, 6, 8, 2
 
@@ -79,11 +107,11 @@ _COMMON = textwrap.dedent('''
     SPEC = json.load(open(sys.argv[1]))
     TMP = SPEC["tmp"]
 
-    def cfg_of(get_config, arch, cf):
+    def cfg_of(get_config, arch, cf, changes=None):
         cfg = get_config(arch).smoke()
         if cf is not None:
             cfg = cfg.replace(moe_capacity_factor=cf)
-        return cfg
+        return cfg.replace(**changes) if changes else cfg
 ''')
 
 # ------------------------------------------------------ the reference side
@@ -131,6 +159,9 @@ _REF = _COMMON + textwrap.dedent('''
         for case, arch, impl, cf in SPEC["serve"] + [[SPEC["encdec"], SPEC["encdec"], "einsum", None]]:
             cfg = cfg_of(get_config, arch, cf)
             trees[case] = jax.tree.map(np.asarray, jsteps.init_params(jax.random.PRNGKey(3), cfg))
+        for case, arch, changes, B, seq in SPEC["serve_seq"]:
+            cfg = cfg_of(get_config, arch, None, changes)
+            trees[case] = jax.tree.map(np.asarray, jsteps.init_params(jax.random.PRNGKey(4), cfg))
         with open(f"{TMP}/trees.pkl", "wb") as f:
             pickle.dump(trees, f)
 
@@ -213,6 +244,61 @@ _REF = _COMMON + textwrap.dedent('''
             clear_flags()
         return out
 
+    def port_order(caches):
+        """The caches as the port's list of layers: the prefix, then for
+        each group each pattern member's slice."""
+        layers = [jax.tree.map(np.asarray, c) for c in caches["prefix"]]
+        groups = caches["groups"]
+        for g in range(jax.tree.leaves(groups)[0].shape[0] if groups else 0):
+            layers += [jax.tree.map(lambda a: np.asarray(a[g]), m) for m in groups]
+        return layers
+
+    def dump_caches(out, tag, caches):
+        for i, layer in enumerate(port_order(caches)):
+            for leaf, a in layer.items():
+                out[f"{tag}/{i}/{leaf}"] = a
+
+    def serve_seq(devices):
+        """The sequence-sharded cases: each step's logits, and the whole
+        caches after prefill and after the last step (the rules' shardings
+        keep each rank's span; np.asarray gathers them)."""
+        jm = Mesh(devices, ("data", "model"))
+        with open(f"{TMP}/trees.pkl", "rb") as f:
+            trees = pickle.load(f)
+        toks = np.load(f"{TMP}/serve_tokens.npz")
+        out = {}
+        S, M, steps = SPEC["seq_shape"]
+        for case, arch, changes, B, seq in SPEC["serve_seq"]:
+            cfg = cfg_of(get_config, arch, None, changes)
+            params = jax.tree.map(jnp.asarray, trees[case])
+            p_sh = shd.named(jm, shd.param_pspecs(cfg, params, jm))
+            shape = ShapeSpec("serve", M, B, "prefill")
+            act_sharding.set_policy(shd.activation_policy(cfg, shape, jm))
+            prefill = jsteps.make_prefill_step(cfg, max_len=M)
+            batch = {"inputs": jnp.asarray(toks["seq_prompt"][:B])}
+            b_sh = shd.named(jm, shd.input_pspecs(cfg, shape, batch, jm))
+            o_shape = jax.eval_shape(prefill, params, batch)
+            o_sh = shd.named(jm, shd.output_pspecs(cfg, shape, o_shape, jm))
+            with jm:
+                res = jax.jit(prefill, in_shardings=(p_sh, b_sh), out_shardings=o_sh)(params, batch)
+            out[f"{case}/logits0"] = np.asarray(res["logits"])
+            dump_caches(out, f"{case}/cache0", res["caches"])
+            decode = jsteps.make_decode_step(cfg)
+            dshape = ShapeSpec("serve", M, B, "decode")
+            caches, pos = res["caches"], res["pos"]
+            batch = {"token": jnp.asarray(toks["seq_token0"][:B]), "caches": caches, "pos": pos}
+            o_sh = shd.named(jm, shd.output_pspecs(cfg, dshape, jax.eval_shape(decode, params, batch), jm))
+            step = jax.jit(decode, out_shardings=o_sh)
+            for i in range(steps):
+                batch = {"token": jnp.asarray(toks[f"seq_token{i}"][:B]), "caches": caches, "pos": pos}
+                with jm:
+                    res = step(params, batch)
+                caches, pos = res["caches"], pos + 1
+                out[f"{case}/logits{i + 1}"] = np.asarray(res["logits"])
+            dump_caches(out, f"{case}/cache1", caches)
+            act_sharding.clear_policy()
+        return out
+
     if __name__ == "__main__":
         job = SPEC["job"]
         if job == "init":
@@ -225,6 +311,7 @@ _REF = _COMMON + textwrap.dedent('''
                 out.update(encdec(mesh, devices))
             if SPEC.get("serve_here"):
                 out.update(serve(devices))
+                out.update(serve_seq(devices))
             np.savez(f"{TMP}/ref_{mesh[0]}x{mesh[1]}.npz", **out)
         print("OK")
 ''')
@@ -357,24 +444,49 @@ _PORT = _COMMON + textwrap.dedent('''
             act_sharding.clear_policy()
             clear_flags()
 
-    def refuses_item_25(rank, out):
+    def serve_seq(rank, out):
+        """The sequence-sharded cases through the step factories: gathered
+        logits, each rank's caches after prefill and after the last step."""
         from repro_torch.configs import get_config
+        from repro_torch.configs.shapes import ShapeSpec
+        from repro_torch.launch import sharding as shd
         from repro_torch.launch.mesh import make_mesh
         from repro_torch.launch.steps import make_decode_step, make_prefill_step
+        from repro_torch.models import act_sharding
         from repro_torch.models import tensor_parallel as tp
-        from repro_torch.models.weights import init
-        cfg = get_config("recurrentgemma-9b").smoke()
-        model = init(cfg, torch.Generator().manual_seed(0), device="cpu", model=(rank, 2))
-        said = []
-        with tp.model_group(make_mesh((1, 2), ("data", "model"), device="cpu")):
-            for step, batch in ((make_prefill_step(cfg, 16), {"inputs": torch.zeros((2, 4), dtype=torch.long)}),
-                                (make_decode_step(cfg), {"token": None, "caches": None, "pos": None})):
-                try:
-                    step(model, batch)
-                    said.append("no error")
-                except ValueError as e:
-                    said.append(str(e))
-        out["item25"] = np.array(said)
+        from repro_torch.models.weights import from_jax_params
+        dm = make_mesh((2, 2), ("data", "model"), device="cpu")
+        mr, dr = dm.get_local_rank("model"), dm.get_local_rank("data")
+        with open(f"{TMP}/trees.pkl", "rb") as f:
+            trees = pickle.load(f)
+        toks = np.load(f"{TMP}/serve_tokens.npz")
+        S, M, steps = SPEC["seq_shape"]
+        for case, arch, changes, B, seq in SPEC["serve_seq"]:
+            cfg = cfg_of(get_config, arch, None, changes)
+            bax = shd.batch_axes(B, dm)
+            axes = (bax,) if isinstance(bax, str) else tuple(bax or ())
+            rows = slice(dr * B // 2, (dr + 1) * B // 2) if axes else slice(0, B)
+            seq = tuple(seq) if seq else shd.cache_seq_axes(cfg, dm, B)
+            model = from_jax_params(cfg, trees[case], device="cpu", model=(mr, 2))
+            act_sharding.set_policy(shd.activation_policy(cfg, ShapeSpec("serve", M, B, "prefill"), dm))
+            with tp.model_group(dm, axes, seq):
+                out[f"{case}/seq_axes"] = np.array(tp.current().seq_axes)
+                res = make_prefill_step(cfg, M)(model, {"inputs": torch.from_numpy(toks["seq_prompt"][rows])})
+                out[f"{case}/logits0"] = tp.gather_from_model(res["logits"]).numpy()
+                caches, pos = res["caches"], res["pos"]
+                for i, layer in enumerate(caches):
+                    for leaf, t in layer.items():
+                        out[f"{case}/cache0/{i}/{leaf}"] = t.numpy().copy()
+                decode = make_decode_step(cfg)
+                for i in range(steps):
+                    res = decode(model, {"token": torch.from_numpy(toks[f"seq_token{i}"][rows]),
+                                         "caches": caches, "pos": pos})
+                    caches, pos = res["caches"], pos + 1
+                    out[f"{case}/logits{i + 1}"] = tp.gather_from_model(res["logits"]).numpy()
+                for i, layer in enumerate(caches):
+                    for leaf, t in layer.items():
+                        out[f"{case}/cache1/{i}/{leaf}"] = t.numpy()
+            act_sharding.clear_policy()
 
     def rank_main(rank, world, port):
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -383,7 +495,6 @@ _PORT = _COMMON + textwrap.dedent('''
         out = {}
         if world == 2:
             primitives(rank, out)
-            refuses_item_25(rank, out)
             for mesh in ([2, 1], [1, 2]):
                 trainers(rank, mesh, SPEC["cases_at"][str(mesh)], out)
             encdec(rank, [1, 2], out)
@@ -391,6 +502,7 @@ _PORT = _COMMON + textwrap.dedent('''
             trainers(rank, [2, 2], SPEC["cases_at"][str([2, 2])], out)
             encdec(rank, [2, 2], out)
             serve(rank, out)
+            serve_seq(rank, out)
         np.savez(f"{TMP}/port_w{world}_r{rank}.npz", **out)
         dist.barrier()
         dist.destroy_process_group()
@@ -412,7 +524,8 @@ def _spec(tmp, **kw) -> str:
     cases_at = {str([2, 1]): MOE_DP, str([1, 2]): FAMILIES, str([2, 2]): FAMILIES}
     spec = dict(tmp=str(tmp), opt=OPT, train=TRAIN, steps=STEPS, cases=MOE_DP + FAMILIES,
                 cases_at=cases_at, serve=SERVE, serve_steps=SERVE_STEPS,
-                serve_shape=[SERVE_B, SERVE_S, SERVE_MAX], encdec=ENCDEC,
+                serve_shape=[SERVE_B, SERVE_S, SERVE_MAX], serve_seq=SERVE_SEQ,
+                seq_shape=[SEQ_S, SEQ_MAX, SEQ_STEPS], encdec=ENCDEC,
                 enc_steps=ENC_STEPS, enc_shape=[ENC_B, ENC_SRC, ENC_T], **kw)
     name = "_".join(f"{k}{v}" for k, v in sorted(kw.items())).replace(" ", "")
     path = Path(tmp) / f"spec_{name}.json"
@@ -449,7 +562,10 @@ def runs(tmp_path_factory):
     np.savez(tmp / "serve_tokens.npz",
              prompt=rng.integers(0, 256, (SERVE_B, SERVE_S)).astype(np.int32),
              **{f"token{i}": rng.integers(0, 256, (SERVE_B, 1)).astype(np.int32)
-                for i in range(SERVE_STEPS)})
+                for i in range(SERVE_STEPS)},
+             seq_prompt=rng.integers(0, 256, (4, SEQ_S)).astype(np.int32),
+             **{f"seq_token{i}": rng.integers(0, 256, (4, 1)).astype(np.int32)
+                for i in range(SEQ_STEPS)})
     py = sys.executable
     init = subprocess.run([py, str(tmp / "ref.py"), _spec(tmp, job="init")], env=_env(1),
                           cwd=str(tmp), capture_output=True, text=True, timeout=600)
@@ -576,23 +692,66 @@ def test_encdec_sharded_step_matches_the_reference_step(runs, mesh, world):
 
 # --------------------------------------------------------------- serving
 
-@pytest.mark.parametrize("case", [c[0] for c in SERVE])
+SEQ_CASES = {c[0]: c for c in SERVE_SEQ}
+
+
+@pytest.mark.parametrize("case", [c[0] for c in SERVE] + list(SEQ_CASES))
 def test_serving_steps_at_tp2_match_the_reference(runs, case):
     ref = runs["ref"]["2x2"]
+    B, steps = (SEQ_CASES[case][3], SEQ_STEPS) if case in SEQ_CASES else (SERVE_B, SERVE_STEPS)
     for r, got in enumerate(_ranks(runs, 4)):
         data_rank = r // 2
-        rows = slice(data_rank * SERVE_B // 2, (data_rank + 1) * SERVE_B // 2)
-        # the factories return the rank's vocab shard, where output_pspecs puts it
-        assert list(got[f"{case}/vocab_shard"]) == [SERVE_B // 2, 1, 128]
-        for i in range(SERVE_STEPS + 1):
+        rows = slice(data_rank * B // 2, (data_rank + 1) * B // 2) if B > 1 else slice(0, 1)
+        if case not in SEQ_CASES:
+            # the factories return the rank's vocab shard, where output_pspecs puts it
+            assert list(got[f"{case}/vocab_shard"]) == [SERVE_B // 2, 1, 128]
+        for i in range(steps + 1):
             np.testing.assert_allclose(got[f"{case}/logits{i}"], ref[f"{case}/logits{i}"][rows],
                                        rtol=1e-4, atol=1e-4, err_msg=f"{case} step {i}")
 
 
+def _rank_shard(a, spec, coords):
+    """Rank ``coords`` ({axis: index} on a (2, 2) mesh)'s shard of the
+    whole array ``a`` placed by ``spec``: DTensor's split, each axis in turn."""
+    from repro_torch.models.tensor_parallel import shard_span
+
+    for d, entry in enumerate(spec):
+        names = () if entry is None else ((entry,) if isinstance(entry, str) else entry)
+        first, n = shard_span(a.shape[d], [2] * len(names), [coords[x] for x in names])
+        a = a[(slice(None),) * d + (slice(first, first + n),)]
+    return a
+
+
 def test_serving_factories_refuse_sequence_sharded_caches(runs):
-    for got in _ranks(runs, 2):
-        for said in got["item25"]:
-            assert "item 25" in str(said) and "n_kv_heads 1 % tp 2" in str(said)
+    """Named for what it held before the port served sequence-sharded
+    caches (the factories raised).  Now: each rank's caches after prefill
+    and after the last decode step, for every ``SERVE_SEQ`` case, equal the
+    reference's output caches restricted to that rank's shard under
+    ``output_pspecs`` (under the by-hand sequence axes for the last two
+    cases) within 1e-4: which rank wrote which slot, every kv head on a rank
+    whose span the sequence is, unwritten slots zero in both."""
+    from repro_torch.launch import sharding as shd
+
+    ref = runs["ref"]["2x2"]
+    mesh = {"data": 2, "model": 2}
+    for case, arch, changes, B, by_hand in SERVE_SEQ:
+        cfg = get_config(arch).smoke().replace(**changes)
+        want_seq = tuple(by_hand) if by_hand else shd.cache_seq_axes(cfg, mesh, B)
+        assert want_seq and "data" not in shd.cache_seq_axes(cfg, mesh, B)
+        for r, got in enumerate(_ranks(runs, 4)):
+            coords = {"data": r // 2, "model": r % 2}
+            assert tuple(got[f"{case}/seq_axes"]) == want_seq
+            keys = [k for k in ref if k.startswith(f"{case}/cache")]
+            assert keys and sorted(keys) == sorted(k for k in got if k.startswith(f"{case}/cache"))
+            for k in keys:
+                whole = ref[k]
+                spec = list(shd.output_pspecs(cfg, ShapeSpec("serve", SEQ_MAX, B, "decode"),
+                                              {"caches": [{k.rsplit("/", 1)[1]: whole}]},
+                                              mesh)["caches"][0][k.rsplit("/", 1)[1]])
+                if by_hand and k.endswith(("/k", "/v")):
+                    spec[2] = tuple(by_hand)
+                np.testing.assert_allclose(got[k], _rank_shard(whole, spec, coords),
+                                           rtol=1e-4, atol=1e-4, err_msg=f"{k} on rank {r}")
 
 
 # --------------------------------------------------------------- dry-run
@@ -631,9 +790,69 @@ def test_dryrun_replicated_share_of_an_ssm():
     assert split["tp_compute"] == "model"
 
 
+def _local_nbytes(shape, itemsize, spec, sizes):
+    """Bytes of rank 0's shard of a tensor placed by ``spec``."""
+    n = itemsize
+    for d, size in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        names = () if entry is None else ((entry,) if isinstance(entry, str) else entry)
+        n *= -(-size // int(np.prod([sizes[a] for a in names])))
+    return n
+
+
 def test_dryrun_item_25_serving_cell_is_replicated():
-    cell = _flops("recurrentgemma-9b", "prefill", MESH_4X2)
-    assert cell["tp_compute"].startswith("replicated: ")
-    assert "item 25" in cell["tp_compute"]
+    """Named for what it held before the port served sequence-sharded
+    caches (the cell ran replicated).  Now recurrentgemma-9b's smoke
+    prefill and decode cells at 4 x 2 split over ``model`` (its one kv
+    head: the caches' sequence over ``model``).  Per device the k and v
+    projections, whose weights the rules replicate and which every rank
+    computes for its cache, divide by the data split only; the rest (q, o,
+    the attention over a rank's heads or span, the RG-LRU's width, the
+    MLP, the vocab-parallel logits) by 8.  The decode cell's argument bytes
+    are the rules' shards of the parameters and inputs."""
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.lm import layer_kinds
+    from repro_torch.models.weights import empty
+
+    cfg = get_config("recurrentgemma-9b").smoke()
+    attn = sum(k == "local" for k in layer_kinds(cfg))
+    for kind, tokens in (("prefill", 8 * 16), ("decode", 8)):
+        one, split = _flops("recurrentgemma-9b", kind, ONE), _flops("recurrentgemma-9b", kind,
+                                                                     MESH_4X2)
+        assert split["tp_compute"] == "model" and one["tp_compute"] == "model"
+        kv = 2 * 2 * tokens * cfg.d_model * cfg.n_kv_heads * cfg.head_dim * attn
+        want = (one["cost"]["flops"] - kv) / 8 + kv / 4
+        np.testing.assert_allclose(split["cost"]["flops"], want, rtol=1e-12, err_msg=kind)
+    shape = ShapeSpec("tp_decode", 16, 8, "decode")
+    params = {k: p for k, p in empty(cfg, device="meta").named_parameters()}
+    p_specs = shd.param_pspecs(cfg, params, MESH_4X2)
+    specs = input_specs(cfg, shape)
+    b_specs = shd.input_pspecs(cfg, shape, specs, MESH_4X2)
+
+    def leaves(tree):
+        return tree_flatten(tree, is_leaf=lambda x: isinstance(x, shd.P))[0]
+
+    want = sum(_local_nbytes(p.shape, p.element_size(), p_specs[k], MESH_4X2)
+               for k, p in params.items())
+    want += sum(_local_nbytes(t.shape, t.element_size(), sp, MESH_4X2)
+                for t, sp in zip(leaves(specs), leaves(b_specs)))
+    assert split["memory"]["argument_size_in_bytes"] == want
     train = _flops("recurrentgemma-9b", "train", MESH_4X2)
     assert train["tp_compute"] == "model"
+
+
+def test_dryrun_long_context_cache_bytes_follow_the_rules():
+    """A long_500k-style cell, B 1, on a fake 4 x 2 mesh: the rules shard
+    each kv cache's sequence over ``model`` only (``batch_axes`` is () at
+    B 1, not None, so not over ``data``), so the caches a device returns
+    are a model-th of the whole; the recurrent state and the logits are
+    split over ``model`` by width and vocab."""
+    cfg = get_config("recurrentgemma-9b").smoke()
+    shape = ShapeSpec("tp_long", 64, 1, "decode")
+    one = dryrun.run_cell(cfg, shape, False, mesh=ONE)
+    split = dryrun.run_cell(cfg, shape, False, mesh=MESH_4X2)
+    assert split["status"] == "ok" and split["tp_compute"] == "model"
+    assert one["memory"]["output_size_in_bytes"] == 2 * split["memory"]["output_size_in_bytes"]
