@@ -52,8 +52,8 @@ model and dry-run held against the card's own step times:
      tuned job on a cluster; fit on phase 3's runs and predict these two
      with both fits (``prediction_error_from_runs``, lstsq and autodiff),
      printing the gap and claiming nothing from it;
-  7. hold ``flash_attention`` (both kernels: bf16 on ``wgmma``, fp32 on the
-     CUDA cores) and ``decode_attention`` against their plain versions on the
+  7. hold ``flash_attention`` (both kernels: bf16 on ``wgmma``, fp32 as
+     split TF32 on ``mma.sync``) and ``decode_attention`` against their plain versions on the
      card, at the test shapes, the bf16 kernel's edges (G = 3, hd 72 and 96,
      ragged Sq and Sk with an offset, ``k_len`` < Sk, a window narrower than
      a kv tile), the decode split's edges (pos 0, inside the first split, at
@@ -66,7 +66,11 @@ model and dry-run held against the card's own step times:
      (a yardstick only, without softcap, which it cannot express; for decode
      over the live slots, each call on the next of enough cache copies that
      the cache is cold in L2, as a decode step finds it) at the main
-     shapes, the serving step's among them;
+     shapes, the serving step's among them; the fp32 flash kernel the same
+     way at the main shape, ``torch_train_e2e``'s, seamless's encoder and
+     deepseek-moe-16b's prefill, beside SDPA in fp32 (TF32 off, k and v
+     repeated to q's heads, ``EFFICIENT_ATTENTION``), and its distance from
+     a float64 evaluation at large scores beside the plain fp32 version's;
   8. serve gemma2-9b, all 42 layers at full width with seeded random
      weights, through ``Server``: ``throughput_batch`` (4 prompts of 512
      tokens, 32 new tokens) eager, with its decode step replayed as a CUDA
@@ -182,7 +186,8 @@ model and dry-run held against the card's own step times:
      prefill and graphed step, the nine other configs' graphed steps):
      terms, measured / predicted, nothing fitted; the dry-run
      (``launch/dryrun.py``, no card) at one device for three of those
-     cells, whose argument bytes must fit under the card's measured peak,
+     cells, whose argument bytes must fit under the card's measured peak
+     and whose serving cells' traced peaks lie within 10 % of it,
      gemma2-9b ``train_4k`` on the 256-rank production mesh, and
      ``tune_tpu``'s top 10 against a full sort;
  17. tensor- and expert-parallel compute over ``model``: two ranks on the
@@ -230,8 +235,12 @@ seamless 72) and ``gqa_decode_attention`` exactly 42 and 48 a step, each
 added to its kernel's count, and in each rank of phase 17
 ``flash_attention`` exactly 3 x 2 x 24 x 2 over the Trainer's run (all
 ``bf16_wgmma``) and 28 over the serving run, ``gqa_decode_attention``
-exactly 28 x 16, both ranks' counts added to the kernels'.  Before the
-last line it prints one ``{"kernels": [...]}`` JSON line; the last line is
+exactly 28 x 16, both ranks' counts added to the kernels'.  The fp32 flash
+kernel's launches (``launches_by_variant["f32_3xtf32"]``) are read around
+each fp32 path (phase 8's and 12's cuts, 12's training cut, 13's cuts, 15's
+``torch_train_e2e``, 17's cuts in each rank), printed by phase and summed
+into its own entry of the kernels line.  Before the last line it prints one
+``{"kernels": [...]}`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -265,6 +274,7 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 L2_COLD_BYTES = 60e6                          # more than the H100's 50 MB L2
 FP32_OPS_PER_S = 67e12                        # H100 SXM, outside tensor cores
 BF16_OPS_PER_S = 989e12                       # H100 SXM, dense tensor cores
+TF32_OPS_PER_S = 495e12                       # H100 SXM, dense tensor cores
 RTOL, ATOL = 1e-4, 1e-3                       # fp32 atomics reorder sums
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # the reference's kernel tolerances
 LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}   # the decode kernel's lse, absolute
@@ -290,6 +300,9 @@ FLASH_TEST = [(1, 4, 2, 256, 256, 64, True, None, None, 0),
               (1, 16, 1, 100, 100, 64, True, None, None, 0),
               (1, 6, 1, 70, 70, 256, True, None, 50.0, 0)]
 FLASH_MAIN = (4, 16, 8, 512, 512, 256, True, None, 50.0, 0)      # global layer
+# fp32: examples/torch_train_e2e.py's granite-13m geometry (one microbatch)
+FLASH_E2E = (4, 8, 4, 256, 256, 32, True, None, None, 0)
+F32_FLASH = "f32_3xtf32"      # the fp32 kernel's name in launches_by_variant
 FLASH_MAIN_LOCAL = (4, 16, 8, 512, 512, 256, True, 4096, 50.0, 0)
 FLASH_LONG = (1, 16, 8, 4608, 4608, 256, True, 4096, 50.0, 0)
 # (B, H, KV, S, hd, pos, window, softcap, ring)
@@ -364,6 +377,8 @@ TP_GEOMETRIES = {
                               [(4, 8, 8, 1024, 128, 527, None, None, False)]),
 }
 FAMILY_FLASH = [f for fs, _ in FAMILY_GEOMETRIES.values() for f in fs]
+FLASH_ENCODER = FAMILY_GEOMETRIES["seamless-m4t-large-v2"][0][0]   # non-causal, hd 64
+FLASH_DEEPSEEK = FAMILY_GEOMETRIES["deepseek-moe-16b"][0][0]        # G 1, hd 128
 FAMILY_DECODE = [d for _, ds in FAMILY_GEOMETRIES.values() for d in ds]
 # phase 17(c)'s split geometry: a rank's span of 512 slots of
 # recurrentgemma-9b's ring of 1,024 at the serving step (pos 527), all 16 q
@@ -631,6 +646,24 @@ def _flash_bound(shape, dtype_bytes: int, ops_per_s: float) -> tuple[float, str,
             n_bytes, flop)
 
 
+def _sdpa_f32(q, k, v, causal: bool):
+    """``F.scaled_dot_product_attention`` in fp32 on k and v repeated to
+    q's heads, under ``EFFICIENT_ATTENTION`` (flash attention takes no fp32;
+    it raises if that backend refuses them).  A yardstick; the port never
+    calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    G = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    return call
+    raise RuntimeError("no SDPA backend takes these fp32 inputs")
+
+
 def _decode_bound(shape, slot_pos, dtype_bytes: int, ops_per_s: float,
                   lse: bool = False) -> tuple[float, str, int, float]:
     """(bound ms, what bounds it, bytes, FLOP) of one decode call: q read
@@ -744,6 +777,10 @@ def _phase7_attention(timings, builds, torch, np):
              "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
              "replaces": "src/repro/kernels/flash_attention.py:44",
              "build_s": builds["flash_attention_wgmma"]["seconds"]}
+    flash_f32 = {"name": "flash_attention_f32", "route": "cuda", "variant": F32_FLASH,
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:44",
+                 "build_s": builds["flash_attention"]["seconds"]}
     decode = {"name": "decode_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
               "replaces": "src/repro/kernels/decode_attention.py:39",
@@ -788,7 +825,7 @@ def _phase7_attention(timings, builds, torch, np):
             ring = p - torch.remainder(p - i, SPLIT_RING)
             return ring[first:first + DECODE_SPLIT[3]].contiguous()
 
-        errs = {"flash": 0.0, "decode": 0.0}
+        errs = {"flash": 0.0, "flash_f32": 0.0, "decode": 0.0}
         n_decode_checks = 0
 
         def held(kind, got, want, dtype, launched):
@@ -796,7 +833,8 @@ def _phase7_attention(timings, builds, torch, np):
             tol = ATTN_TOL[str(dtype).removeprefix("torch.")]
             assert got.dtype == want.dtype and got.shape == want.shape
             torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-            errs[kind] = max(errs[kind], float((got.float() - want.float()).abs().max()))
+            key = "flash_f32" if (kind, dtype) == ("flash", torch.float32) else kind
+            errs[key] = max(errs[key], float((got.float() - want.float()).abs().max()))
 
         for dtype in (torch.float32, torch.bfloat16):
             variant = VARIANTS[dtype]
@@ -840,6 +878,18 @@ def _phase7_attention(timings, builds, torch, np):
         else:
             raise AssertionError("flash_attention took a misaligned bf16 CUDA tensor")
         assert flash_attention.launches == before
+        # so do the fp32 kernel's cp.async copies: q 4 bytes past one
+        q, k, v = flash_inputs(FLASH_TEST[0], torch.float32)
+        q = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
+        on_variant = flash_attention.launches_by_variant[F32_FLASH]
+        try:
+            flash_attention(q, k, v, **flash_kw(FLASH_TEST[0]))
+        except ValueError as err:
+            assert "16-byte" in str(err), err
+        else:
+            raise AssertionError("flash_attention took a misaligned fp32 CUDA tensor")
+        assert flash_attention.launches == before
+        assert flash_attention.launches_by_variant[F32_FLASH] == on_variant
         # the decode kernel's 16-byte loads need aligned addresses too
         q, kc, vc, sp, p = decode_inputs(DECODE_TEST[0], torch.bfloat16)
         q = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
@@ -853,9 +903,38 @@ def _phase7_attention(timings, builds, torch, np):
         assert gqa_decode_attention.launches == before
         n_flash = (len(FLASH_TEST) + 4 + len(SERVE_GEOMETRIES) + len(FAMILY_FLASH)
                    + len(TP_FLASH))
-        print(f"   max |kernel - plain|: flash {errs['flash']:.3e}, "
-              f"decode {errs['decode']:.3e} over {2 * n_flash} and "
-              f"{n_decode_checks} checks")
+        print(f"   max |kernel - plain|: flash bf16 {errs['flash']:.3e}, fp32 "
+              f"{errs['flash_f32']:.3e} (1e-5), decode {errs['decode']:.3e} over "
+              f"{2 * n_flash} and {n_decode_checks} checks")
+        # fp32 at large scores (hd 256, no softcap, q and k times 1-8): the
+        # kernel's and the plain fp32 version's max distance from a float64
+        # evaluation; the kernel is held within 1e-5 of it or no further
+        # than the plain version, as tests/test_torch_cuda.py holds it
+        large = {}
+        for Sk, causal in ((512, True), (2100, False)):
+            B, H, KV, Sq, hd = 1, 4, 2, 512, 256
+            q0, k0, v = (randn(s, torch.float32) for s in
+                         ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)))
+            for scale in (1, 2, 4, 8):
+                q, k = q0 * scale, k0 * scale
+                got = flash_attention(q, k, v, causal=causal)
+                plain = flash_attention_torch(q, k, v, causal=causal)
+                s = torch.einsum("bngqh,bnch->bngqc", q.double().view(B, KV, H // KV, Sq, hd),
+                                 k.double()) * hd ** -0.5
+                if causal:
+                    s = s.masked_fill(~torch.ones((Sq, Sk), dtype=torch.bool,
+                                                  device=dev).tril(), -torch.inf)
+                exact = torch.einsum("bngqc,bnch->bngqh", torch.softmax(s, -1),
+                                     v.double()).reshape(B, H, Sq, hd)
+                e_k = float((got.double() - exact).abs().max())
+                e_p = float((plain.double() - exact).abs().max())
+                assert e_k <= max(1e-5, e_p), (Sk, scale, e_k, e_p)
+                large[f"Sk{Sk}_x{scale}"] = dict(kernel_vs_f64=e_k, plain_vs_f64=e_p,
+                                                 kernel_vs_plain=float((got - plain).abs().max()))
+        print("   fp32 at large scores (hd 256, q and k x 1/2/4/8), max |. - float64| "
+              "kernel / plain fp32 (kernel - plain): " + "; ".join(
+                  f"{key} {e['kernel_vs_f64']:.3e} / {e['plain_vs_f64']:.3e} "
+                  f"({e['kernel_vs_plain']:.3e})" for key, e in large.items()))
 
         # the lse output: the output of a call that asks for it equals the
         # call's without it bit for bit, and the lse is the plain version's
@@ -920,41 +999,54 @@ def _phase7_attention(timings, builds, torch, np):
         print(f"   decode captured once in a CUDA graph, replayed at pos 100, 527, "
               f"1023: max |replay - plain| {replayed} (bf16 2e-2)")
 
-        def time_flash(shape, label, record=None):
-            q, k, v = flash_inputs(shape, torch.bfloat16)
+        def time_flash(shape, label, record=None, dtype=torch.bfloat16):
+            q, k, v = flash_inputs(shape, dtype)
             kw = flash_kw(shape)
+            f32 = dtype == torch.float32
             k_ms = _median_ms(lambda: flash_attention(q, k, v, **kw))
             p_ms = _median_ms(lambda: flash_attention_torch(q, k, v, **kw))
-            sdpa = lambda: F.scaled_dot_product_attention(    # noqa: E731
-                q, k, v, is_causal=kw["causal"], enable_gqa=True)
+            # fp32 (TF32 is off, above): EFFICIENT_ATTENTION on k and v
+            # repeated to q's heads
+            sdpa = _sdpa_f32(q, k, v, kw["causal"]) if f32 else (
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=kw["causal"], enable_gqa=True))
             l_ms = _median_ms(sdpa)
             # torch.profiler recorded only one of several back-to-back flash
             # launches here, so the kernel's device time is taken from CUDA
             # events over launches queued back to back (phase 8's profile of
             # a prefill counts each one)
             k_dev = _back_to_back_ms(lambda: flash_attention(q, k, v, **kw))
+            l_dev = _back_to_back_ms(sdpa)
             p_dev, p_n, _ = _device_profile(
                 lambda: flash_attention_torch(q, k, v, **kw), 5)
-            bound, by, n_bytes, flop = _flash_bound(shape, 2, BF16_OPS_PER_S)
+            # fp32: the CUDA cores' bound and split TF32's; the lower holds
+            bounds = ({"CUDA cores": _flash_bound(shape, 4, FP32_OPS_PER_S),
+                       "split TF32": _flash_bound(shape, 4, TF32_OPS_PER_S / 3)}
+                      if f32 else {"tensor cores": _flash_bound(shape, 2, BF16_OPS_PER_S)})
+            bound, by, n_bytes, flop = min(bounds.values())
             tflops = flop / (k_dev * 1e-3) / 1e12
             missing = [what for what, on in (("softcap", shape[8]),
                                              ("window", shape[7] and shape[7] < shape[4]))
                        if on]
-            sdpa_what = (f"SDPA without {' or '.join(missing)}" if missing
-                         else "SDPA (the same function)")
-            print(f"   flash {label} {shape[:6]} bf16: kernel {k_ms:.4f} ms "
-                  f"(device {k_dev:.4f} ms, back to back, {tflops:.1f} TFLOP/s, "
-                  f"{100 * bound / k_dev:.0f} % of the bound), "
-                  f"plain {p_ms:.4f} ms (device {_shown(p_dev)} ms in {p_n} kernels), "
-                  f"{sdpa_what} {l_ms:.4f} ms (kernel / SDPA "
-                  f"{k_ms / l_ms:.2f}); bound {bound:.4f} ms ({by}: {n_bytes} B, "
-                  f"{flop:.4g} FLOP)")
+            library = (f"F.scaled_dot_product_attention, "
+                       f"{'fp32, TF32 off, EFFICIENT_ATTENTION' if f32 else 'bf16'}"
+                       f"{', without ' + ' or '.join(missing) if missing else ''}")
+            print(f"   flash {label} {shape[:6]} "
+                  f"{'fp32 (' + F32_FLASH + ')' if f32 else 'bf16'}: kernel {k_ms:.4f} ms "
+                  f"(device {k_dev:.4f} ms back to back, {tflops:.1f} TFLOP/s of "
+                  f"products, {100 * bound / k_dev:.1f} % of the bound), plain "
+                  f"{p_ms:.4f} ms (device {_shown(p_dev)} ms in {p_n} kernels), {library}: "
+                  f"{l_ms:.4f} ms (device {l_dev:.4f} ms back to back; kernel / SDPA "
+                  f"device {k_dev / l_dev:.2f}); bound {bound:.4f} ms ({by}: {n_bytes} B, "
+                  f"{flop:.4g} FLOP; "
+                  + ", ".join(f"{n} {b[0]:.4f} ms" for n, b in bounds.items()) + ")")
             times = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
-                         plain_device_ms=p_dev, library_ms=l_ms, bound_ms=bound,
-                         bound_by=by, tflop_per_s=tflops)
+                         plain_device_ms=p_dev, library_ms=l_ms, library_device_ms=l_dev,
+                         bound_ms=bound, bound_by=by, bound_share=bound / k_dev,
+                         bounds_ms={n: b[0] for n, b in bounds.items()},
+                         tflop_per_s=tflops)
             if record is not None:
-                record.update(times, library="F.scaled_dot_product_attention, "
-                                             "without softcap")
+                record.update(times, library=library)
             return times
 
         def time_decode(shape, label, *, span=None, lse=False) -> dict:
@@ -1027,10 +1119,15 @@ def _phase7_attention(timings, builds, torch, np):
         time_flash(FLASH_MAIN, "main prefill (global layer)", flash)
         time_flash(FLASH_MAIN_LOCAL, "main prefill (local layer)")
         time_flash(FLASH_LONG, "long prefill (local layer)")
-        q, k, v = flash_inputs(FLASH_MAIN, torch.float32)
-        f32_dev = _back_to_back_ms(lambda: flash_attention(q, k, v, **flash_kw(FLASH_MAIN)))
-        print(f"   flash main prefill fp32 (CUDA-core kernel): device {f32_dev:.4f} ms, "
-              "back to back")
+        # the fp32 kernel at the main shape, torch_train_e2e's, the encoder's
+        # and deepseek-moe-16b's (G 1, hd 128, no softcap: SDPA's function)
+        flash_f32["shapes"] = {
+            key: dict(shape=list(shape), **time_flash(
+                shape, label, flash_f32 if key == "main" else None, torch.float32))
+            for key, shape, label in (("main", FLASH_MAIN, "main prefill (global layer)"),
+                                      ("train_e2e", FLASH_E2E, "torch_train_e2e's step"),
+                                      ("encoder", FLASH_ENCODER, "seamless encoder"),
+                                      ("deepseek", FLASH_DEEPSEEK, "deepseek-moe-16b prefill"))}
         decode.update(time_decode(DECODE_MAIN, "main, full cache"),
                       library="F.scaled_dot_product_attention(enable_gqa=True), "
                               "without softcap")
@@ -1082,9 +1179,11 @@ def _phase7_attention(timings, builds, torch, np):
                             f"return_lse={lse}", span=first, lse=lse).items()
                         if k in keep + ("warm_device_ms",)})
         flash["max_abs_err"] = errs["flash"]
+        flash_f32["max_abs_err"] = errs["flash_f32"]
+        flash_f32["large_scores"] = large
         decode["max_abs_err"] = errs["decode"]
         decode["lse_max_abs_err"] = lse_err
-    return flash, decode
+    return flash, decode, flash_f32
 
 
 def _phase8_serving(timings, flash, decode, torch, np):
@@ -1151,7 +1250,7 @@ def _phase8_serving(timings, flash, decode, torch, np):
               f"(31 + 21)); every throughput_batch run, eager or graphed: "
               f"{L} x 31 decode launches")
         assert n_flash == L * 4 == 168, n_flash
-        assert by_variant == {"f32_cuda_cores": 0, "bf16_wgmma": 168}, by_variant
+        assert by_variant == {"f32_3xtf32": 0, "bf16_wgmma": 168}, by_variant
         assert n_decode == L * (31 + 21) == 2184, n_decode
         flash["launches"], decode["launches"] = n_flash, n_decode
         assert out["output"].shape == (4, 32)
@@ -1264,43 +1363,44 @@ def _phase8_serving(timings, flash, decode, torch, np):
         # logits; in bf16 their difference is printed beside the plain path's
         # own (chunk 1024 against chunk 128): both are bf16 rounding noise.
         chunked = attention.chunked_attention
-        for dtype in ("float32", "bfloat16"):
-            cut = cfg.replace(n_layers=2, dtype=dtype)
-            model = init_params(torch.Generator(device=dev).manual_seed(1), cut)
-            for toks, max_len in ((prompts, 1024),
-                                  (np.asarray(long_prompts[:1]), 5120)):
-                toks = torch.as_tensor(toks, dtype=torch.long, device=dev)
-                runs = {}
-                for impl, chunk in (("kernel", None), ("torch", 1024),
-                                    ("torch", 128)):
-                    attention.set_attention_impl(impl)
-                    attention.chunked_attention = (
-                        lambda *a, c=chunk, **k: chunked(*a, chunk=c, **k))
-                    try:
-                        logits, caches, pos = model.prefill(toks, max_len)
-                        nxt = torch.argmax(logits[:, -1:], dim=-1)
-                        logits2, _ = model.decode_step(nxt, caches, pos)
-                        runs[impl, chunk] = (logits.float(), logits2.float(), nxt)
-                    finally:
-                        attention.chunked_attention = chunked
-                        attention.set_attention_impl("kernel")
-                kern, plain, plain128 = runs["kernel", None], runs["torch", 1024], \
-                    runs["torch", 128]
-                for got in kern[:2]:
-                    assert torch.isfinite(got).all()
-                errs = [float((a - b).abs().max()) for a, b in zip(kern[:2], plain[:2])]
-                noise = [float((a - b).abs().max())
-                         for a, b in zip(plain128[:2], plain[:2])]
-                same = bool((kern[2] == plain[2]).all())
-                print(f"   2-layer cut {dtype}, prompt {tuple(toks.shape)}: "
-                      f"prefill / first-decode logits, max |kernels - plain| "
-                      f"{errs[0]:.3e} / {errs[1]:.3e}; plain chunk 128 vs 1024 "
-                      f"{noise[0]:.3e} / {noise[1]:.3e}; same first token {same}")
-                if dtype == "float32":
-                    for got, want in zip(kern[:2], plain[:2]):
-                        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-            del model
-            torch.cuda.empty_cache()
+        with _f32_flash(flash, "8 gemma2-9b 2-layer cut"):
+            for dtype in ("float32", "bfloat16"):
+                cut = cfg.replace(n_layers=2, dtype=dtype)
+                model = init_params(torch.Generator(device=dev).manual_seed(1), cut)
+                for toks, max_len in ((prompts, 1024),
+                                      (np.asarray(long_prompts[:1]), 5120)):
+                    toks = torch.as_tensor(toks, dtype=torch.long, device=dev)
+                    runs = {}
+                    for impl, chunk in (("kernel", None), ("torch", 1024),
+                                        ("torch", 128)):
+                        attention.set_attention_impl(impl)
+                        attention.chunked_attention = (
+                            lambda *a, c=chunk, **k: chunked(*a, chunk=c, **k))
+                        try:
+                            logits, caches, pos = model.prefill(toks, max_len)
+                            nxt = torch.argmax(logits[:, -1:], dim=-1)
+                            logits2, _ = model.decode_step(nxt, caches, pos)
+                            runs[impl, chunk] = (logits.float(), logits2.float(), nxt)
+                        finally:
+                            attention.chunked_attention = chunked
+                            attention.set_attention_impl("kernel")
+                    kern, plain, plain128 = runs["kernel", None], runs["torch", 1024], \
+                        runs["torch", 128]
+                    for got in kern[:2]:
+                        assert torch.isfinite(got).all()
+                    errs = [float((a - b).abs().max()) for a, b in zip(kern[:2], plain[:2])]
+                    noise = [float((a - b).abs().max())
+                             for a, b in zip(plain128[:2], plain[:2])]
+                    same = bool((kern[2] == plain[2]).all())
+                    print(f"   2-layer cut {dtype}, prompt {tuple(toks.shape)}: "
+                          f"prefill / first-decode logits, max |kernels - plain| "
+                          f"{errs[0]:.3e} / {errs[1]:.3e}; plain chunk 128 vs 1024 "
+                          f"{noise[0]:.3e} / {noise[1]:.3e}; same first token {same}")
+                    if dtype == "float32":
+                        for got, want in zip(kern[:2], plain[:2]):
+                            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+                del model
+                torch.cuda.empty_cache()
     return readings
 
 
@@ -2036,6 +2136,20 @@ def _zero_attention_counts():
     gqa_decode_attention.launches = 0
 
 
+@contextlib.contextmanager
+def _f32_flash(flash: dict, phase: str):
+    """Adds the fp32 flash launches made inside to ``flash["f32_by_phase"]
+    [phase]`` (the flash record every phase that runs fp32 is handed; read
+    from ``launches_by_variant``, which nothing inside may reset)."""
+    from repro_torch.kernels import flash_attention
+
+    before = flash_attention.launches_by_variant[F32_FLASH]
+    yield
+    by_phase = flash.setdefault("f32_by_phase", {})
+    by_phase[phase] = (by_phase.get(phase, 0)
+                       + flash_attention.launches_by_variant[F32_FLASH] - before)
+
+
 def _hold_cut(cfg, prompts, extra, dev, torch):
     """A 2-layer cut of ``cfg`` at full width in fp32: its prefill and first
     decode logits through the kernels held against the plain attention at
@@ -2148,7 +2262,7 @@ def _phase12_dense(timings, flash, decode, torch, np):
                   f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
             assert same == 1.0, name
             assert n_flash == L, (name, n_flash)
-            assert by_variant == {"f32_cuda_cores": 0, "bf16_wgmma": L}
+            assert by_variant == {"f32_3xtf32": 0, "bf16_wgmma": L}
             assert n_decode == L * n_steps, (name, n_decode)
             rec.update(flash_launches=n_flash, decode_launches=n_decode,
                        prefill_ms=graphed["prefill_s"] * 1e3,
@@ -2165,7 +2279,8 @@ def _phase12_dense(timings, flash, decode, torch, np):
             if cfg.frontend == "vision":
                 extra = torch.randn((4, VISION_ROWS, cfg.d_model), device=dev,
                                     generator=torch.Generator(device=dev).manual_seed(4)) * 0.02
-            errs = _hold_cut(cfg, prompts, extra, dev, torch)
+            with _f32_flash(flash, "12 fp32 2-layer cuts"):
+                errs = _hold_cut(cfg, prompts, extra, dev, torch)
             print(f"   {name} 2-layer cut, fp32: prefill / first-decode logits, max "
                   f"|kernels - plain| {errs[0]:.3e} / {errs[1]:.3e} (held at 1e-4)")
             out["cuts"][name] = errs
@@ -2327,7 +2442,7 @@ def _phase13_families(timings, flash, decode, torch, np):
                   f"{n_steps}); peak device memory {peak / 1e9:.2f} GB")
             assert same == 1.0, name
             assert n_flash == n_flash_want, (name, n_flash)
-            assert by_variant == {"f32_cuda_cores": 0, "bf16_wgmma": n_flash_want}
+            assert by_variant == {"f32_3xtf32": 0, "bf16_wgmma": n_flash_want}
             assert n_decode == n_decode_layers * n_steps, (name, n_decode)
             assert peak < CARD_BYTES, (name, peak)
             out["serving"][name] = dict(
@@ -2340,7 +2455,8 @@ def _phase13_families(timings, flash, decode, torch, np):
             del model, eager, graphed
             torch.cuda.empty_cache()
 
-            errs = _hold_family_cut(cfg, prompts, src, dev, torch)
+            with _f32_flash(flash, "13 fp32 cuts"):
+                errs = _hold_family_cut(cfg, prompts, src, dev, torch)
             against = "the CPU" if name == "mamba2-130m" else "plain attention"
             print(f"   {name} fp32 cut: prefill / first-decode logits, max |kernels - "
                   f"{against}| {errs[0]:.3e} / {errs[1]:.3e} (held at 1e-4)")
@@ -2500,9 +2616,10 @@ def _train_stablelm(flash, torch, np):
     for impl in ("kernel", "torch"):
         attention.set_attention_impl(impl)
         try:
-            total, _ = model.loss_fn(dbatch)
-            grads[impl] = [total.detach(), *torch.autograd.grad(
-                total, list(model.parameters()))]
+            with _f32_flash(flash, "12 stablelm-1.6b fp32 training cut"):
+                total, _ = model.loss_fn(dbatch)
+                grads[impl] = [total.detach(), *torch.autograd.grad(
+                    total, list(model.parameters()))]
         finally:
             attention.set_attention_impl("kernel")
     worst = scaled = 0.0
@@ -2522,7 +2639,8 @@ def _train_stablelm(flash, torch, np):
     # 2 microbatches against 1: the accumulated fp32 gradients before the
     # update (Adam's g / (|g| + eps) would amplify rounding where g is near
     # eps), held as the kernel-vs-plain gradients are
-    after = {n: accumulate_grads(model, small, n) for n in (1, 2)}
+    with _f32_flash(flash, "12 stablelm-1.6b fp32 training cut"):
+        after = {n: accumulate_grads(model, small, n) for n in (1, 2)}
     g_worst = g_scaled = 0.0
     for k, want in after[1][0].items():
         got = after[2][0][k]
@@ -2821,11 +2939,15 @@ def _phase15_twins(timings, seg, flash, decode, torch, np) -> dict:
                 res = main(argv("e2e"))
                 secs = time.perf_counter() - t0
                 launches = {k: c.launches for k, c in counters.items()}
+                f32 = flash_attention.launches_by_variant[F32_FLASH]
+                if f32:
+                    flash.setdefault("f32_by_phase", {})[f"15 torch_{name}"] = f32
                 print(f"   examples/torch_{name}.py --smoke: {secs:.2f} s; launches "
                       f"{launches}")
                 for k in reached:
                     assert launches[k] > 0, f"torch_{name} did not launch {k}"
-                out[name] = {"seconds": secs, "launches": launches}
+                out[name] = {"seconds": secs, "launches": launches,
+                             "f32_flash_launches": f32}
                 if name == "train_e2e":
                     assert res["equal"], "the resumed run differs from the uninterrupted one"
                 elif name == "serve_requests":
@@ -2855,8 +2977,10 @@ def _phase15_twins(timings, seg, flash, decode, torch, np) -> dict:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     for name, rec in out.items():
-        if rec["launches"]["flash_attention"]:
-            flash["launches_by_path"][f"torch_{name}"] = rec["launches"]["flash_attention"]
+        # the bf16 kernel's launches; the fp32 kernel's are by phase above
+        bf16 = rec["launches"]["flash_attention"] - rec["f32_flash_launches"]
+        if bf16:
+            flash["launches_by_path"][f"torch_{name}"] = bf16
         if rec["launches"]["gqa_decode_attention"]:
             decode["launches_by_path"][f"torch_{name}"] = \
                 rec["launches"]["gqa_decode_attention"]
@@ -2937,7 +3061,7 @@ def _phase16_factories(flash, decode, torch, np) -> dict:
         n_flash, n_decode = flash_attention.launches, gqa_decode_attention.launches
         by_variant = dict(flash_attention.launches_by_variant)
         assert n_flash == want_flash, (name, n_flash)
-        assert by_variant == {"f32_cuda_cores": 0, "bf16_wgmma": want_flash}, by_variant
+        assert by_variant == {"f32_3xtf32": 0, "bf16_wgmma": want_flash}, by_variant
         assert n_decode == want_decode * SERVE_NEW, (name, n_decode)
         want = _direct_run(model, cfg, batch, torch)
         same = all(torch.equal(a, b) for a, b in zip(got, want))
@@ -3041,7 +3165,11 @@ def _phase16_dryrun(readings, factories, np) -> dict:
               f"{cost['flops']:.4e} FLOP, {cost['bytes accessed']:.4e} bytes (unfused), "
               f"arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB <= the card's "
               f"peak for the same step {peak / 1e9:.3f} GB; traced peak "
-              f"{mem['peak_memory_in_bytes'] / 1e9:.3f} GB")
+              f"{mem['peak_memory_in_bytes'] / 1e9:.3f} GB "
+              f"({mem['peak_memory_in_bytes'] / peak:.3f} of the card's)")
+        if shape.kind != "train":   # the parameters counted once: within 10 %
+            assert abs(mem["peak_memory_in_bytes"] / peak - 1) <= 0.10, \
+                (name, shape.kind, mem["peak_memory_in_bytes"], peak)
         if shape.kind == "train":     # the traced step is the Trainer's (phase 14)
             trainer_peak = readings["trainer"]["full_depth"]["peak_gb"]
             out["one_device"][-1]["trainer_peak_bytes"] = trainer_peak * 1e9
@@ -3084,8 +3212,9 @@ def _phase16_step_model_and_dryrun(timings, flash, decode, readings, torch, np) 
     held against the plain versions; (b) the step model with the H100's
     published rates beside the step times phases 8, 12 and 13 measured;
     (c) the dry-run (no card) at one device for three of those cells, whose
-    argument bytes must fit under the card's measured peak, one cell on the
-    256-rank production mesh, and the tuner's top 10."""
+    argument bytes must fit under the card's measured peak (and a serving
+    cell's traced peak within 10 % of it), one cell on the 256-rank
+    production mesh, and the tuner's top 10."""
     with _phase("16_step_model_and_dryrun", timings):
         factories = _phase16_factories(flash, decode, torch, np)
         model = _phase16_step_model(readings, np)
@@ -3467,6 +3596,7 @@ def _phase17_rank(rank, world, port, tmp):
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=P17_TIMEOUT_S))
     try:
+        from repro_torch.kernels import flash_attention
         from repro_torch.launch.mesh import make_mesh
 
         tmp = Path(tmp)
@@ -3480,8 +3610,10 @@ def _phase17_rank(rank, world, port, tmp):
                         ("serve_seq_cut", lambda: _p17_serve_seq_cut(rank, mesh, torch,
                                                                      np))):
             t0 = time.perf_counter()
+            f32 = flash_attention.launches_by_variant[F32_FLASH]
             out[key] = fn()
             out[key]["phase_s"] = time.perf_counter() - t0
+            out[key]["f32_flash_launches"] = flash_attention.launches_by_variant[F32_FLASH] - f32
             dist.barrier()
         with open(tmp / f"rank{rank}.json", "w") as f:
             json.dump(out, f)
@@ -3570,6 +3702,9 @@ def _phase17_tensor_parallel(timings, flash, decode, torch, np) -> dict:
                                                 for rec in ranks)
         for rec in (flash, decode):
             rec["launches"] = sum(rec["launches_by_path"].values())
+        flash.setdefault("f32_by_phase", {})["17 fp32 cuts, 2 ranks"] = sum(
+            rec[key]["f32_flash_launches"] for rec in ranks
+            for key in ("train_cut", "serve_cut", "serve_seq_cut"))
     return {"ranks": ranks, "card": smi}
 
 
@@ -3910,7 +4045,7 @@ def main() -> int:
     kernel["launches"] = seg_combine.launches
     assert kernel["launches"] > 0, "the main path never launched seg_combine"
 
-    flash, decode = _phase7_attention(timings, builds, torch, np)
+    flash, decode, flash_f32 = _phase7_attention(timings, builds, torch, np)
     readings["gemma2_9b"] = _phase8_serving(timings, flash, decode, torch, np)
     copy = _phase9_analysis(timings, builds, torch)
     readings["distributed"] = _phase10_distributed(timings, split,
@@ -3928,9 +4063,15 @@ def main() -> int:
     kernel["distributed_launches"] = readings["distributed"]["launches"]
     kernel["launches"] += kernel["distributed_launches"] + kernel["twins_launches"]
 
+    flash_f32["launches_by_phase"] = flash.pop("f32_by_phase")
+    flash_f32["launches"] = sum(flash_f32["launches_by_phase"].values())
+    print(f"== fp32 flash ({F32_FLASH}) launches on the main paths, by phase: "
+          f"{flash_f32['launches_by_phase']}; {flash_f32['launches']} in all")
+    assert flash_f32["launches"] > 0, "no main path launched the fp32 flash kernel"
+
     print(json.dumps({"readings": readings}))
     print(json.dumps({"phases_s": timings}))
-    print(json.dumps({"kernels": [kernel, flash, decode, copy]}))
+    print(json.dumps({"kernels": [kernel, flash, flash_f32, decode, copy]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

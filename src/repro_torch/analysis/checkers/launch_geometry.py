@@ -137,14 +137,14 @@ def _flash_probes(hds=HEAD_DIMS) -> list[LaunchProbe]:
 
     out = []
     # (B, H, KV, Sq): the reference's probe, gemma2-9b prefill B 4 x 512
-    # and the 4608-token prompt of generate; each for both kernels (fp32 on
-    # the CUDA cores, bf16 on wgmma), whose grids differ
+    # and the 4608-token prompt of generate; each for both kernels (fp32 as
+    # split TF32 on mma.sync, bf16 on wgmma), whose grids differ
     for dtype in (torch.float32, torch.bfloat16):
         for B, H, KV, Sq in ((1, 2, 1, 256), (4, 16, 8, 512), (1, 16, 8, 4608)):
             for hd in hds:
                 out.append(LaunchProbe("flash_attention",
                                        launch_spec(B, H, KV, Sq, hd, dtype),
-                                       *coverage(B, H, KV, Sq, dtype)))
+                                       *coverage(B, H, KV, Sq, dtype, hd)))
     return out
 
 

@@ -10,15 +10,19 @@ online-softmax GQA attention with causal, sliding-window, softcap,
   products on the tensor cores with ``wgmma``, K/V tiles of 64 keys fed by
   TMA into a ring of shared-memory stages by a producer warp, two consumer
   warpgroups of 64 rows each;
-* ``f32_cuda_cores`` (``csrc/flash_attention.cu``) serves fp32: real fp32
-  products on the CUDA cores, which neither TF32 nor bf16 ``wgmma`` gives.
+* ``f32_3xtf32`` (``csrc/flash_attention.cu``) serves fp32: both products
+  on the tensor cores as split TF32 (each operand a TF32 big part plus a
+  TF32 small part, three ``mma.sync`` products each, fp32 accuracy), K/V
+  tiles of 64 keys (32 above hd 128) loaded by ``cp.async`` into two
+  stages, 8 warps a CTA, each owning 16 rows (above hd 128 a pair of warps
+  shares them).
 
 Each source says what bounds it and what its design does about that.  Both
 take the head dim as it is (a multiple of 8 up to 256) and any sequence
 length: no lane padding of hd to 128 and no padding of the sequence to a
-block multiple, which were the TPU's needs.  The fp32 kernel masks the
-ragged edge itself; the bf16 kernel pads hd to 64, 128 or 256 in shared
-memory through TMA's zero fill and stores only what exists.
+block multiple, which were the TPU's needs.  The fp32 kernel zero-fills
+the ragged edge through ``cp.async``, the bf16 kernel pads hd to 64, 128 or
+256 in shared memory through TMA's zero fill; both store only what exists.
 
 :func:`tile_plan` mirrors in Python what the bf16 kernel does for each
 M-tile (a warpgroup's 64 rows): its kv range, the kv tiles it computes and
@@ -49,16 +53,18 @@ import torch
 from ._build import MAX_SMEM_BYTES, LaunchSpec, check, load
 
 __all__ = ["VARIANTS", "CtaPlan", "MTilePlan", "chunked_backward",
-           "chunked_forward", "coverage", "flash_attention_cuda", "flash_attention_torch", "heads_per_tile",
-           "launch_spec", "padded_head_dim", "tile_plan", "wgmma_stages"]
+           "chunked_forward", "coverage", "f32_row_strides", "f32_tile",
+           "flash_attention_cuda",
+           "flash_attention_torch", "heads_per_tile", "launch_spec",
+           "padded_head_dim", "tile_plan", "wgmma_stages"]
 
 #: the kernel that serves each input dtype
-VARIANTS = {torch.float32: "f32_cuda_cores", torch.bfloat16: "bf16_wgmma"}
+VARIANTS = {torch.float32: "f32_3xtf32", torch.bfloat16: "bf16_wgmma"}
 
 # the fp32 kernel (csrc/flash_attention.cu)
-ROWS = 32          # (query row, head) pairs per CTA
-BLOCK_K = 32       # keys per shared-memory tile
-THREADS = 256
+WARP_ROWS = 16     # (query row, head) pairs per group of warps: one mma M tile
+F32_WARPS = 8
+F32_STAGES = 2     # K/V stages of its cp.async double buffer
 
 # the bf16 kernel (csrc/flash_attention_wgmma.cu)
 WG_ROWS = 64       # rows per consumer warpgroup: one wgmma M tile
@@ -77,10 +83,28 @@ _F32_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
 _WGMMA_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
                + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-_SOURCES = {"f32_cuda_cores": ("flash_attention", "flash_attention_f32",
-                               _F32_ARGS),
+_SOURCES = {"f32_3xtf32": ("flash_attention", "flash_attention_f32", _F32_ARGS),
             "bf16_wgmma": ("flash_attention_wgmma", "flash_attention_bf16_wgmma",
                            _WGMMA_ARGS)}
+
+
+def f32_tile(hd: int) -> tuple[int, int, int, int]:
+    """The fp32 kernel's CTA at head dim ``hd``: (warps, warps that share
+    16 rows, rows, keys per K/V tile).  8 warps of 16 rows each and tiles of
+    64 keys up to hd 128; above, where 128 rows of q would not fit beside
+    two K/V stages, pairs of warps share 16 rows (64 a CTA), each taking
+    half a tile's 32 keys in S and half the head dims in P V."""
+    split, keys = (1, 64) if hd <= 128 else (2, 32)
+    return F32_WARPS, split, F32_WARPS * WARP_ROWS // split, keys
+
+
+def f32_row_strides(hd: int) -> tuple[int, int]:
+    """The fp32 kernel's shared-memory row strides in floats, (q and K,
+    V): padded so that no fragment load meets a bank conflict.  V rows hold
+    the head dims of the kernel instance that serves ``hd`` (32, 64, 128 or
+    256), zero past hd."""
+    inst = 32 if hd <= 32 else 64 if hd <= 64 else 128 if hd <= 128 else 256
+    return (hd + 8 if hd % 16 == 0 else hd), inst + 4
 
 
 def heads_per_tile(H: int, KV: int) -> int:
@@ -108,9 +132,11 @@ def launch_spec(B: int, H: int, KV: int, Sq: int, hd: int,
                 dtype: torch.dtype) -> LaunchSpec:
     """The launch of the kernel that serves ``dtype``.
 
-    fp32: one CTA of 256 threads per 32 (query row, head) pairs of one
-    (batch, kv head); q rows and one K and one V tile of 32 keys in fp32
-    shared memory, each row padded to hd + 4 floats.
+    fp32: one CTA of :func:`f32_tile`'s 8 warps per run of (query row,
+    head) pairs of one (batch, kv head); its q rows and two stages of a K
+    and a V tile in fp32 shared memory, rows padded as
+    :func:`f32_row_strides` says, and where two warps share rows, each
+    group's P (16 rows x (keys + 8)) and a row statistic per warp.
 
     bf16: grid (H / gh, B, M tiles) of 384-thread CTAs, where gh is
     :func:`heads_per_tile` and a CTA takes 2 x 64 / gh queries of gh heads;
@@ -120,9 +146,12 @@ def launch_spec(B: int, H: int, KV: int, Sq: int, hd: int,
     """
     if dtype == torch.float32:
         G = H // KV
+        warps, split, rows, keys = f32_tile(hd)
+        ldq, ldv = f32_row_strides(hd)
+        exchange = 0 if split == 1 else rows * (keys + 8 + split)
         return LaunchSpec(
-            grid=(-(-Sq * G // ROWS), KV, B), block=(THREADS, 1, 1),
-            smem_bytes=(ROWS + 2 * BLOCK_K) * (hd + 4) * 4)
+            grid=(-(-Sq * G // rows), KV, B), block=(32 * warps, 1, 1),
+            smem_bytes=(rows * ldq + F32_STAGES * keys * (ldq + ldv) + exchange) * 4)
     if dtype != torch.bfloat16:
         raise TypeError(f"flash_attention has no kernel for {dtype}")
     gh = heads_per_tile(H, KV)
@@ -134,15 +163,16 @@ def launch_spec(B: int, H: int, KV: int, Sq: int, hd: int,
                       block=(WG_THREADS, 1, 1), smem_bytes=smem)
 
 
-def coverage(B: int, H: int, KV: int, Sq: int, dtype: torch.dtype
+def coverage(B: int, H: int, KV: int, Sq: int, dtype: torch.dtype, hd: int
              ) -> tuple[tuple[int, int, int], tuple[int, int, int]]:
     """What the grid must cover, per grid axis (x, y, z), and what one CTA
     covers of it.  fp32: the Sq * G (query row, head) pairs of a kv group,
-    the KV kv heads and the B batch rows; 32 pairs of one (batch, kv head).
+    the KV kv heads and the B batch rows; :func:`f32_tile`'s rows of pairs
+    of one (batch, kv head).
     bf16: the H heads, the B batch rows and the Sq queries; gh heads of one
     batch row and 2 x 64 / gh queries.  Both kernels mask what lies past."""
     if dtype == torch.float32:
-        return (Sq * (H // KV), KV, B), (ROWS, 1, 1)
+        return (Sq * (H // KV), KV, B), (f32_tile(hd)[2], 1, 1)
     gh = heads_per_tile(H, KV)
     return (H, B, Sq), (gh, 1, CONSUMERS * WG_ROWS // gh)
 

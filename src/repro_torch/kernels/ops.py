@@ -12,7 +12,7 @@ that captured wrapper calls adds them again on every replay
 (``runtime.decode_graph``).  A wrapper whose kernel has several variants
 also counts its launches per variant in ``launches_by_variant``:
 ``flash_attention`` one kernel per input type (bf16: ``bf16_wgmma``, fp32:
-``f32_cuda_cores``), ``seg_combine`` its routes (``bins``, ``global``,
+``f32_3xtf32``), ``seg_combine`` its routes (``bins``, ``global``,
 ``columns``), ``fixture_copy`` its paths (``vector``, ``scalar``, as the
 launcher took them).  Beside the
 count, each wrapper keeps the distinct launch geometries it launched in
@@ -110,10 +110,11 @@ def flash_attention(
     (default Sk) are masked, as are keys after the query (``causal``) and
     keys at or before ``q_pos - window``.  Scores are scaled by hd**-0.5 and
     soft-capped to ``logit_cap * tanh(s / logit_cap)``.  On the card bf16
-    inputs launch the ``wgmma`` kernel (their addresses must be 16-byte
-    aligned) and fp32 inputs the CUDA-core kernel.  When q, k or v requires
-    a gradient, the call records :class:`_FlashAttention` (the backward
-    recomputes in plain PyTorch).
+    inputs launch the ``wgmma`` kernel and fp32 inputs the split-TF32
+    ``mma.sync`` kernel; both load through 16-byte copies (TMA,
+    ``cp.async``), so every input must start at a 16-byte-aligned address.
+    When q, k or v requires a gradient, the call records
+    :class:`_FlashAttention` (the backward recomputes in plain PyTorch).
     """
     kw = dict(causal=causal, window=window, logit_cap=logit_cap,
               q_offset=q_offset, k_len=k_len)
@@ -162,18 +163,18 @@ def _flash_forward(q, k, v, *, causal, window, logit_cap, q_offset, k_len):
         return _fa.flash_attention_torch(
             q, k, v, causal=causal, window=window, logit_cap=logit_cap,
             q_offset=q_offset, k_len=k_len)
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(
-                    f"flash_attention: {name} must start at a 16-byte-aligned "
-                    "address, which the bf16 kernel's TMA loads need")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"flash_attention: {name} must start at a 16-byte-aligned "
+                "address, which the kernels' 16-byte copies (TMA in bf16, "
+                "cp.async in fp32) need")
     out = _fa.flash_attention_cuda(
         q, k, v, causal=causal, window=window, logit_cap=logit_cap,
         q_offset=int(q_offset), k_len=k_len, spec=spec)
     flash_attention.launches += 1
     flash_attention.launches_by_variant[_fa.VARIANTS[q.dtype]] += 1
-    flash_attention.geometries.add((spec, *_fa.coverage(B, H, KV, Sq, q.dtype)))
+    flash_attention.geometries.add((spec, *_fa.coverage(B, H, KV, Sq, q.dtype, hd)))
     return out
 
 

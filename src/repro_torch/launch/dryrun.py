@@ -22,8 +22,12 @@ and no storage:
   step issues, by kind, weighted by
   :data:`repro_torch.core.roofline._WIRE_FACTOR`; memory per device is the
   argument bytes of the rank's shards and the peak of the bytes alive
-  (arguments, the gathered module, and every storage an op made until it
-  is freed).  All are per device.
+  (what exists before the step, and every storage an op made until it is
+  freed).  A train step starts from its arguments and the gathered module;
+  a serving step copies the placed parameters into its module and then
+  holds only that, so it starts from the gathered module and its other
+  arguments (tokens, caches, positions), the parameters counted once, as
+  the reference's XLA memory analysis counts them.  All are per device.
 * A training step's microbatches are identical, so a step of ``n``
   microbatches traces two of them and weights what the range
   ``train_step.microbatch`` counts by ``n / 2``; the gather before and the
@@ -108,9 +112,9 @@ REFERENCE_OUT = os.path.join("artifacts", "dryrun")
 #: ``tp_compute`` of a cell whose compute splits over the ``model`` axis
 TP_COMPUTE = "model"
 
-# The reference's §Perf presets, every name.  The port refuses the ones
-# whose flags ``set_flags`` refuses (``cache_update="inplace"``): their
-# cells come back as ``skip(...)``.
+# The reference's §Perf presets, every name.  A preset whose flags
+# ``set_flags`` refused would come back as ``skip(...)``; the port takes
+# every flag these presets set.
 OPT_PRESETS: dict[str, OptFlags] = {
     "baseline": OptFlags(),
     "moe-gather": OptFlags(moe_impl="gather"),
@@ -391,6 +395,7 @@ def _trace(cfg, shape: ShapeSpec, mesh, sizes: dict, cell: dict) -> Census:
                                o_sh["count"])}
         args += _tensors(opt)
     arg_bytes = sum(_nbytes(t.to_local()) for t in args)
+    param_bytes = sum(_nbytes(t) for t in params.values())
     module_bytes = sum(_nbytes(p) for p in model.parameters())
     cell["memory"] = {"argument_size_in_bytes": arg_bytes,
                       "gathered_module_bytes": module_bytes}
@@ -418,7 +423,8 @@ def _trace(cfg, shape: ShapeSpec, mesh, sizes: dict, cell: dict) -> Census:
     else:
         step = (make_prefill_step(cfg, max_len=shape.seq_len) if shape.kind == "prefill"
                 else make_decode_step(cfg))
-        census = Census(base_bytes=arg_bytes + module_bytes, known=known)
+        # the step holds the module, not the placed parameters it copies in
+        census = Census(base_bytes=arg_bytes - param_bytes + module_bytes, known=known)
         seq = shd.cache_seq_axes(cfg, mesh, shape.global_batch)
         with census:
             with torch.no_grad():

@@ -20,14 +20,17 @@ What the port reads today:
   ``model`` axis, as in the reference);
 * ``mesh_factor`` — the (data, model) split of the dry-run's production
   mesh (:mod:`repro_torch.launch.dryrun`), its only reader, as in the
-  reference.
+  reference;
+* ``cache_update`` — ``"stream"`` or ``"inplace"``, both what the port
+  already does: the reference's ``"inplace"`` moves the decode caches from
+  its layer scan's xs/ys into the scan's carry so that XLA can update them
+  in place, and the port, which has no scan, always writes each layer's
+  caches in place.  Both values give the same step, bit for bit.
 
-The other fields keep the reference's defaults, and :func:`set_flags`
-refuses any other value of them, so that no setting silently does nothing
-(:data:`WAITS` says why for each): no code of the reference reads
-``bf16_collectives``; ``cache_update``
-selects nothing, since the port's decode step always updates its caches in
-place.
+The other field, ``bf16_collectives``, keeps the reference's default, and
+:func:`set_flags` refuses any other value of it, so that no setting
+silently does nothing (:data:`WAITS` says why): no code of the reference
+reads it.
 """
 
 from __future__ import annotations
@@ -73,20 +76,23 @@ _FLAGS = OptFlags()
 
 
 #: the fields the port reads; any other must keep its default
-READ = ("sharded_loss", "flash_bwd", "n_micro_override", "moe_impl", "mesh_factor")
+READ = ("sharded_loss", "flash_bwd", "n_micro_override", "moe_impl", "mesh_factor",
+        "cache_update")
 #: the MoE dispatches the port has
 MOE_IMPLS = ("einsum", "gather", "shardmap")
+#: the reference's cache update strategies, both the port's in-place writes
+CACHE_UPDATES = ("stream", "inplace")
 #: why each unread field must keep its default
 WAITS = {
     "bf16_collectives": "no code of the reference reads it",
-    "cache_update": "the port's decode step always updates its caches in place",
 }
 
 
 def set_flags(flags: OptFlags) -> None:
     """Install ``flags``; raises ``ValueError`` on a field the port does not
-    read (not in :data:`READ`) set away from its default, and on a
-    ``moe_impl`` outside :data:`MOE_IMPLS`."""
+    read (not in :data:`READ`) set away from its default, on a ``moe_impl``
+    outside :data:`MOE_IMPLS` and on a ``cache_update`` outside
+    :data:`CACHE_UPDATES`."""
     unread = [f.name for f in fields(OptFlags) if f.name not in READ
               and getattr(flags, f.name) != f.default]
     if unread:
@@ -96,6 +102,9 @@ def set_flags(flags: OptFlags) -> None:
     if flags.moe_impl not in MOE_IMPLS:
         raise ValueError(f"OptFlags moe_impl {flags.moe_impl!r} is not a MoE "
                          f"dispatch; the port has {MOE_IMPLS}")
+    if flags.cache_update not in CACHE_UPDATES:
+        raise ValueError(f"OptFlags cache_update {flags.cache_update!r} is not a "
+                         f"cache update strategy; the reference has {CACHE_UPDATES}")
     global _FLAGS
     _FLAGS = flags
 

@@ -30,6 +30,7 @@ from repro_torch.kernels.decode_attention import launch_spec as decode_spec
 from repro_torch.kernels.flash_attention import (BLOCK_N, VARIANTS,
                                                  flash_attention_torch,
                                                  heads_per_tile, tile_plan)
+from repro_torch.kernels.flash_attention import coverage as flash_coverage
 from repro_torch.kernels.flash_attention import launch_spec as flash_spec
 from repro_torch.kernels._build import MAX_SMEM_BYTES
 from repro_torch.models.attention import chunked_attention, ring_slot_positions
@@ -246,7 +247,7 @@ def test_bf16_kernel_arithmetic_matches_pallas_and_oracle(name):
 
 
 def test_each_dtype_has_its_kernel_and_the_cpu_counts_no_variant():
-    assert VARIANTS == {torch.float32: "f32_cuda_cores",
+    assert VARIANTS == {torch.float32: "f32_3xtf32",
                         torch.bfloat16: "bf16_wgmma"}
     before = dict(flash_attention.launches_by_variant)
     assert set(before) == set(VARIANTS.values())
@@ -316,9 +317,16 @@ def test_ring_slot_positions_use_a_floored_mod(pos):
 @pytest.mark.parametrize("hd", [16, 64, 80, 128, 256])
 def test_launch_shared_memory_fits_an_h100_block(hd, dtype):
     spec = flash_spec(4, 16, 8, 512, hd, DTYPES[dtype][0])
-    if dtype == "f32":      # CUDA cores: 32 rows + 32 keys of K and of V, fp32
-        assert spec.smem_bytes == (32 + 2 * 32) * (hd + 4) * 4
-        assert spec.grid == (512 * 2 // 32, 8, 4) and spec.block == (256, 1, 1)
+    if dtype == "f32":      # split TF32: q rows + 2 stages of K and V tiles, fp32
+        # above hd 128 pairs of warps share 16 rows: 64 rows, P and row sums
+        rows, keys = (128, 64) if hd <= 128 else (64, 32)
+        ldq = hd + 8 if hd % 16 == 0 else hd
+        ldv = (32 if hd <= 32 else 64 if hd <= 64 else 128 if hd <= 128 else 256) + 4
+        exchange = 0 if hd <= 128 else 4 * 16 * (32 + 8 + 2)
+        assert spec.smem_bytes == (rows * ldq + 2 * keys * (ldq + ldv) + exchange) * 4
+        assert spec.grid == (512 * 2 // rows, 8, 4) and spec.block == (256, 1, 1)
+        assert flash_coverage(4, 16, 8, 512, torch.float32, hd) == (
+            (512 * 2, 8, 4), (rows, 1, 1))
     else:                   # wgmma: slack, q (128 rows), K/V stages of 64 keys
         hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
         stages = 2 if hdp == 256 else 4
@@ -340,6 +348,31 @@ def test_launch_shared_memory_fits_an_h100_block(hd, dtype):
     assert dspec.smem_bytes == ((2 * 2 * 32 + q_rows) * (hd + 16 // esize) * esize
                                 + 2 * 32 * 4 + 4672) <= MAX_SMEM_BYTES
     assert spec.check("flash") is spec and dspec.check("decode") is dspec
+
+
+@pytest.mark.parametrize("hd", [8, 24, 40, 64, 72, 128, 136, 200, 256])
+def test_f32_launch_figures_at_every_head_dim_instance(hd):
+    """The fp32 kernel's CTA, strides and shared memory as the source lays
+    them out: q and K rows read as float2 pairs by 16 lanes need a stride of
+    8 or 24 words mod 32, V rows read at keys 2t and 2t + 1 a stride of 4 or
+    12 mod 16, and every row 16-byte aligned for cp.async."""
+    from repro_torch.kernels.flash_attention import f32_row_strides, f32_tile
+
+    warps, split, rows, keys = f32_tile(hd)
+    ldq, ldv = f32_row_strides(hd)
+    inst = 32 if hd <= 32 else 64 if hd <= 64 else 128 if hd <= 128 else 256
+    assert (warps, split, rows, keys) == ((8, 1, 128, 64) if inst <= 128 else (8, 2, 64, 32))
+    assert ldq >= hd and ldq % 32 in (8, 24) and ldq % 4 == 0
+    assert ldv == inst + 4 and ldv % 16 in (4, 12)
+    for B, H, KV, Sq in ((1, 16, 1, 2100), (2, 9, 1, 65), (4, 16, 8, 512), (1, 2, 2, 1)):
+        spec = flash_spec(B, H, KV, Sq, hd, torch.float32)
+        shape, tile = flash_coverage(B, H, KV, Sq, torch.float32, hd)
+        assert shape == (Sq * (H // KV), KV, B) and tile == (rows, 1, 1)
+        assert spec.grid[0] * rows >= shape[0] > (spec.grid[0] - 1) * rows
+        assert spec.grid[1:] == (KV, B) and spec.block == (32 * warps, 1, 1)
+        exchange = 0 if split == 1 else rows * (keys + 8 + split)
+        assert spec.smem_bytes == (rows * ldq + 2 * keys * (ldq + ldv) + exchange) * 4
+        assert spec.check("flash") is spec
 
 
 @pytest.mark.parametrize("B,KV,G,S", [(4, 8, 2, 1024), (1, 8, 2, 4096),

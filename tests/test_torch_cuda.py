@@ -43,6 +43,96 @@ def test_flash_misaligned_bf16_on_the_card_raises(cuda_device):
     assert flash_attention.launches == before
 
 
+@pytest.mark.cuda
+def test_flash_misaligned_f32_on_the_card_raises(cuda_device):
+    # the fp32 kernel's cp.async copies need 16-byte-aligned addresses; q
+    # here is contiguous but starts 4 bytes past one
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda_device)
+               for s in ((1, 4, 16, 16), (1, 2, 16, 16), (1, 2, 16, 16)))
+    q = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)[1:]
+    q = q.view(1, 4, 16, 16)
+    assert q.data_ptr() % 16
+    before = flash_attention.launches
+    f32_before = flash_attention.launches_by_variant["f32_3xtf32"]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before
+    assert flash_attention.launches_by_variant["f32_3xtf32"] == f32_before
+
+
+# (B, H, KV, Sq, Sk, hd, causal, window, softcap, q_offset, k_len): the fp32
+# kernel's edges: every head-dim instance (hd 8, 40, 64, 128, 256, and 40
+# and 136 below their instance's width), G 1, 2, 9 and 16, Sq and Sk off
+# the tile sizes, windows, softcaps, an offset with k_len below Sk, rows
+# that see no key (written as 0), and non-causal with Sq != Sk
+F32_EDGES = {
+    "hd8-G1": (1, 2, 2, 63, 65, 8, True, None, None, 2, None),
+    "hd8-G16-window": (1, 16, 1, 65, 65, 8, True, 30, None, 0, None),
+    "hd40-G9-softcap": (2, 9, 1, 65, 63, 40, True, None, 30.0, 0, None),
+    "hd40-G9-noncausal": (1, 9, 1, 63, 2100, 40, False, None, None, 0, None),
+    "hd64-G16-window-softcap": (1, 16, 1, 2100, 2100, 64, True, 100, 50.0, 0, None),
+    "hd128-G2-offset-klen": (1, 4, 2, 1, 2100, 128, True, None, None, 2099, 1500),
+    "hd136-G2-noncausal": (2, 4, 2, 100, 37, 136, False, None, None, 0, None),
+    "hd256-G2-empty-rows": (1, 4, 2, 65, 100, 256, True, 20, 50.0, 10, 40),
+    "hd256-G16-noncausal-klen": (2, 16, 1, 33, 200, 256, False, None, None, 0, 150),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(F32_EDGES.values()), ids=list(F32_EDGES))
+def test_flash_f32_kernel_at_its_edges(cuda_device, shape):
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, KV, Sq, Sk, hd, causal, window, cap, q_offset, k_len = shape
+    rng = np.random.default_rng(Sq * 1000 + Sk + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda_device)
+               for s in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)))
+    kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=q_offset, k_len=k_len)
+    before = flash_attention.launches_by_variant["f32_3xtf32"]
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches_by_variant["f32_3xtf32"] == before + 1
+    want = flash_attention_torch(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    empty = (want == 0).all(dim=-1)           # rows that see no key
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+    if shape == F32_EDGES["hd256-G2-empty-rows"]:
+        assert empty.any() and not empty.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1, 2, 4, 8])
+@pytest.mark.parametrize("Sk,causal", [(512, True), (2100, False)],
+                         ids=["causal-512", "noncausal-2100"])
+def test_flash_f32_kernel_at_large_scores(cuda_device, Sk, causal, scale):
+    # q and k times `scale` at hd 256, no softcap: scores of std ~scale^2
+    # (tens at 4).  There the plain fp32 version is itself up to ~5e-5 from
+    # the float64 value of the same inputs (its sum order rounds the
+    # scores), so the kernel is held to that value instead: within 1e-5, or
+    # no further than the plain fp32 version is, whichever is larger
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, KV, Sq, hd = 1, 4, 2, 512, 256
+    rng = np.random.default_rng(hd + Sk)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda_device)
+               for s in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)))
+    q, k = q * scale, k * scale
+    got = flash_attention(q, k, v, causal=causal)
+    plain = flash_attention_torch(q, k, v, causal=causal)
+    s = torch.einsum("bngqh,bnch->bngqc", q.double().view(B, KV, H // KV, Sq, hd),
+                     k.double()) * hd ** -0.5
+    if causal:
+        ok = torch.ones((Sq, Sk), dtype=torch.bool, device=cuda_device).tril()
+        s = s.masked_fill(~ok, -torch.inf)
+    exact = torch.einsum("bngqc,bnch->bngqh", torch.softmax(s, -1),
+                         v.double()).reshape(B, H, Sq, hd)
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    assert err <= max(1e-5, plain_err), (err, plain_err)
+
+
 def _decode_inputs(device, dtype, B=2, H=8, KV=4, S=300, hd=128, seed=6):
     rng = np.random.default_rng(seed)
     q, kc, vc = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))

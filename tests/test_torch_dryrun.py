@@ -17,8 +17,12 @@ the CPU at smoke width (``.smoke()`` configs, fp32, a few tokens):
   part of the reference's rematerialised scan group; the reference's count
   lies between the port's without remat and with it, and the ratio is
   printed;
-* the presets the port refuses come back ``skip(...)``; nothing is
-  written under ``artifacts/dryrun``;
+* every preset traces (a flag ``set_flags`` refuses would come back
+  ``skip(...)``); the ``inplace-cache`` presets' cells equal their
+  ``baseline`` and ``moe-shardmap`` twins; nothing is written under
+  ``artifacts/dryrun``;
+* the census holds a serving step's parameters once (the gathered module)
+  and a train step's arguments and module both;
 * ``dryrun_mapreduce`` at a small size: the all-to-all bytes are the
   arithmetic, and Eq. 90's prediction equals the reference's.
 
@@ -57,6 +61,7 @@ from repro_torch.launch import dryrun, dryrun_mapreduce, steps
 from repro_torch.launch.mesh import world
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
+from repro_torch.models.opt_flags import OptFlags
 from repro_torch.models.weights import from_jax_params
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -235,23 +240,56 @@ def test_train_flops_beside_the_reference_hlo(cells, name, monkeypatch):
 
 def test_refused_presets_come_back_skipped():
     cfg, (shape, _) = get_config(MOE).smoke(), _shape("train")
-    # cache_update="inplace" selects nothing in the port; since the compute
-    # splits over model (ROADMAP.md item 24) the shardmap presets trace
-    for opt in ("inplace-cache", "inplace-cache+moe"):
-        cell = dryrun.run_cell(cfg, shape, False, opt=opt, mesh=MESH)
-        assert cell["status"].startswith(f"skip(opt {opt}:"), cell["status"]
-        assert "not read by the port" in cell["status"]
-    for opt in ("moe-shardmap", "moe-shardmap+flash"):
+    # the port takes every flag of the reference's presets: cache_update is
+    # what its decode step already does, and since the compute splits over
+    # model (ROADMAP.md item 24) the shardmap presets trace
+    for opt in ("inplace-cache", "inplace-cache+moe", "moe-shardmap", "moe-shardmap+flash"):
         cell = dryrun.run_cell(cfg, shape, False, opt=opt, mesh=MESH)
         assert cell["status"] == "ok" and cell["tp_compute"] == "model", cell["status"]
     assert not dist.is_initialized()
     # a preset the port takes traces on the production mesh's refactoring
     cell = dryrun.run_cell(cfg, shape, False, opt="moe-gather+dp64+loss")
     assert (cell["status"], cell["mesh"], cell["chips"]) == ("ok", "64x4", 256)
+    # a flag set_flags refuses comes back skipped
+    refused = OptFlags(bf16_collectives=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(dryrun.OPT_PRESETS, "bf16-collectives", refused)
+        cell = dryrun.run_cell(cfg, shape, False, opt="bf16-collectives", mesh=MESH)
+    assert cell["status"].startswith("skip(opt bf16-collectives:"), cell["status"]
+    assert "not read by the port" in cell["status"]
     # the reference's skip rule
     long = ShapeSpec("long_500k", 524_288, 1, "decode")
     assert dryrun.run_cell(get_config(DENSE).smoke(), long, False, mesh=MESH)[
         "status"].startswith("skip(") or get_config(DENSE).supports_long_context
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+@pytest.mark.parametrize("opt,twin", [("inplace-cache", "baseline"),
+                                      ("inplace-cache+moe", "moe-shardmap")])
+def test_inplace_cache_presets_equal_their_twins(opt, twin, kind):
+    """cache_update="inplace" selects what the port already does, so each
+    preset's cell is its twin's but for the preset's name and trace time."""
+    cfg, shape = get_config(MOE).smoke(), _shape(kind)[0]
+    got, want = (dryrun.run_cell(cfg, shape, False, opt=o, mesh=MESH) for o in (opt, twin))
+    assert got["status"] == "ok", got["status"]
+    drop = ("opt", "trace_s")
+    assert ({k: v for k, v in got.items() if k not in drop}
+            == {k: v for k, v in want.items() if k not in drop})
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+@pytest.mark.parametrize("name", [DENSE, MOE, ENCDEC])
+def test_census_counts_the_parameters_once(cells, name, kind):
+    """A decode step copies the placed parameters into its module and then
+    holds only the module: at one device what it holds above its arguments
+    is its transients, a small part of the parameters.  A train step holds
+    its arguments and the gathered module both."""
+    mem = cells[name, kind, "1x1"]["memory"]
+    above = mem["peak_memory_in_bytes"] - mem["argument_size_in_bytes"]
+    if kind == "train":
+        assert above >= mem["gathered_module_bytes"], mem
+    else:
+        assert 0 < above < mem["gathered_module_bytes"] / 4, mem
 
 
 def test_presets_are_the_reference_names():

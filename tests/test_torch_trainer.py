@@ -537,7 +537,7 @@ def test_trainer_refuses_grad_compression():
 
 
 @pytest.mark.parametrize("field,value,why", [
-    ("cache_update", "inplace", "updates its caches in place"),
+    ("cache_update", "no-such-update", "not a cache update strategy"),
     ("bf16_collectives", True, "no code of the reference reads it"),
     ("moe_impl", "no-such-dispatch", "not a MoE dispatch"),
 ])

@@ -21,7 +21,9 @@ uses.
   moves by an amount that rounding changes: on the smoke configs a handful
   of ~10^5 elements differ by up to 8 % of the rate;
 * ``accumulate_grads``' fp32 gradients at 2 and 4 microbatches against 1;
-* ``set_flags`` refuses a flag the port does not read;
+* ``set_flags`` refuses a flag the port does not read, and takes
+  ``cache_update="inplace"``, under which a decode step's logits and caches
+  equal the default's bit for bit;
 * ``TokenPipeline`` batches and checksums bit for bit;
 * ``profile_capture`` writes a ``torch.profiler`` trace under an obs span,
   and a train step shows the profiler ranges that attribute its time.
@@ -389,12 +391,50 @@ def test_accumulated_gradients_of_microbatches_equal_the_full_batch():
 
 @pytest.mark.parametrize("field,value", [("moe_impl", "no-such-dispatch"),
                                          ("bf16_collectives", True),
-                                         ("cache_update", "inplace")])
+                                         ("cache_update", "no-such-update")])
 def test_set_flags_refuses_a_flag_the_port_does_not_read(field, value):
     with pytest.raises(ValueError, match=field):
         opt_flags.set_flags(opt_flags.OptFlags(**{field: value}))
     assert opt_flags.get_flags() == opt_flags.OptFlags()
     j_flags.set_flags(j_flags.OptFlags(**{field: value}))   # the reference takes it
+
+
+def test_set_flags_takes_cache_update_which_the_port_does_in_place():
+    for value in ("inplace", "stream"):
+        opt_flags.set_flags(opt_flags.OptFlags(cache_update=value))
+        assert opt_flags.get_flags().cache_update == value
+        opt_flags.clear_flags()
+    assert "cache_update" in opt_flags.READ and "cache_update" not in opt_flags.WAITS
+
+
+@pytest.mark.parametrize("name", ["gemma2-9b", "deepseek-moe-16b"])
+def test_decode_under_inplace_cache_equals_stream(name):
+    """The reference's cache_update="inplace" moves its caches into a scan's
+    carry; the port's decode step writes them in place either way, so the
+    flag changes no bit of its logits or caches."""
+    cfg = get_config(name).smoke()
+    model = init(cfg, torch.Generator().manual_seed(5), device="cpu",
+                 param_dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 9)))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 2, 1)))
+    runs = []
+    for value in ("stream", "inplace"):
+        opt_flags.set_flags(opt_flags.OptFlags(cache_update=value))
+        out = steps.make_prefill_step(cfg, max_len=16)(model, {"inputs": prompt})
+        logits, caches, pos = [out["logits"]], out["caches"], out["pos"]
+        for tok in toks:
+            out = steps.make_decode_step(cfg)(model, {"token": tok, "caches": caches,
+                                                      "pos": pos})
+            logits.append(out["logits"])
+            caches, pos = out["caches"], pos + 1
+        runs.append((logits, caches))
+        opt_flags.clear_flags()
+    (la, ca), (lb, cb) = runs
+    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    flat_a, flat_b = (torch.utils._pytree.tree_flatten(c)[0] for c in (ca, cb))
+    assert len(flat_a) == len(flat_b) > 0
+    assert all(torch.equal(a, b) for a, b in zip(flat_a, flat_b))
 
 
 def test_set_flags_takes_mesh_factor_which_the_dry_run_reads():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's ``seg_combine`` and ``fixture_copy`` through their public
-wrappers, at ``chip_smoke.py``'s phase 1 and phase 9 shapes, so that two
-checkouts of the port can be compared on one card.
+"""Time the port's ``seg_combine``, ``fixture_copy`` and fp32
+``flash_attention`` through their public wrappers, at ``chip_smoke.py``'s
+phase 1, 9 and 7 shapes, so that two checkouts of the port can be compared
+on one card.
 
     python3 tools/time_kernels.py                  # this checkout
     python3 tools/time_kernels.py --src DIR/src    # the port under DIR/src
@@ -17,7 +18,10 @@ over 20 calls; for ``fixture_copy`` and ``Tensor.copy_``, 10 calls, and
 CUDA events around 20 calls queued back to back besides).  The shapes: ``seg_combine`` on the uniform sorted ids of
 ``MAIN_SHAPE``, the engine's first spill and the distributed caller's
 unsorted words (values ones); ``fixture_copy`` at (16384, 4096) in (16, 512)
-tiles, beside ``Tensor.copy_``.  Needs a CUDA card.
+tiles, beside ``Tensor.copy_``; ``flash_attention`` in fp32 (TF32 off) at
+``FLASH_MAIN``, ``FLASH_E2E``, ``FLASH_ENCODER`` and ``FLASH_DEEPSEEK``
+(wrapper ms, device ms back to back, and max |kernel - plain|, held at
+1e-5).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -41,12 +45,34 @@ def _run(src: str) -> dict:
 
     import repro_torch
     from repro_torch.core.hadoop.params import HadoopParams
-    from repro_torch.kernels import fixture_copy, seg_combine
+    from repro_torch.kernels import fixture_copy, flash_attention, seg_combine
+    from repro_torch.kernels.flash_attention import flash_attention_torch
     from repro_torch.mapreduce import JOBS, make_input
 
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA card")
     dev = torch.device("cuda")
+    out = {"src": str(Path(repro_torch.__file__).resolve().parents[1]),
+           "card": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"], capture_output=True, text=True,
+               check=True).stdout.strip().splitlines()[0]}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for label, shape in (("main", cs.FLASH_MAIN), ("train_e2e", cs.FLASH_E2E),
+                         ("encoder", cs.FLASH_ENCODER), ("deepseek", cs.FLASH_DEEPSEEK)):
+        B, H, KV, Sq, Sk, hd = shape[:6]
+        q, k, v = (torch.randn(s, generator=gen, device=dev)
+                   for s in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)))
+        kw = dict(causal=shape[6], window=shape[7], logit_cap=shape[8],
+                  q_offset=shape[9])
+        err = float((flash_attention(q, k, v, **kw)
+                     - flash_attention_torch(q, k, v, **kw)).abs().max())
+        assert err <= 1e-5, (label, err)
+        out[f"flash_f32_{label}"] = dict(
+            ms=cs._median_ms(lambda: flash_attention(q, k, v, **kw)),
+            device_ms=cs._back_to_back_ms(lambda: flash_attention(q, k, v, **kw)),
+            max_abs_err=err)
     job = JOBS["wordcount"]
     hp = HadoopParams(pNumMappers=4, pNumReducers=8, pUseCombine=True,
                       pSortMB=100.0, pSplitSize=128 * cs.MiB)
@@ -61,11 +87,6 @@ def _run(src: str) -> dict:
         "engine": (spill["ids"], spill["num_parts"]),
         "distributed": (words % cs.DIST_PARTS, cs.DIST_PARTS),
     }
-    out = {"src": str(Path(repro_torch.__file__).resolve().parents[1]),
-           "card": subprocess.run(
-               ["nvidia-smi", "--query-gpu=name,power.limit",
-                "--format=csv,noheader"], capture_output=True, text=True,
-               check=True).stdout.strip().splitlines()[0]}
     for label, (ids, parts) in shapes.items():
         i = torch.from_numpy(ids.astype(np.int32)).to(dev)
         v = torch.ones((i.numel(), 1), device=dev)
