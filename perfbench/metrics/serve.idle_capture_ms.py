@@ -1,0 +1,3 @@
+"""`serve.idle_capture_ms`: see :func:`perfbench.span_readers.idle_capture_ms`."""
+
+from perfbench.span_readers import idle_capture_ms as read  # noqa: F401

@@ -41,6 +41,7 @@ from torch.profiler import record_function
 from repro_torch.models import weights
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.opt_flags import get_flags
+from repro_torch.obs import span
 from repro_torch.optim import AdamWConfig, adamw_update
 
 __all__ = ["accumulate_grads", "init_params", "make_decode_step", "make_prefill_step",
@@ -137,12 +138,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     are written back into ``model`` in place.  ``opt_state`` is
     :func:`repro_torch.optim.adamw_init` of
     ``dict(model.named_parameters())``.  Metrics: ``loss`` (the total),
-    with ``grad_norm`` and ``lr`` from the update.
+    with ``grad_norm`` and ``lr`` from the update.  The update and the
+    copy-back run under the span ``train_step.optimizer``
+    (:func:`repro_torch.obs.span`).
     """
     def train_step(model: nn.Module, opt_state: dict, batch: dict):
         acc, loss = accumulate_grads(model, batch, n_microbatches)
         params = dict(model.named_parameters())
-        with torch.no_grad():
+        with torch.no_grad(), span("train_step.optimizer"):
             new, opt_state, opt_metrics = adamw_update(
                 acc, opt_state, {k: p.detach() for k, p in params.items()},
                 opt_cfg)

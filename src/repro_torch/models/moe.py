@@ -52,6 +52,13 @@ einsum path's tables has at most one of the k terms: the port scatters
 them straight into (T, E, C + 1) instead of summing k one-hot tensors of
 (K·T, E, C), with the same numbers.  ``capacity`` (decode: ``T``, dropless)
 is a host integer from shapes; nothing here reads the device.
+
+Spans (:func:`repro_torch.obs.span`), in every dispatch: ``moe.route`` (the
+router product, softmax and :func:`route`), ``moe.dispatch`` (the slot
+tables, the dispatch and combine tables, the expert buffers),
+``moe.experts`` (each expert's SwiGLU; the shared experts apart) and
+``moe.combine`` (the gate-weighted outputs back to their tokens, and the
+model-axis reduce).
 """
 
 from __future__ import annotations
@@ -61,6 +68,8 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.obs import span
 
 from . import tensor_parallel as tp
 from .act_sharding import current_mesh
@@ -147,19 +156,22 @@ def _expert_compute_einsum(p, xt, idx, gate_vals, pos_sel, keep_sel, C, base):
     T, d = xt.shape
     E = p["experts"]["wi"].shape[0]
     K = idx.shape[1]
-    mine, e_flat, c_flat, gates = _slot_tables(idx, gate_vals, pos_sel, keep_sel,
-                                               base, E, C)
-    t_flat = torch.arange(T, device=xt.device).repeat(K)
-    kept = mine.reshape(-1).to(torch.float32)
-    dispatch = torch.zeros((T, E, C + 1), dtype=torch.float32, device=xt.device)
-    dispatch[t_flat, e_flat, c_flat] = kept
-    combine = torch.zeros((T, E, C + 1), dtype=torch.float32, device=xt.device)
-    combine[t_flat, e_flat, c_flat] = gates
-    dispatch = dispatch[..., :C].reshape(T, E * C).to(xt.dtype)
-    combine = combine[..., :C].reshape(T, E * C).to(xt.dtype)
-    xin = (dispatch.T @ xt).view(E, C, d)
-    out = _expert_ffn(p, xin)
-    return combine @ out.reshape(E * C, d)
+    with span("moe.dispatch"):
+        mine, e_flat, c_flat, gates = _slot_tables(idx, gate_vals, pos_sel, keep_sel,
+                                                   base, E, C)
+        t_flat = torch.arange(T, device=xt.device).repeat(K)
+        kept = mine.reshape(-1).to(torch.float32)
+        dispatch = torch.zeros((T, E, C + 1), dtype=torch.float32, device=xt.device)
+        dispatch[t_flat, e_flat, c_flat] = kept
+        combine = torch.zeros((T, E, C + 1), dtype=torch.float32, device=xt.device)
+        combine[t_flat, e_flat, c_flat] = gates
+        dispatch = dispatch[..., :C].reshape(T, E * C).to(xt.dtype)
+        combine = combine[..., :C].reshape(T, E * C).to(xt.dtype)
+        xin = (dispatch.T @ xt).view(E, C, d)
+    with span("moe.experts"):
+        out = _expert_ffn(p, xin)
+    with span("moe.combine"):
+        return combine @ out.reshape(E * C, d)
 
 
 def _expert_compute_gather(p, xt, idx, gate_vals, pos_sel, keep_sel, C, base):
@@ -168,20 +180,24 @@ def _expert_compute_gather(p, xt, idx, gate_vals, pos_sel, keep_sel, C, base):
     dispatch is this over its own routing."""
     T, d = xt.shape
     E = p["experts"]["wi"].shape[0]
-    mine, e_flat, c_flat, gates = _slot_tables(idx, gate_vals, pos_sel, keep_sel,
-                                               base, E, C)
-    tok = torch.where(mine, torch.arange(T, device=xt.device), T).reshape(-1)
-    slot_tok = torch.full((E, C + 1), T, dtype=torch.long, device=xt.device)
-    slot_tok[e_flat, c_flat] = tok
-    gate_slot = torch.zeros((E, C + 1), dtype=torch.float32, device=xt.device)
-    gate_slot[e_flat, c_flat] = gates
-    slot_tok, gate_slot = slot_tok[:, :C], gate_slot[:, :C]
-    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    out = _expert_ffn(p, xt_pad[slot_tok])                         # (E, C, d)
-    weighted = out * gate_slot[..., None].to(out.dtype)
-    y = out.new_zeros((T + 1, d)).index_add_(0, slot_tok.reshape(-1),
-                                             weighted.reshape(E * C, d))
-    return y[:T]
+    with span("moe.dispatch"):
+        mine, e_flat, c_flat, gates = _slot_tables(idx, gate_vals, pos_sel, keep_sel,
+                                                   base, E, C)
+        tok = torch.where(mine, torch.arange(T, device=xt.device), T).reshape(-1)
+        slot_tok = torch.full((E, C + 1), T, dtype=torch.long, device=xt.device)
+        slot_tok[e_flat, c_flat] = tok
+        gate_slot = torch.zeros((E, C + 1), dtype=torch.float32, device=xt.device)
+        gate_slot[e_flat, c_flat] = gates
+        slot_tok, gate_slot = slot_tok[:, :C], gate_slot[:, :C]
+        xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
+        xin = xt_pad[slot_tok]                                     # (E, C, d)
+    with span("moe.experts"):
+        out = _expert_ffn(p, xin)
+    with span("moe.combine"):
+        weighted = out * gate_slot[..., None].to(out.dtype)
+        y = out.new_zeros((T + 1, d)).index_add_(0, slot_tok.reshape(-1),
+                                                 weighted.reshape(E * C, d))
+        return y[:T]
 
 
 def _per_data_shard() -> bool:
@@ -204,23 +220,25 @@ def apply_moe(p: Mapping, x: torch.Tensor, cfg: ModelConfig, *,
     E, K = cfg.n_experts, cfg.moe_top_k
     T = B * S
     xt = x.reshape(T, d)
-    logits = (xt @ p["router"].to(x.dtype)).float()                # (T, E)
-    probs = torch.softmax(logits, dim=-1)
     impl = get_flags().moe_impl
     per_shard = impl == "shardmap" and _per_data_shard()
     if capacity is not None:
         C = capacity
     else:
         C = capacity_of(cfg, T if per_shard else T * tp.batch_size())
-    gate_vals, idx, pos_sel, keep_sel, onehot = route(probs, K, C,
-                                                      global_order=not per_shard)
+    with span("moe.route"):
+        logits = (xt @ p["router"].to(x.dtype)).float()            # (T, E)
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, idx, pos_sel, keep_sel, onehot = route(probs, K, C,
+                                                          global_order=not per_shard)
 
     compute = _expert_compute_einsum if impl == "einsum" else _expert_compute_gather
     E_loc = p["experts"]["wi"].shape[0]
     if tp.model_size() == 1:
         y = compute(p, xt, idx, gate_vals, pos_sel, keep_sel, C, 0)
         if "shared" in p:
-            y = y + apply_mlp(p["shared"], xt, "swiglu")
+            with span("moe.experts"):
+                y = y + apply_mlp(p["shared"], xt, "swiglu")
     else:
         # the rank's experts and shared-expert width: partial sums, one
         # reduce (experts the rules leave whole are computed whole)
@@ -232,10 +250,12 @@ def apply_moe(p: Mapping, x: torch.Tensor, cfg: ModelConfig, *,
             whole = compute(p, xt, idx, gate_vals, pos_sel, keep_sel, C, 0)
             part = torch.zeros_like(whole)
         if "shared" in p:
-            part = part + apply_mlp(p["shared"], x_in, "swiglu", reduce=False)
-        y = tp.reduce_from_model(part)
-        if E_loc == E:
-            y = y + whole
+            with span("moe.experts"):
+                part = part + apply_mlp(p["shared"], x_in, "swiglu", reduce=False)
+        with span("moe.combine"):
+            y = tp.reduce_from_model(part)
+            if E_loc == E:
+                y = y + whole
 
     # Switch load-balancing loss: E * sum_e f_e * p_e, over the global
     # microbatch's means

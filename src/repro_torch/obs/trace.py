@@ -16,8 +16,11 @@ The observability layer's timeline side.  A :class:`Tracer` collects
   across the service worker).
 
 Timestamps are microseconds from the tracer's construction
-(``time.perf_counter`` based), so traces start at t=0.  All methods are
-safe from any thread; each append takes one short lock.
+(``time.perf_counter`` based), so traces start at t=0.  ``origin_ns``, the
+epoch nanoseconds of t=0 (written as ``otherData.origin_ns``), puts them on
+``torch.profiler``'s timeline, whose events are epoch nanoseconds
+(``trace_start_ns()`` plus each event's offset): ``ts + origin_ns / 1e3``.
+All methods are safe from any thread; each append takes one short lock.
 
 ``NULL_TRACER`` is the off switch: every method is a no-op and ``span()``
 returns a shared reusable context manager, so disabled instrumentation
@@ -29,7 +32,6 @@ from __future__ import annotations
 import json
 import threading
 import time
-from typing import Iterator
 
 __all__ = ["Tracer", "NULL_TRACER"]
 
@@ -59,7 +61,10 @@ class Tracer:
     enabled: bool = True
 
     def __init__(self, *, process_name: str = "repro_torch") -> None:
-        self._t0 = time.perf_counter()
+        # the anchor pair: t=0 on the perf_counter clock and on the epoch's
+        self._t0 = time.perf_counter_ns()
+        #: epoch nanoseconds of the trace's t=0
+        self.origin_ns = time.time_ns()
         self._events: list[dict] = []
         self._lock = threading.Lock()
         self._pid = 1
@@ -69,7 +74,7 @@ class Tracer:
 
     def now_us(self) -> float:
         """Microseconds since tracer construction (the trace clock)."""
-        return (time.perf_counter() - self._t0) * 1e6
+        return (time.perf_counter_ns() - self._t0) / 1e3
 
     def _emit(
         self,
@@ -162,11 +167,6 @@ class Tracer:
         self._emit("e", name, args=args or None,
                    extra={"cat": category, "id": id})
 
-    def async_instant(self, name: str, id: int, *, category: str = "repro_torch",
-                      **args) -> None:
-        self._emit("n", name, args=args or None,
-                   extra={"cat": category, "id": id})
-
     # ------------------------------------------------------------- metadata
 
     def process_name(self, pid: int, name: str) -> None:
@@ -188,7 +188,8 @@ class Tracer:
             return list(self._events)
 
     def to_json(self) -> str:
-        return json.dumps({"traceEvents": self.events()})
+        return json.dumps({"traceEvents": self.events(),
+                           "otherData": {"origin_ns": self.origin_ns}})
 
     def write(self, path: str) -> None:
         with open(path, "w") as f:
@@ -214,7 +215,8 @@ class _NullTracer(Tracer):
     enabled = False
 
     def __init__(self) -> None:
-        self._t0 = 0.0
+        self._t0 = 0
+        self.origin_ns = 0
         self._events = []
         self._lock = threading.Lock()
         self._pid = 1
@@ -235,7 +237,3 @@ class _NullTracer(Tracer):
 #: process-wide off switch — handed out by ``repro_torch.obs.current()`` until an
 #: ``observe()`` context installs a live tracer.
 NULL_TRACER: Tracer = _NullTracer()
-
-
-def _iter_events(tracer: Tracer) -> Iterator[dict]:
-    yield from tracer.events()

@@ -26,6 +26,10 @@ the same static-buffer step runs eagerly, on any device.
 Launch counts stay true: a wrapper counts in Python, which a replay does not
 run, so the decoder takes each wrapper's count during capture back out
 (nothing ran) and adds it again on every replay.
+
+Spans (:func:`repro_torch.obs.span`): ``decoder.first_step`` around the
+eager step on the side stream, ``decoder.capture`` around the capture (the
+interval ``capture_s`` times).  Replays run no Python, so they have none.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.lm import LM
+from repro_torch.obs import span
 
 __all__ = ["GreedyDecoder"]
 
@@ -89,19 +94,25 @@ class GreedyDecoder:
         self.pos.add_(1)
         return logits
 
+    @property
+    def captured(self) -> bool:
+        """Whether the decoder has captured its step as a CUDA graph."""
+        return self._graph is not None
+
     def _capture(self) -> None:
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        before = _counts()
-        with torch.cuda.graph(graph, stream=self._stream):
-            logits = self._run()
-        after = _counts()
-        # nothing ran during capture: take its counts back out
-        self._deltas = [(a[0] - b[0], {k: a[1][k] - b[1][k] for k in a[1]})
-                        for a, b in zip(after, before)]
-        _add(self._deltas, -1)
-        self._graph, self.logits = graph, logits
-        self.capture_s = time.perf_counter() - t0
+        with span("decoder.capture"):
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            before = _counts()
+            with torch.cuda.graph(graph, stream=self._stream):
+                logits = self._run()
+            after = _counts()
+            # nothing ran during capture: take its counts back out
+            self._deltas = [(a[0] - b[0], {k: a[1][k] - b[1][k] for k in a[1]})
+                            for a, b in zip(after, before)]
+            _add(self._deltas, -1)
+            self._graph, self.logits = graph, logits
+            self.capture_s = time.perf_counter() - t0
 
     def step(self) -> torch.Tensor:
         """Run one decode step; returns the token buffer (B, 1), which the
@@ -110,11 +121,12 @@ class GreedyDecoder:
             self.logits = self._run()
         elif self.steps == 0:
             # warm-up, a real step, on the stream the capture will use
-            self._stream = torch.cuda.Stream(device=self.model.device)
-            self._stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(self._stream):
-                self.logits = self._run()
-            torch.cuda.current_stream().wait_stream(self._stream)
+            with span("decoder.first_step"):
+                self._stream = torch.cuda.Stream(device=self.model.device)
+                self._stream.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(self._stream):
+                    self.logits = self._run()
+                torch.cuda.current_stream().wait_stream(self._stream)
         else:
             if self._graph is None:
                 self._capture()

@@ -28,7 +28,7 @@ import torch
 from repro_torch.compat import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import LM
-from repro_torch.obs import MetricsRegistry
+from repro_torch.obs import MetricsRegistry, span
 from repro_torch.obs import current as _obs_current
 from repro_torch.runtime.batching import AdmissionQueue, LatencyStats
 from repro_torch.runtime.decode_graph import GreedyDecoder
@@ -139,8 +139,7 @@ class Server:
                 req = queue.pop()
                 if req is None:
                     break
-                with ob.tracer.span("server.prefill", rid=req.rid,
-                                    prompt_len=len(req.prompt)):
+                with span("server.prefill", rid=req.rid, prompt_len=len(req.prompt)):
                     toks = torch.tensor([req.prompt], dtype=torch.long,
                                         device=self.device)
                     logits, caches, pos = self.model.prefill(toks, self.max_len)
@@ -197,33 +196,51 @@ class Server:
         model) captures the step once as a CUDA graph and replays it; False
         runs the same steps eagerly; True on the CPU raises.  ``prefill_s``
         and ``decode_s`` end in a device synchronise; ``decode_s`` leaves
-        out the capture, whose host time is ``capture_s``."""
+        out the capture, whose host time is ``capture_s``.
+
+        Spans (:func:`repro_torch.obs.span`): ``server.batch`` around the
+        call, inside it ``server.prefill`` (the interval ``prefill_s``
+        times), ``server.decode`` (the decoder's creation to the last
+        synchronise) and ``server.release`` (the decoder, its graph and
+        the caches freed once the tokens are on the host).  The registry
+        counts ``server.batches`` and ``server.graph_captures``, the
+        batches whose decoder captured its graph anew."""
         B, S = prompts.shape
         self._check_fits(S, new_tokens)
         if cuda_graph is None:
             cuda_graph = self.device.type == "cuda"
-        self._sync()
-        t0 = time.perf_counter()
-        logits, caches, pos = self.model.prefill(
-            torch.as_tensor(np.asarray(prompts), dtype=torch.long,
-                            device=self.device), self.max_len)
-        tok = torch.argmax(logits[:, -1:], dim=-1)
-        self._sync()
-        prefill_s = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        decoder = GreedyDecoder(self.model, caches, tok, pos,
-                                cuda_graph=cuda_graph)
-        outs = [tok]
-        for _ in range(new_tokens - 1):
-            outs.append(decoder.step().clone())
-        self._sync()
-        decode_s = time.perf_counter() - t1 - decoder.capture_s
+        with span("server.batch", B=B, S=S, new_tokens=new_tokens):
+            self._sync()
+            with span("server.prefill"):
+                t0 = time.perf_counter()
+                logits, caches, pos = self.model.prefill(
+                    torch.as_tensor(np.asarray(prompts), dtype=torch.long,
+                                    device=self.device), self.max_len)
+                tok = torch.argmax(logits[:, -1:], dim=-1)
+                self._sync()
+                prefill_s = time.perf_counter() - t0
+            with span("server.decode"):
+                t1 = time.perf_counter()
+                decoder = GreedyDecoder(self.model, caches, tok, pos,
+                                        cuda_graph=cuda_graph)
+                outs = [tok]
+                for _ in range(new_tokens - 1):
+                    outs.append(decoder.step().clone())
+                self._sync()
+                decode_s = time.perf_counter() - t1 - decoder.capture_s
+            output = torch.cat(outs, dim=1).cpu().numpy()
+            capture_s, captured = decoder.capture_s, decoder.captured
+            with span("server.release"):
+                del decoder, outs, tok, logits, caches, pos
+        self.metrics.counter("server.batches").inc()
+        if captured:
+            self.metrics.counter("server.graph_captures").inc()
         return {
             "prefill_s": prefill_s,
             "decode_s": decode_s,
-            "capture_s": decoder.capture_s,
+            "capture_s": capture_s,
             "cuda_graph": cuda_graph,
             "tokens": B * new_tokens,
             "tok_per_s": B * new_tokens / max(decode_s, 1e-9),
-            "output": torch.cat(outs, dim=1).cpu().numpy(),
+            "output": output,
         }

@@ -566,6 +566,52 @@ def test_graphed_decode_steps_equal_eager_ones_per_family(cuda_device, name):
 
 
 @pytest.mark.cuda
+def test_profiled_batches_capture_once_each_and_a_collection_in_capture_changes_nothing(
+        cuda_device, monkeypatch):
+    # deepseek-moe-16b's smoke config in bf16 served by throughput_batch under
+    # torch.profiler: one decoder.capture range and one graph capture counted
+    # a batch; a collection forced inside the capture (a gc.collect range
+    # opened while the stream captures) leaves the served tokens as they were
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import init_params
+    from repro_torch.runtime.decode_graph import GreedyDecoder
+    from repro_torch.runtime.serve_loop import Server
+
+    cfg = get_config("deepseek-moe-16b").smoke().replace(dtype="bfloat16")
+    model = init_params(torch.Generator(device=cuda_device).manual_seed(0), cfg,
+                        device=cuda_device)
+    prompts = np.random.default_rng(4).integers(2, cfg.vocab_size, (2, 24))
+    server = Server(cfg, model, max_len=40, device=cuda_device)
+    eager = server.throughput_batch(prompts, 8, cuda_graph=False)["output"]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        plain = [server.throughput_batch(prompts, 8)["output"] for _ in range(2)]
+    host = [e for e in prof.events() if e.device_type.name == "CPU"]
+    assert len([e for e in host if e.name == "decoder.capture"]) == 2
+    assert server.metrics.counter("server.graph_captures").value == 2
+
+    run, collected = GreedyDecoder._run, []
+
+    def run_and_collect(self):
+        if torch.cuda.is_current_stream_capturing():
+            collected.append(gc.collect())
+        return run(self)
+
+    monkeypatch.setattr(GreedyDecoder, "_run", run_and_collect)
+    with profile(activities=acts) as prof:
+        forced = server.throughput_batch(prompts, 8)["output"]
+    assert len(collected) == 1
+    assert [e for e in prof.events() if e.name == "gc.collect" and e.device_type.name == "CPU"]
+    np.testing.assert_array_equal(forced, plain[0])
+    np.testing.assert_array_equal(plain[1], plain[0])
+    np.testing.assert_array_equal(plain[0], eager)
+
+
+@pytest.mark.cuda
 def test_checkpoint_bf16_round_trip_from_cuda_tensors(cuda_device, tmp_path):
     # an async save copies to the host before it returns: the in-place
     # update right after it does not reach the files
