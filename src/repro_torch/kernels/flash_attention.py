@@ -36,26 +36,32 @@ function.  It materialises the scores, as the reference's oracle
 :func:`repro_torch.kernels.flash_attention` and the tests use it; on the
 card it is the yardstick both kernels are held to.
 
-:func:`chunked_forward` and :func:`chunked_backward` are the same function
-over chunks of keys, with the softmax statistics m and l: the ``"torch"``
-attention impl's forward, and the one backward both differentiable forms
-use (the kernel's under :func:`repro_torch.kernels.flash_attention`, and
+:func:`chunked_forward` is the same function over chunks of keys with an
+online softmax: the ``"torch"`` attention impl's forward.
+:func:`chunked_backward` is its gradient in blocks of query rows, each over
+only the keys its rows see, with no forward recomputed: the one backward
+both differentiable forms use (the kernel's under
+:func:`repro_torch.kernels.flash_attention`, and
 :func:`repro_torch.models.attention.flash_attention_chunked`).
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 from dataclasses import dataclass
 
 import torch
 
+from repro_torch.obs import current as _obs_current
+
 from ._build import MAX_SMEM_BYTES, LaunchSpec, check, load
 
-__all__ = ["VARIANTS", "CtaPlan", "MTilePlan", "chunked_backward",
+__all__ = ["BWD_MAX_ROWS", "BWD_TILE_BYTES", "VARIANTS", "CtaPlan", "MTilePlan",
+           "bwd_block_rows", "chunked_backward",
            "chunked_forward", "coverage", "f32_row_strides", "f32_tile",
            "flash_attention_cuda",
-           "flash_attention_torch", "heads_per_tile", "launch_spec",
+           "flash_attention_torch", "heads_per_tile", "key_bounds", "launch_spec",
            "padded_head_dim", "tile_plan", "wgmma_stages"]
 
 #: the kernel that serves each input dtype
@@ -200,14 +206,27 @@ class CtaPlan:
     mtiles: tuple[MTilePlan, ...]
 
 
+def key_bounds(*, causal: bool, window: int | None, q_offset: int, k_len: int):
+    """(lo, hi): query row i sees keys ``[lo(i), hi(i))``, both bounds
+    non-decreasing in i, so the keys a run of rows sees are ``[lo(first),
+    hi(last))`` and the keys all of them see ``[lo(last), hi(first))``."""
+    w = window or 0
+
+    def lo(i):
+        return max(0, q_offset + i - w + 1) if w > 0 else 0
+
+    def hi(i):
+        return min(k_len, q_offset + i + 1) if causal else k_len
+
+    return lo, hi
+
+
 def tile_plan(H: int, KV: int, Sq: int, *, causal: bool, window: int | None,
               q_offset: int, k_len: int) -> list[CtaPlan]:
     """What the bf16 kernel computes, CTA by CTA along the grid's z axis
     (the kernel launches them in reverse, longest kv range first).
 
-    Query q sees keys ``[lo(q), hi(q))``; both bounds are non-decreasing in
-    q, so the keys a run of queries sees are ``[lo(first), hi(last))`` and
-    the keys all of them see ``[lo(last), hi(first))``.  A warpgroup
+    Query q sees keys ``[lo(q), hi(q))`` (:func:`key_bounds`).  A warpgroup
     computes a tile that overlaps the first range and masks it per element
     unless it lies inside the second.  It mirrors the decisions that
     ``flash_attention_wgmma.cu`` makes on the card, as a second copy: the
@@ -215,14 +234,8 @@ def tile_plan(H: int, KV: int, Sq: int, *, causal: bool, window: int | None,
     is checked only by holding its output to the plain version on the card
     (``chip_smoke.py``, phase 7).
     """
-    w = window or 0
-
-    def lo(q):
-        return max(0, q_offset + q - w + 1) if w > 0 else 0
-
-    def hi(q):
-        return min(k_len, q_offset + q + 1) if causal else k_len
-
+    lo, hi = key_bounds(causal=causal, window=window, q_offset=q_offset,
+                        k_len=k_len)
     qm = WG_ROWS // heads_per_tile(H, KV)
     plans = []
     for q0 in range(0, Sq, CONSUMERS * qm):
@@ -338,9 +351,8 @@ def chunked_forward(q, k, v, *, causal: bool = True, window: int | None = None,
                     logit_cap: float | None = None, q_offset: int = 0,
                     k_len: int | None = None, chunk: int = 1024):
     """Online-softmax attention over KV chunks of ``chunk`` keys, in fp32
-    from inputs cast to fp32: (out (B, H, Sq, hd) in fp32, m, l (B, KV, G,
-    Sq) in fp32), the reference's ``chunked_attention`` and its
-    ``_flash_fwd_stats``.  O(Sq * chunk) temporaries.  A row with no
+    from inputs cast to fp32: out (B, H, Sq, hd) in fp32, the reference's
+    ``chunked_attention``.  O(Sq * chunk) temporaries.  A row with no
     visible key averages v, as the reference's chunked form does."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
@@ -367,48 +379,118 @@ def chunked_forward(q, k, v, *, causal: bool = True, window: int | None = None,
         acc = acc * corr[..., None] + torch.einsum("bngqc,bnch->bngqh", p, vc)
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    return out.reshape(B, H, Sq, hd), m, l
+    return out.reshape(B, H, Sq, hd)
 
 
-def chunked_backward(q, k, v, out, m, l, dout, *, causal: bool = True,
+#: the byte budget of one query block's fp32 score tile in
+#: :func:`chunked_backward`, which holds two such tiles at a time (three
+#: with a softcap)
+BWD_TILE_BYTES = 1 << 29
+#: the most query rows a block takes: a causal block computes a band of
+#: masked keys as wide as itself, so smaller blocks skip more of the masked
+#: triangle, for more launches (~17 a block).  At B 4, H 32, causal S 2,048,
+#: hd 64, bf16 inputs, on an H100 at 700 W, one call takes 10.73 ms in
+#: blocks of 256, 10.87-10.97 in blocks of 192, 11.30 in 128, 11.16 in 384,
+#: 11.46 in 512 and 13.78 in 1,024.
+BWD_MAX_ROWS = 256
+
+
+def bwd_block_rows(B: int, H: int, n_keys: int) -> int:
+    """Query rows of one block of :func:`chunked_backward`: as many as keep
+    its fp32 scores (B, H, rows, n_keys) within :data:`BWD_TILE_BYTES`,
+    between 16 and :data:`BWD_MAX_ROWS`."""
+    return max(16, min(BWD_MAX_ROWS, BWD_TILE_BYTES // (4 * B * H * max(1, n_keys))))
+
+
+def _scaled_bmm(a, b, alpha: float):
+    """``alpha * a @ b`` in one batched product (beta 0: the uninitialised
+    input is not read)."""
+    out = a.new_empty((a.shape[0], a.shape[1], b.shape[2]))
+    return out.baddbmm_(a, b, beta=0.0, alpha=alpha)
+
+
+def chunked_backward(q, k, v, dout, *, causal: bool = True,
                      window: int | None = None, logit_cap: float | None = None,
                      q_offset: int = 0, k_len: int | None = None,
-                     chunk: int = 1024):
-    """(dq, dk, dv) of attention at (q, k, v), in the inputs' dtypes, from
-    its output and softmax statistics (:func:`chunked_forward`'s): each
-    chunk's probabilities are recomputed from m and l instead of saved, the
-    standard flash-attention backward (the reference's ``_flashx_bwd``),
-    all in fp32.  A key a query does not see gets probability 0, so a row
-    with no visible key passes no gradient, as the kernel's output there
-    is 0."""
+                     block: int | None = None):
+    """(dq, dk, dv) of attention at (q, k, v) for the output's gradient
+    ``dout``: the gradients of :func:`flash_attention_torch`, in fp32 from
+    inputs cast to fp32, each rounded once to its input's dtype.
+
+    Queries go in blocks of ``block`` rows (default :func:`bwd_block_rows`
+    at ``k_len`` keys).  A block makes one pass over the keys some row of
+    it sees, ``[lo(first), hi(last))`` (:func:`key_bounds`): its scores in
+    one product, scaled in it; their softmax over that range, which holds
+    every key the rows see, so no m and l are carried and no forward is
+    recomputed; then ``dV += p^T dO``, ``dP = dO V^T``, ``delta`` = the row
+    sums of p * dP (the row sums of dO * O, as the block holds whole rows),
+    ``dS = p * (dP - delta)`` (times ``1 - t^2`` through a softcap's tanh),
+    ``dQ = scale dS K`` and ``dK += scale dS^T Q``.  Only the columns that
+    some row of the block does not see are masked per element (under
+    causal, the diagonal band); keys no row of the block sees are not
+    computed.  A row with no visible key passes no gradient, as the
+    kernel's output there is 0.  The G heads of a kv group share the
+    block's K and V.  Under ``observe()`` the registry counts the score
+    elements computed and skipped (of B * H * Sq * Sk):
+    ``flash_attention.bwd_scores_computed`` and ``..._skipped``.
+    """
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
     k_len = Sk if k_len is None else k_len
     scale = hd ** -0.5
-    chunk = min(chunk, Sk)
+    lo, hi = key_bounds(causal=causal, window=window, q_offset=q_offset,
+                        k_len=k_len)
+    # lo(i) <= q_offset + i, so row i sees no key only where lo(i) >= k_len:
+    # those rows are a suffix, and the rows before it each see a key
+    seen = bisect.bisect_left(range(Sq), True, key=lambda i: lo(i) >= hi(i))
+    rows = block or bwd_block_rows(B, H, k_len)
     qg = q.float().reshape(B, KV, G, Sq, hd)
     dog = dout.float().reshape(B, KV, G, Sq, hd)
-    delta = (dog * out.float().reshape(B, KV, G, Sq, hd)).sum(dim=-1)
-    l_safe = l.clamp_min(1e-30)
-    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k3 = k.float().reshape(B * KV, Sk, hd)
+    v3 = v.float().reshape(B * KV, Sk, hd)
     dq = torch.zeros_like(qg)
-    dk, dv = [], []
-    for start, kc, vc in _kv_chunks(k.float(), v.float(), chunk):
-        k_pos = start + torch.arange(chunk, device=q.device)
-        s = torch.einsum("bngqh,bnch->bngqc", qg, kc) * scale
+    dk = torch.zeros_like(k3)
+    dv = torch.zeros_like(v3)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    computed = 0
+    for r0 in range(0, seen, rows):
+        r1 = min(r0 + rows, seen)
+        m = r1 - r0
+        kbeg, kend = lo(r0), hi(r1 - 1)
+        qb = qg[:, :, :, r0:r1].reshape(B * KV, G * m, hd)
+        dob = dog[:, :, :, r0:r1].reshape(B * KV, G * m, hd)
+        kb, vb = k3[:, kbeg:kend], v3[:, kbeg:kend]
+        s = _scaled_bmm(qb, kb.mT, scale)                    # (B KV, G m, n)
         if logit_cap is not None:
-            t = torch.tanh(s / logit_cap)
-            s = logit_cap * t
-        ok = _visible(q_pos, k_pos, causal=causal, window=window, k_len=k_len)
-        p = torch.where(ok, torch.exp(s - m[..., None]) / l_safe[..., None], 0.0)
-        dv.append(torch.einsum("bngqc,bngqh->bnch", p, dog))
-        ds = p * (torch.einsum("bngqh,bnch->bngqc", dog, vc) - delta[..., None])
+            t = s.div_(logit_cap).tanh_()
+            s = t * logit_cap
+        # every row sees [lo(r1 - 1), hi(r0)); mask the columns outside it
+        a = min(max(lo(r1 - 1), kbeg), kend)
+        b = min(max(hi(r0), a), kend)
+        s4 = s.view(B * KV, G, m, kend - kbeg)
+        for c0, c1 in ((kbeg, a), (b, kend)):
+            if c1 > c0:
+                ok = _visible(q_pos[r0:r1], torch.arange(c0, c1, device=q.device),
+                              causal=causal, window=window, k_len=k_len)
+                s4[..., c0 - kbeg:c1 - kbeg].masked_fill_(~ok, _NEG)
+        p = torch.softmax(s, dim=-1)
+        del s, s4
+        dv[:, kbeg:kend].baddbmm_(p.mT, dob)
+        ds = torch.bmm(dob, vb.mT).mul_(p)                   # p * dP
+        ds.addcmul_(p, ds.sum(dim=-1, keepdim=True), value=-1.0)
+        del p
         if logit_cap is not None:
-            ds = ds * (1.0 - t * t)                         # through tanh
-        ds = ds * scale
-        dq = dq + torch.einsum("bngqc,bnch->bngqh", ds, kc)
-        dk.append(torch.einsum("bngqc,bngqh->bnch", ds, qg))
-    dk = torch.cat(dk, dim=2)[:, :, :Sk]
-    dv = torch.cat(dv, dim=2)[:, :, :Sk]
-    return dq.reshape(B, H, Sq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+            ds.mul_(t.square_().neg_().add_(1.0))            # through tanh
+            del t
+        dq[:, :, :, r0:r1] = _scaled_bmm(ds, kb, scale).view(B, KV, G, m, hd)
+        dk[:, kbeg:kend].baddbmm_(ds.mT, qb, alpha=scale)
+        del ds
+        computed += B * H * m * (kend - kbeg)
+    ob = _obs_current()
+    if ob.enabled:
+        ob.registry.counter("flash_attention.bwd_scores_computed").inc(computed)
+        ob.registry.counter("flash_attention.bwd_scores_skipped").inc(
+            B * H * Sq * Sk - computed)
+    return (dq.reshape(B, H, Sq, hd).to(q.dtype), dk.reshape(B, KV, Sk, hd).to(k.dtype),
+            dv.reshape(B, KV, Sk, hd).to(v.dtype))

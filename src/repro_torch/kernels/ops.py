@@ -23,12 +23,12 @@ it (the kernel module's ``coverage``), for the static analyzer's
 
 ``flash_attention`` is differentiable, as the reference's wrapper is (its
 ``custom_vjp``): the forward is the kernel, counted as any launch, and the
-backward recomputes the attention in plain PyTorch, as the reference's
-``_flash_bwd`` recomputes through its jnp oracle: the output and softmax
-statistics over chunks of keys, then the gradients chunk by chunk
-(:func:`~repro_torch.kernels.flash_attention.chunked_backward`, in fp32,
-under a ``flash_attention.backward`` profiler range).  There is no backward
-kernel, because the reference has none.
+backward is plain PyTorch from the saved q, k and v, as the reference's
+``_flash_bwd`` differentiates its jnp oracle: blocks of query rows, each
+with one softmax over only the keys its rows see, with no forward
+recomputed (:func:`~repro_torch.kernels.flash_attention.chunked_backward`,
+in fp32, under a ``flash_attention.backward`` profiler range).  There is no
+backward kernel, because the reference has none.
 
 The attention wrappers take the reference's layouts at the public boundary
 (``repro/kernels/ops.py``): q (B, H, Sq, hd) and k, v (B, KV, Sk, hd) for
@@ -114,7 +114,7 @@ def flash_attention(
     ``mma.sync`` kernel; both load through 16-byte copies (TMA,
     ``cp.async``), so every input must start at a 16-byte-aligned address.
     When q, k or v requires a gradient, the call records
-    :class:`_FlashAttention` (the backward recomputes in plain PyTorch).
+    :class:`_FlashAttention` (its backward is plain PyTorch).
     """
     kw = dict(causal=causal, window=window, logit_cap=logit_cap,
               q_offset=q_offset, k_len=k_len)
@@ -125,9 +125,9 @@ def flash_attention(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernel forward; the backward recomputes the output and softmax
-    statistics in plain PyTorch over chunks of keys, then the gradients
-    chunk by chunk from them (the plain version's gradients, in fp32)."""
+    """The kernel forward, saving only q, k and v; the backward is
+    :func:`~repro_torch.kernels.flash_attention.chunked_backward`, the plain
+    version's gradients in fp32, with no kernel launch."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw):
@@ -138,9 +138,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         with torch.profiler.record_function("flash_attention.backward"):
-            q, k, v = ctx.saved_tensors
-            out, m, l = _fa.chunked_forward(q, k, v, **ctx.kw)
-            grads = _fa.chunked_backward(q, k, v, out, m, l, dout, **ctx.kw)
+            grads = _fa.chunked_backward(*ctx.saved_tensors, dout, **ctx.kw)
         return (*grads, None)
 
 

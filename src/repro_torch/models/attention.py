@@ -12,8 +12,8 @@ switch):
   online softmax over KV chunks, and :func:`decode_attention`.  With
   ``OptFlags.flash_bwd`` set, prefill takes :func:`flash_attention_chunked`,
   the reference's ``flash_attention_xla``: the same forward, whose backward
-  recomputes the scores chunk by chunk from (q, k, v, out, m, l) instead of
-  saving every chunk's fp32 scores.
+  computes the scores again in blocks of query rows from (q, k, v) instead
+  of saving every chunk's fp32 scores.
 
 Four kinds of attention layer: ``"attn"`` (causal), ``"local"`` (causal
 within a window), and the encoder-decoder's ``"encoder"`` (bidirectional,
@@ -193,23 +193,21 @@ def chunked_attention(
     computes them (the reference's XLA path rounds bf16 scores and
     probabilities; in fp32 the two are the same arithmetic).
     """
-    out, _, _ = chunked_forward(q, k, v, causal=causal, window=window,
-                                    logit_cap=logit_cap, q_offset=q_offset,
-                                    chunk=chunk)
-    return out.to(q.dtype)
+    return chunked_forward(q, k, v, causal=causal, window=window,
+                           logit_cap=logit_cap, q_offset=q_offset,
+                           chunk=chunk).to(q.dtype)
 
 
 class _FlashChunked(torch.autograd.Function):
-    """:func:`chunked_attention` forward; the backward recomputes each
-    chunk's probabilities from the saved m, l (the reference's
-    ``_flashx_fwd`` / ``_flashx_bwd``), all in fp32."""
+    """:func:`chunked_attention` forward, saving only q, k and v; the
+    backward is :func:`~repro_torch.kernels.flash_attention.chunked_backward`
+    (the reference's ``_flashx_fwd`` / ``_flashx_bwd``), in fp32."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw):
-        out, m, l = chunked_forward(q, k, v, **kw)
         ctx.kw = kw
-        ctx.save_for_backward(q, k, v, out, m, l)
-        return out.to(q.dtype)
+        ctx.save_for_backward(q, k, v)
+        return chunked_forward(q, k, v, **kw).to(q.dtype)
 
     @staticmethod
     def backward(ctx, dout):
@@ -226,12 +224,13 @@ def flash_attention_chunked(
     logit_cap: float | None = None,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """:func:`chunked_attention` (chunks of 1024 keys) with an O(Sq + chunk)
-    backward: the reference's ``flash_attention_xla``.  Autodiff through
-    :func:`chunked_attention` saves every chunk's fp32 scores and
-    probabilities; this saves (q, k, v, out, m, l) and recomputes the
-    scores chunk by chunk with :func:`~repro_torch.kernels.flash_attention.
-    chunked_backward`, the backward of the kernel's forward too."""
+    """:func:`chunked_attention` (chunks of 1024 keys) with a backward in
+    blocks of query rows: the reference's ``flash_attention_xla``.  Autodiff
+    through :func:`chunked_attention` saves every chunk's fp32 scores and
+    probabilities; this saves (q, k, v) and computes each block's scores
+    again over only the keys its rows see, with
+    :func:`~repro_torch.kernels.flash_attention.chunked_backward`, the
+    backward of the kernel's forward too."""
     return _FlashChunked.apply(q, k, v, dict(causal=causal, window=window,
                                              logit_cap=logit_cap,
                                              q_offset=q_offset))

@@ -11,7 +11,7 @@ What the port reads today:
   vocab-shard-friendly cross-entropy;
 * ``flash_bwd`` — the ``"torch"`` attention impl's flash backward
   (:func:`repro_torch.models.attention.flash_attention_chunked`), which
-  recomputes the scores chunk by chunk instead of saving them;
+  computes the scores again in blocks of query rows instead of saving them;
 * ``n_micro_override`` — the accumulation depth of the train launcher
   (``repro_torch.launch.steps.micro_depth``);
 * ``moe_impl`` — :func:`repro_torch.models.moe.apply_moe`'s dispatch,
@@ -57,7 +57,7 @@ class OptFlags:
     sharded_loss: bool = False
     # Keep the TP-boundary collectives in bf16 (cast back after the sum).
     bf16_collectives: bool = False
-    # Flash-attention backward (custom_vjp, recomputes scores per chunk)
+    # Flash-attention backward (custom_vjp, scores again per query block)
     # instead of autodiff-through-scan (which saves fp32 score matrices).
     flash_bwd: bool = False
     # Gradient-accumulation depth override (None -> pick_microbatches).

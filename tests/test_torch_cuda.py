@@ -428,22 +428,29 @@ def test_split_rows_over_the_same_card_twice(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,H,KV", [(64, 4, 4), (64, 18, 2), (128, 4, 4),
-                                     (128, 18, 2)],
-                         ids=["hd64-G1", "hd64-G9", "hd128-G1", "hd128-G9"])
-def test_flash_gradients_on_the_card_equal_the_plain_version(cuda_device, hd, H, KV):
-    # fp32: the kernel forward under autograd, the backward recomputed in
-    # plain PyTorch over chunks of keys, against autograd through the plain
-    # version
+@pytest.mark.parametrize(
+    "hd,H,KV,S,dtype",
+    [(64, 4, 4, 100, torch.float32), (64, 18, 2, 100, torch.float32),
+     (128, 4, 4, 100, torch.float32), (128, 18, 2, 100, torch.float32),
+     (64, 4, 4, 1100, torch.float32), (64, 18, 2, 1100, torch.float32),
+     (64, 4, 4, 1100, torch.bfloat16), (64, 18, 2, 1100, torch.bfloat16)],
+    ids=["hd64-G1", "hd64-G9", "hd128-G1", "hd128-G9", "hd64-G1-S1100",
+         "hd64-G9-S1100", "hd64-G1-S1100-bf16", "hd64-G9-S1100-bf16"])
+def test_flash_gradients_on_the_card_equal_the_plain_version(cuda_device, hd, H,
+                                                              KV, S, dtype):
+    # the kernel forward under autograd, the backward in plain PyTorch in
+    # blocks of query rows (five blocks of up to 256 at S 1,100), with no
+    # flash launch, against autograd through the plain version; bf16
+    # gradients are the fp32 ones rounded once, so within a bf16 step
     from repro_torch.kernels.flash_attention import flash_attention_torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(11)
     q0, k0, v0 = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
-                  .to(cuda_device)
-                  for s in ((2, H, 100, hd), (2, KV, 100, hd), (2, KV, 100, hd)))
-    dout = torch.from_numpy(rng.standard_normal((2, H, 100, hd), dtype=np.float32)
-                            ).to(cuda_device)
+                  .to(cuda_device, dtype)
+                  for s in ((2, H, S, hd), (2, KV, S, hd), (2, KV, S, hd)))
+    dout = torch.from_numpy(rng.standard_normal((2, H, S, hd), dtype=np.float32)
+                            ).to(cuda_device, dtype)
     grads = {}
     for name, fn in (("kernel", flash_attention), ("plain", flash_attention_torch)):
         q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
@@ -452,8 +459,10 @@ def test_flash_gradients_on_the_card_equal_the_plain_version(cuda_device, hd, H,
         assert flash_attention.launches == before + (name == "kernel")
         grads[name] = (out, *torch.autograd.grad(out, (q, k, v), dout))
         assert flash_attention.launches == before + (name == "kernel")
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
     for got, want in zip(grads["kernel"], grads["plain"]):
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        assert got.dtype == want.dtype == dtype
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

@@ -5,11 +5,13 @@ uses.
 * ``LM.loss_fn`` against ``lm.loss_fn``: both ``sharded_loss`` forms, a
   mask, internvl2-26b's ``extra_embeds`` (their logits dropped), value and
   every gradient;
-* the flash wrapper's ``autograd.Function`` (kernel forward, backward
-  recomputed in plain PyTorch over chunks of keys) against the reference's
+* the flash wrapper's ``autograd.Function`` (kernel forward, a plain
+  PyTorch backward in blocks of query rows) against the reference's
   ``flash_attention`` with its Pallas forward in interpret mode, as
   ``tests/test_kernels.py:86-96`` runs it, at 1e-4 in fp32 (the kernels'
   types);
+* that backward against autodiff through the plain version over many
+  query blocks, and the score elements it counts as computed and skipped;
 * ``flash_attention_chunked`` (``OptFlags.flash_bwd``) against autodiff and
   against the reference's ``flash_attention_xla`` (the twins of
   ``tests/test_opt_equivalence.py:59`` and ``:81``);
@@ -55,7 +57,7 @@ from repro.optim import adamw_init as j_adamw_init
 from repro_torch.configs import get_config
 from repro_torch.data import PipelineConfig, TokenPipeline
 from repro_torch.kernels import flash_attention
-from repro_torch.kernels.flash_attention import (chunked_backward, chunked_forward,
+from repro_torch.kernels.flash_attention import (bwd_block_rows, chunked_backward,
                                                  flash_attention_torch)
 from repro_torch.launch import steps
 from repro_torch.models import attention
@@ -215,17 +217,28 @@ def test_flash_function_forward_is_one_call_and_backward_no_kernel():
 
 
 @pytest.mark.parametrize("shape", [
-    # (B, H, KV, Sq, Sk, hd, causal, window, cap, q_offset, k_len)
-    (1, 4, 2, 96, 160, 32, True, None, None, 64, None),
-    (2, 3, 1, 40, 40, 16, False, None, 50.0, 0, 29),
+    # (B, H, KV, Sq, Sk, hd, causal, window, cap, q_offset, k_len, block)
+    (1, 4, 2, 96, 160, 32, True, None, None, 64, None, 32),
+    (2, 3, 1, 40, 40, 16, False, None, 50.0, 0, 29, 16),
     # a window past k_len: the last rows see no key, their output is 0 and
     # they pass no gradient
-    (1, 2, 2, 64, 64, 16, True, 8, None, 0, 40),
+    (1, 2, 2, 64, 64, 16, True, 8, None, 0, 40, 16),
+    # causal, Sq not a multiple of the block
+    (1, 2, 2, 100, 100, 16, True, None, None, 0, None, 32),
+    # a window narrower than a block
+    (1, 2, 1, 80, 80, 16, True, 8, None, 0, None, 32),
+    # G 9: nine heads share each block's K and V
+    (1, 9, 1, 70, 70, 8, True, None, None, 0, None, 32),
+    # a causal softcap
+    (1, 4, 2, 72, 72, 16, True, None, 30.0, 0, None, 24),
+    # a window without causal, past a q_offset and inside k_len
+    (1, 2, 1, 50, 80, 8, False, 6, None, 10, 70, 16),
 ])
 def test_flash_function_backward_equals_autodiff_through_plain(shape):
-    """The chunked recompute (chunks of 1024 keys, and of 48 here) is the
-    gradient of the plain version, masks and ``k_len`` included."""
-    B, H, KV, Sq, Sk, hd, causal, window, cap, off, k_len = shape
+    """The backward in blocks of query rows (the default block through the
+    wrapper, and several blocks here) is the gradient of the plain version,
+    masks and ``k_len`` included."""
+    B, H, KV, Sq, Sk, hd, causal, window, cap, off, k_len, block = shape
     rng = np.random.default_rng(9)
     arrs = [rng.standard_normal(s) for s in ((B, H, Sq, hd), (B, KV, Sk, hd),
                                              (B, KV, Sk, hd), (B, H, Sq, hd))]
@@ -235,11 +248,33 @@ def test_flash_function_backward_equals_autodiff_through_plain(shape):
     dout = torch.tensor(arrs[3], dtype=torch.float32)
     want = torch.autograd.grad(flash_attention_torch(q, k, v, **kw), (q, k, v), dout)
     got = torch.autograd.grad(flash_attention(q, k, v, **kw), (q, k, v), dout)
-    out, m, l = chunked_forward(q, k, v, chunk=48, **kw)
-    small = chunked_backward(q, k, v, out, m, l, dout, chunk=48, **kw)
+    small = chunked_backward(q, k, v, dout, block=block, **kw)
     for a, b, c in zip(got, small, want):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
         torch.testing.assert_close(b, c, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal,window,block,share", [
+    (True, None, 512, 5 / 8),   # blocks see 512, 1,024, 1,536, 2,048 keys
+    (True, None, None, 9 / 16),     # the default at train-2k: 8 blocks of 256
+    (False, None, 512, 1.0),
+    (True, 100, 512, (512 + 3 * (512 + 99)) / 2048 / 4),     # each block's band
+])
+def test_flash_backward_counts_the_scores_it_computes(causal, window, block, share):
+    """At train-2k's causal S 2,048 in blocks of 512, 5/8 of the score
+    elements are computed, and 9/16 in the blocks of 256 that the default
+    gives at its B 4 and H 32; a non-causal call computes them all, a
+    windowed one only its band."""
+    assert bwd_block_rows(4, 32, 2048) == 256
+    g = torch.Generator().manual_seed(3)
+    q, k, v, dout = (torch.randn((1, 1, 2048, 8), generator=g) for _ in range(4))
+    block = block or bwd_block_rows(4, 32, 2048)
+    with observe() as ob:
+        chunked_backward(q, k, v, dout, causal=causal, window=window, block=block)
+    counts = ob.registry.snapshot()
+    done = counts["flash_attention.bwd_scores_computed"]
+    assert done == share * 2048 * 2048
+    assert done + counts["flash_attention.bwd_scores_skipped"] == 2048 * 2048
 
 
 @pytest.mark.parametrize(
