@@ -13,9 +13,10 @@ wave rollout and kernel launches, the capacity planner with cloud
 provisioning at the reference benchmarks' full settings, and the step
 model and dry-run held against the card's own step times:
 
-  0. print the card (``nvidia-smi``) and build the five CUDA sources
+  0. print the card (``nvidia-smi``) and build the six CUDA sources
      (``seg_combine``, ``flash_attention_wgmma`` (bf16) and
-     ``flash_attention`` (fp32), ``decode_attention``, ``fixture_copy``) from
+     ``flash_attention`` (fp32), ``decode_attention``, ``fixture_copy``,
+     ``mla_decode``) from
      ``src/repro_torch/kernels/csrc/`` with nvcc, one process each, all
      started together, printing each kernel's registers and spills;
   1. hold ``seg_combine`` against its plain PyTorch version on the card, at
@@ -206,6 +207,17 @@ model and dry-run held against the card's own step times:
      version (bf16 2e-2), and a 2-layer fp32 cut's logits against tp 1
      (1e-4); each rank's peak.  Phase 7 checks and times both kernels at
      these local geometries.  A failure in either child fails the phase.
+ 18. latent attention (DeepSeek-V2-Lite): ``mla_decode_attention`` against
+     its plain version at the doc-qa cell's step (B 128, 16 heads, latent
+     rows of 576 in caches of 8,256, values the first 512 columns) at pos
+     8,255, 8,192, 8,210 and 0 (bf16 2e-2; two calls equal bit for bit),
+     timed back to back beside its bound (the live rows x 1,152 B plus q
+     and the output at 3.35 TB/s); the bf16 flash kernel at MLA's prefill
+     (q/k (1, 16, 8,192, 192), v 128 zero-padded to 192, causal) against
+     its plain version, the padded columns exactly 0; then sessions at
+     smoke width through ``Server.open_batch`` and ``BatchSession.turn``
+     (4 sessions over 3 documents, 3 turns), graphed and eager, answers
+     equal.
 
 Every phase asserts what it checks; the script exits non-zero, printing no
 result, on the first failure, without a CUDA card, or without the package
@@ -235,7 +247,11 @@ seamless 72) and ``gqa_decode_attention`` exactly 42 and 48 a step, each
 added to its kernel's count, and in each rank of phase 17
 ``flash_attention`` exactly 3 x 2 x 24 x 2 over the Trainer's run (all
 ``bf16_wgmma``) and 28 over the serving run, ``gqa_decode_attention``
-exactly 28 x 16, both ranks' counts added to the kernels'.  The fp32 flash
+exactly 28 x 16, both ranks' counts added to the kernels', and over
+phase 18's sessions (``open_batch`` and 3 turns, graphed) ``flash_attention``
+exactly 3 documents x 3 layers, all ``bf16_wgmma``, ``mla_decode_attention``
+exactly 3 layers x 3 turns x (5 + 8 - 1) steps, no ``gqa_decode_attention``,
+and ``mla.latent_slots_read`` its closed form.  The fp32 flash
 kernel's launches (``launches_by_variant["f32_3xtf32"]``) are read around
 each fp32 path (phase 8's and 12's cuts, 12's training cut, 13's cuts, 15's
 ``torch_train_e2e``, 17's cuts in each rank), printed by phase and summed
@@ -3708,6 +3724,166 @@ def _phase17_tensor_parallel(timings, flash, decode, torch, np) -> dict:
     return {"ranks": ranks, "card": smi}
 
 
+# phase 18: DeepSeek-V2-Lite's latent attention at the doc-qa cell's shapes
+MLA_DECODE = (128, 16, 8256, 576, 512)   # B, H, S, D, v_dim: one decode step
+MLA_POSITIONS = (8255, 8192, 8210, 0)    # the last step, the first, one inside, none seen
+MLA_FLASH = (1, 16, 8192, 192, 128)      # B, H, T, q/k hd, v hd: one document's prefill
+MLA_DOCS = (3, 40)                       # distinct documents x tokens (smoke width)
+MLA_SHARED = [0, 1, 2, 0]                # the session's document: rows 0 and 3 share
+MLA_TURNS = (3, 5, 8)                    # turns x question tokens x answer tokens
+
+
+def _phase18_mla(timings, flash, torch, np) -> tuple[dict, dict]:
+    """Phase 18: latent attention (DeepSeek-V2-Lite).  The absorbed decode
+    kernel against its plain version at the doc-qa cell's step (B 128, S
+    8,256) at ``MLA_POSITIONS``, timed back to back beside its bound (the
+    live latent rows, q and the output at HBM bandwidth); the bf16 flash
+    kernel at MLA's prefill geometry (q/k hd 192, v 128 zero-padded to
+    192) against its plain version; then sessions at smoke width through
+    ``Server.open_batch`` and ``BatchSession.turn``, graphed and eager, each
+    path's counts zeroed just before ``open_batch`` and read after its last
+    turn.  Returns the readings and the kernel's record."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, gqa_decode_attention, mla_decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.kernels.mla_decode import launch_spec, mla_decode_torch
+    from repro_torch.models import weights
+    from repro_torch.models.mla import softmax_scale
+    from repro_torch.runtime.serve_loop import Server
+
+    dev = torch.device("cuda")
+    tol = ATTN_TOL["bfloat16"]
+    rec = {"name": "mla_decode", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/mla_decode.cu", "replaces": None}
+    out = {}
+    with _phase("18_latent_attention", timings):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        gen = torch.Generator(device=dev).manual_seed(18)
+        B, H, S, D, V = MLA_DECODE
+        scale = softmax_scale(get_config("deepseek-v2-lite"))
+        q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        lat = torch.randn((B, S, D), generator=gen, device=dev).to(torch.bfloat16)
+        counted = mla_decode_attention.launches
+        err = 0.0
+        for pos in MLA_POSITIONS:
+            p = torch.tensor(pos, dtype=torch.int32, device=dev)
+            before = mla_decode_attention.launches
+            got = mla_decode_attention(q, lat, p, scale=scale, v_dim=V)
+            again = mla_decode_attention(q, lat, p, scale=scale, v_dim=V)
+            torch.cuda.synchronize()
+            assert mla_decode_attention.launches == before + 2, "mla_decode did not launch"
+            assert torch.equal(got, again), f"pos {pos}: two calls differ"
+            want = torch.cat([mla_decode_torch(q[i:i + 1], lat[i:i + 1], p, scale=scale,
+                                               v_dim=V) for i in range(B)])
+            assert got.dtype == want.dtype and got.shape == (B, H, V)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        p = torch.tensor(MLA_POSITIONS[0], dtype=torch.int32, device=dev)
+        ms = _back_to_back_ms(lambda: mla_decode_attention(q, lat, p, scale=scale, v_dim=V))
+        n_bytes = (B * (MLA_POSITIONS[0] + 1) * D + B * H * D + B * H * V) * 2
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        n_layers = get_config("deepseek-v2-lite").n_layers
+        print(f"   mla_decode at B {B}, H {H}, S {S}, D {D}, v {V}, grid "
+              f"{launch_spec(B, S, D).grid}: held to the plain version at pos "
+              f"{list(MLA_POSITIONS)}, max |kernel - plain| {err:.3e} (bf16 {tol}); at pos "
+              f"{MLA_POSITIONS[0]} {ms:.4f} ms a call back to back, bound {bound_ms:.4f} ms "
+              f"({n_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): "
+              f"{100 * bound_ms / ms:.1f} % of it; x {n_layers} layers "
+              f"{n_layers * ms:.2f} ms of a step")
+        rec.update(max_abs_err=err, device_ms=ms, bound_ms=bound_ms, bound_bytes=n_bytes,
+                   roofline_pct=100 * bound_ms / ms, shape=list(MLA_DECODE))
+        mla_decode_attention.launches = counted        # the check's and the timing's
+        del q, lat, got, again, want
+
+        # the prefill's flash call: V zero-padded to the q/k head dim
+        Bf, Hf, T, hd, dv = MLA_FLASH
+        qf = torch.randn((Bf, Hf, T, hd), generator=gen, device=dev).to(torch.bfloat16)
+        kf = torch.randn((Bf, Hf, T, hd), generator=gen, device=dev).to(torch.bfloat16)
+        vf = F.pad(torch.randn((Bf, Hf, T, dv), generator=gen, device=dev),
+                   (0, hd - dv)).to(torch.bfloat16)
+        counts = (flash_attention.launches, dict(flash_attention.launches_by_variant))
+        got = flash_attention(qf, kf, vf, causal=True)
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_variant["bf16_wgmma"] == counts[1]["bf16_wgmma"] + 1
+        want = flash_attention_torch(qf, kf, vf, causal=True)
+        assert torch.equal(got[..., dv:], torch.zeros_like(got[..., dv:])), \
+            "the padded value columns are not zero"
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        f_err = float((got.float() - want.float()).abs().max())
+        del want
+        f_ms = _median_ms(lambda: flash_attention(qf, kf, vf, causal=True), reps=10, warmup=2)
+        f_bound = _flash_bound((Bf, Hf, Hf, T, T, hd, True, None, None, 0), 2, BF16_OPS_PER_S)
+        flash_attention.launches, flash_attention.launches_by_variant = counts
+        print(f"   flash (bf16_wgmma) at MLA's prefill, q/k (1, {Hf}, {T}, {hd}), v {dv} "
+              f"padded to {hd}, causal: max |kernel - plain| {f_err:.3e}, padded columns "
+              f"0; {f_ms:.3f} ms median, bound {f_bound[0]:.3f} ms ({f_bound[1]}, counted "
+              f"at the padded hd): {100 * f_bound[0] / f_ms:.1f} %")
+        out["flash_prefill"] = {"max_abs_err": f_err, "ms": f_ms, "bound_ms": f_bound[0]}
+        del qf, kf, vf, got
+        torch.cuda.empty_cache()
+
+        # sessions at smoke width: every launch of open_batch and the turns
+        cfg = get_config("deepseek-v2-lite").smoke().replace(dtype="bfloat16")
+        model = weights.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        n_mla = sum(layer.mixer == "mla" for layer in model.layers)
+        rng = np.random.default_rng(18)
+        n_docs, doc_len = MLA_DOCS
+        docs = rng.integers(0, cfg.vocab_size, MLA_DOCS)[MLA_SHARED]
+        n_turns, q_len, a_len = MLA_TURNS
+        questions = [rng.integers(0, cfg.vocab_size, (len(MLA_SHARED), q_len))
+                     for _ in range(n_turns)]
+        steps = n_turns * (q_len + a_len - 1)
+        served = {}
+        for graph in (True, False):
+            server = Server(cfg, model, max_len=doc_len + q_len + a_len, device=dev)
+            _zero_attention_counts()
+            mla_decode_attention.launches = 0
+            session = server.open_batch(docs, q_len + a_len, cuda_graph=graph)
+            served[graph] = [session.turn(qs, a_len)["output"] for qs in questions]
+            torch.cuda.synchronize()
+            n_flash, n_mla_dec = flash_attention.launches, mla_decode_attention.launches
+            by_variant = dict(flash_attention.launches_by_variant)
+            slots = int(server.metrics.counter("mla.latent_slots_read").value)
+            want_slots = n_turns * len(MLA_SHARED) * n_mla * sum(
+                doc_len + j + 1 for j in range(q_len + a_len - 1))
+            print(f"   sessions ({'graphed' if graph else 'eager'}): {len(MLA_SHARED)} over "
+                  f"{n_docs} documents of {doc_len}, {n_turns} turns of {q_len} + {a_len}; "
+                  f"launches flash {n_flash} (want {n_docs} x {n_mla}) by kernel "
+                  f"{by_variant}, mla_decode {n_mla_dec} (want {n_mla} x {steps}), "
+                  f"gqa_decode {gqa_decode_attention.launches}; mla.latent_slots_read "
+                  f"{slots} (closed form {want_slots})")
+            assert session.decoder.captured is graph
+            assert n_flash == n_docs * n_mla, n_flash
+            assert by_variant == {F32_FLASH: 0, "bf16_wgmma": n_docs * n_mla}, by_variant
+            assert n_mla_dec == n_mla * steps, n_mla_dec
+            assert gqa_decode_attention.launches == 0
+            assert slots == want_slots, (slots, want_slots)
+            assert server.metrics.counter("server.turns").value == n_turns
+            assert server.metrics.counter("server.prefix_rows_shared").value == (
+                len(MLA_SHARED) - n_docs) * doc_len
+            if graph:
+                out["sessions"] = {"flash_launches": n_flash, "mla_decode_launches": n_mla_dec,
+                                   "latent_slots_read": slots}
+            del session, server
+        same = all(np.array_equal(a, b) for a, b in zip(served[True], served[False]))
+        print(f"   graphed answers equal to eager: {same}")
+        assert same
+        del model
+        torch.cuda.empty_cache()
+        flash["launches_by_path"]["deepseek-v2-lite sessions"] = out["sessions"]["flash_launches"]
+        flash["launches"] = sum(flash["launches_by_path"].values())
+        rec["launches_by_path"] = {"deepseek-v2-lite sessions":
+                                   out["sessions"]["mla_decode_launches"]}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        _zero_attention_counts()
+        mla_decode_attention.launches = 0
+    out["decode"] = {k: rec[k] for k in ("max_abs_err", "device_ms", "bound_ms",
+                                         "roofline_pct")}
+    return out, rec
+
+
 def main() -> int:
     import torch
 
@@ -3761,7 +3937,7 @@ def main() -> int:
               f"python {sys.version.split()[0]}")
         t0 = time.perf_counter()
         builds = build("seg_combine", "flash_attention_wgmma", "flash_attention",
-                       "decode_attention", "fixture_copy")
+                       "decode_attention", "fixture_copy", "mla_decode")
         print(f"built {len(builds)} kernels in {time.perf_counter() - t0:.2f} s, "
               "in parallel")
         for name, b in builds.items():
@@ -4059,6 +4235,8 @@ def main() -> int:
     readings["step_model_and_dryrun"] = _phase16_step_model_and_dryrun(
         timings, flash, decode, readings, torch, np)
     readings["tensor_parallel"] = _phase17_tensor_parallel(timings, flash, decode, torch, np)
+    readings["mla"], mla = _phase18_mla(timings, flash, torch, np)
+    mla["build_s"] = builds["mla_decode"]["seconds"]
     kernel["main_path_launches"] = kernel["launches"]
     kernel["distributed_launches"] = readings["distributed"]["launches"]
     kernel["launches"] += kernel["distributed_launches"] + kernel["twins_launches"]
@@ -4071,7 +4249,7 @@ def main() -> int:
 
     print(json.dumps({"readings": readings}))
     print(json.dumps({"phases_s": timings}))
-    print(json.dumps({"kernels": [kernel, flash, flash_f32, decode, copy]}))
+    print(json.dumps({"kernels": [kernel, flash, flash_f32, decode, copy, mla]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,9 @@
 
 ``get_config(name)`` resolves an ``--arch`` id to its exact public config,
 as the reference's ``repro.configs.get_config`` does; ``ARCHS`` lists all
-ten architectures, in the reference's order.  The shape cells of
+ten architectures, in the reference's order.  ``PORT_ARCHS`` lists the
+architectures the port serves beyond the reference's (DeepSeek-V2-Lite,
+with latent attention), which ``get_config`` finds too.  The shape cells of
 ``repro/configs/shapes.py`` and their input specifications are
 :mod:`repro_torch.configs.shapes`, re-exported here as ``repro.configs``
 does.
@@ -15,8 +17,8 @@ import importlib
 from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable, input_specs, skip_reason
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "applicable", "get_config", "input_specs",
-           "skip_reason"]
+__all__ = ["ARCHS", "PORT_ARCHS", "SHAPES", "ShapeSpec", "applicable", "get_config",
+           "input_specs", "skip_reason"]
 
 ARCHS: dict[str, str] = {
     "gemma2-9b": "gemma2_9b",
@@ -32,9 +34,15 @@ ARCHS: dict[str, str] = {
 }
 
 
+#: architectures only the port has (the reference has no latent attention)
+PORT_ARCHS: dict[str, str] = {
+    "deepseek-v2-lite": "deepseek_v2_lite",
+}
+
+
 def get_config(name: str) -> ModelConfig:
     key = name.replace("_", "-")
-    if key not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
-    mod = importlib.import_module(f"repro_torch.configs.{ARCHS[key]}")
-    return mod.CONFIG
+    module = ARCHS.get(key) or PORT_ARCHS.get(key)
+    if module is None:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted({**ARCHS, **PORT_ARCHS})}")
+    return importlib.import_module(f"repro_torch.configs.{module}").CONFIG

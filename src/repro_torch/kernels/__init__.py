@@ -12,16 +12,22 @@
                      cores (``mma.sync``), fp32 on the CUDA cores,
                      ``csrc/decode_attention.cu``;
   fixture_copy     — a tiled copy, the kernel of the static analyzer's
-                     known-bad launch fixture, ``csrc/fixture_copy.cu``.
+                     known-bad launch fixture, ``csrc/fixture_copy.cu``;
+  mla_decode       — absorbed multi-head latent attention for one decode
+                     token: 16 heads over one latent cache row of 576,
+                     values its first 512 columns, in one launch,
+                     ``csrc/mla_decode.cu`` (no TPU counterpart: the
+                     reference has no latent attention).
 
 Each is CUDA C++ for sm_90a, built by :mod:`._build` and bound with ctypes,
-and replaces the reference's Pallas kernel of the same name
-(``fixture_copy``: the one in ``repro/analysis/fixtures.py``).  Each has its
+and, but for ``mla_decode``, replaces the reference's Pallas kernel of the
+same name (``fixture_copy``: the one in ``repro/analysis/fixtures.py``).  Each has its
 launcher and plain PyTorch version (``<name>.py``) and a checked, counted
 public wrapper (``ops.py``).
 """
 
-from .ops import fixture_copy, flash_attention, gqa_decode_attention, seg_combine
+from .ops import (fixture_copy, flash_attention, gqa_decode_attention,
+                  mla_decode_attention, seg_combine)
 
 __all__ = ["fixture_copy", "flash_attention", "gqa_decode_attention",
-           "seg_combine"]
+           "mla_decode_attention", "seg_combine"]

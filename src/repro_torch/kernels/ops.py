@@ -14,7 +14,9 @@ also counts its launches per variant in ``launches_by_variant``:
 ``flash_attention`` one kernel per input type (bf16: ``bf16_wgmma``, fp32:
 ``f32_3xtf32``), ``seg_combine`` its routes (``bins``, ``global``,
 ``columns``), ``fixture_copy`` its paths (``vector``, ``scalar``, as the
-launcher took them).  Beside the
+launcher took them).  ``mla_decode_attention`` (absorbed latent attention,
+``csrc/mla_decode.cu``) replaces no TPU kernel: the reference has no MLA.
+Beside the
 count, each wrapper keeps the distinct launch geometries it launched in
 ``<wrapper>.geometries``, a set of ``(LaunchSpec, shape, tile)``: the grid
 and block, the index space the grid must cover and what one CTA covers of
@@ -44,10 +46,11 @@ import torch
 from . import decode_attention as _da
 from . import fixture_copy as _fc
 from . import flash_attention as _fa
+from . import mla_decode as _mla
 from . import seg_combine as _sc
 
 __all__ = ["fixture_copy", "flash_attention", "gqa_decode_attention",
-           "seg_combine"]
+           "mla_decode_attention", "seg_combine"]
 
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -261,6 +264,57 @@ def gqa_decode_attention(
 
 gqa_decode_attention.launches = 0
 gqa_decode_attention.geometries = set()
+
+
+def mla_decode_attention(
+    q: torch.Tensor,            # (B, H, D) bf16 (f32 on the CPU), contiguous
+    latent: torch.Tensor,       # (B, S, D), same dtype and device
+    pos: torch.Tensor,          # 0-dim int32: the position of this token
+    *,
+    scale: float,
+    v_dim: int,
+) -> torch.Tensor:
+    """Absorbed latent attention of one token, (B, H, v_dim): each head's
+    scores ``scale * q . latent[s]`` over all D columns of the slots 0 ..
+    ``pos``, an fp32 softmax, and the mixture of the slots' first ``v_dim``
+    columns.  The kernel takes bf16, H <= 16 heads, D a multiple of 8 up to
+    576 and ``v_dim`` a multiple of 8 up to min(D, 512); on the card every
+    input must start at a 16-byte-aligned address."""
+    what = "mla_decode_attention"
+    for name, t in (("q", q), ("latent", latent)):
+        if t.dim() != 3 or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous 3-d tensor, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype not in _VALUE_DTYPES:
+            raise TypeError(f"{what}: {name} must be float32 or bfloat16, got {t.dtype}")
+    B, H, D = q.shape
+    if latent.dtype != q.dtype or latent.shape[0] != B or latent.shape[2] != D:
+        raise ValueError(f"{what}: q {tuple(q.shape)} {q.dtype} and latent "
+                         f"{tuple(latent.shape)} {latent.dtype} differ")
+    if pos.dim() != 0 or pos.dtype != torch.int32:
+        raise ValueError(f"{what}: pos must be a 0-dim int32 tensor, got "
+                         f"{tuple(pos.shape)} {pos.dtype}")
+    if not (0 < H <= _mla.MAX_H and 0 < D <= _mla.MAX_D and D % 8 == 0
+            and 0 < v_dim <= min(D, _mla.MAX_V) and v_dim % 8 == 0):
+        raise ValueError(f"{what}: the kernel takes up to {_mla.MAX_H} heads, D a "
+                         f"multiple of 8 up to {_mla.MAX_D} and v_dim a multiple of 8 "
+                         f"up to min(D, {_mla.MAX_V}); got H {H}, D {D}, v_dim {v_dim}")
+    S = latent.shape[1]
+    spec = _mla.launch_spec(B, S, D).check(what)
+    if _check_device(what, q, latent, pos) == "cpu":
+        return _mla.mla_decode_torch(q, latent, pos, scale=scale, v_dim=v_dim)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: the kernel takes bfloat16 on the card, not {q.dtype}")
+    for name, t in (("q", q), ("latent", latent)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start at a 16-byte-aligned "
+                             "address, which the kernel's 16-byte loads need")
+    out = _mla.mla_decode_cuda(q, latent, pos, scale=scale, v_dim=v_dim, spec=spec)
+    mla_decode_attention.launches += 1
+    return out
+
+
+mla_decode_attention.launches = 0
 
 
 def seg_combine(

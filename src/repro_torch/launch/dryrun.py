@@ -97,7 +97,7 @@ from repro_torch.launch.steps import (
 from repro_torch.models import act_sharding
 from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.attention import get_attention_impl, set_attention_impl
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, refuse_mla
 from repro_torch.models.opt_flags import OptFlags, clear_flags, set_flags
 from repro_torch.models.weights import empty
 from repro_torch.optim import AdamWConfig
@@ -465,6 +465,7 @@ def run_cell(
     port refuses, and a cell the reference skips, come back with a
     ``skip(...)`` status."""
     cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
+    refuse_mla(cfg, "the dry-run's roofline")
     shape = shape_name if isinstance(shape_name, ShapeSpec) else SHAPES[shape_name]
     flags = OPT_PRESETS[opt]
     sizes = _mesh_sizes(multi_pod, flags.mesh_factor, mesh)

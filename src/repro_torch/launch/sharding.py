@@ -35,7 +35,7 @@ from typing import Any
 from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.shapes import ShapeSpec
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, refuse_mla
 
 __all__ = [
     "P",
@@ -162,6 +162,7 @@ def _padded(spec: P, ndim: int) -> P:
 def param_pspecs(cfg: ModelConfig, params_shape: dict, mesh) -> dict[str, P]:
     """Spec of each parameter, by name; ``params_shape`` maps the port's
     parameter names to tensors (meta tensors will do)."""
+    refuse_mla(cfg, "the sharding rules (tensor and expert parallel)")
     return {name: _padded(_param_rule(name.split("."), cfg, mesh), t.ndim)
             for name, t in params_shape.items()}
 

@@ -7,6 +7,11 @@ Per-architecture instances (exact public configs) live in
 ``repro_torch/configs/<arch>.py``; reduced smoke variants are derived with
 :meth:`ModelConfig.smoke`.  The port's LM builds only the families it has
 ported (:mod:`repro_torch.models.lm`).
+
+Beyond the reference's fields the port has DeepSeek-V2's multi-head latent
+attention (``attention="mla"``, :mod:`repro_torch.models.mla`) and its YaRN
+rope scaling; their defaults leave every other config as it was.  MLA is
+served on one card: :func:`refuse_mla` stops the paths that do not take it.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "refuse_mla"]
 
 
 @dataclass(frozen=True)
@@ -72,6 +77,25 @@ class ModelConfig:
 
     # compute dtype for activations and matmul weights (norm scales are fp32)
     dtype: str = "bfloat16"
+
+    # attention kind: "gqa" (q, k, v, o over n_kv_heads groups) or "mla"
+    # (DeepSeek-V2's multi-head latent attention: k and v from a joint
+    # latent of kv_lora_rank, normalised and cached with one rotary key of
+    # qk_rope_head_dim shared by every head; head_dim is then qk_nope +
+    # qk_rope, the q and k head dim)
+    attention: str = "gqa"
+    kv_lora_rank: int = 0
+    q_lora_rank: int | None = None   # None: q is one projection (no q LoRA)
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN rope scaling (DeepSeek-V2's "rope_scaling"); factor 1.0: none
+    rope_scaling_factor: float = 1.0
+    rope_original_max_position: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
 
     # ----------------------------------------------------------------- utils
     @property
@@ -159,4 +183,17 @@ class ModelConfig:
             kw.update(rglru_width=64)
         if self.n_enc_layers:
             kw.update(n_enc_layers=2)
+        if self.attention == "mla":
+            kw.update(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                      v_head_dim=16, head_dim=24)
         return self.replace(name=self.name + "-smoke", **kw)
+
+
+def refuse_mla(cfg: ModelConfig, what: str) -> None:
+    """Raise where ``what`` does not take latent attention: MLA is served
+    on one card (no tensor or expert split, no training step, no dry-run
+    roofline)."""
+    if cfg.attention == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: {what} does not take multi-head latent attention (MLA); "
+            "MLA configs are served on one card through Server.open_batch")

@@ -10,8 +10,8 @@ prefix, then the reference's scan order (for each group, each member of
 ``cfg.layer_pattern``), so layer ``n_prefix + g * len(pattern) + mi`` is the
 reference's ``params["groups"][mi][..][g]`` and layer ``i < n_prefix`` its
 ``params["prefix"][i]``.  Caches are a list of per-layer caches in the same
-order: ``{"k", "v"}`` for an attention layer, ``{"h", "conv"}`` for a
-recurrent one.
+order: ``{"k", "v"}`` for an attention layer, ``{"latent"}`` for a latent
+attention (MLA) layer, ``{"h", "conv"}`` for a recurrent one.
 
 ``forward``, ``prefill``, ``decode_step`` and ``loss_fn`` keep the
 reference's names and semantics.  ``pos`` is a 0-dim int32 tensor on the
@@ -69,6 +69,7 @@ from . import tensor_parallel as tp
 from .act_sharding import constrain
 from .config import ModelConfig
 from .layers import ParamTree, apply_mlp, apply_norm, rope_frequencies, softcap
+from .mla import mla_decode, mla_prefill, mla_spec, yarn_frequencies
 from .moe import apply_moe, moe_spec
 from .opt_flags import get_flags
 from .rglru import rglru_decode, rglru_prefill, rglru_spec
@@ -178,7 +179,10 @@ class DecoderLayer(nn.Module):
     """One residual block: a (sandwich-)normed token mixer, then the FFN.
 
     The mixer is attention (``attn``: q, k, v, o) for the kinds ``"attn"``,
-    ``"local"`` and ``"attn_dense"``, ``rglru`` or ``ssm``; the FFN a dense
+    ``"local"`` and ``"attn_dense"`` (latent attention, ``"mla"``, where the
+    config's ``attention`` is ``"mla"``: ``attn`` then holds
+    :func:`~repro_torch.models.mla.mla_spec`'s tree), ``rglru`` or ``ssm``;
+    the FFN a dense
     ``mlp`` (wi, wg, wo; ``d_ff_dense`` wide in an ``"attn_dense"`` layer),
     a ``moe`` or none (``ssm``).  Parameters keep the reference's names:
     ``ln1``, the mixer, ``post1``, ``ln2``, the FFN, ``post2``.
@@ -190,9 +194,13 @@ class DecoderLayer(nn.Module):
         self.cfg = cfg
         self.kind = kind
         self.mixer = "attn" if kind == "attn_dense" else kind
+        if self.mixer == "attn" and cfg.attention == "mla":
+            self.mixer = "mla"
         self.ffn = ffn_kind(cfg, kind)
         self.ln1 = _norm(d, cfg.norm_type, device)
-        if self.mixer in ("attn", "local"):
+        if self.mixer == "mla":
+            self.attn = ParamTree(mla_spec(cfg, dtype), device)
+        elif self.mixer in ("attn", "local"):
             self.attn = attention_weights(cfg, dtype, device)
         elif self.mixer == "rglru":
             self.rglru = ParamTree(rglru_spec(cfg, dtype), device)
@@ -248,7 +256,9 @@ class DecoderLayer(nn.Module):
         one."""
         cfg = self.cfg
         h = self._apply_norm("ln1", x)
-        if self.mixer in ("attn", "local"):
+        if self.mixer == "mla":
+            h, cache = mla_prefill(self.attn, h, inv_freq, cfg, cache_size=cache_len)
+        elif self.mixer in ("attn", "local"):
             size = None
             if cache_len is not None:
                 size = min(cache_len, cfg.window_size) if self.mixer == "local" \
@@ -270,7 +280,9 @@ class DecoderLayer(nn.Module):
         MoE FFN runs dropless (capacity = the global batch's B tokens)."""
         cfg = self.cfg
         h = self._apply_norm("ln1", x)
-        if self.mixer in ("attn", "local"):
+        if self.mixer == "mla":
+            h, cache = mla_decode(self.attn, h, cache, pos, inv_freq, cfg)
+        elif self.mixer in ("attn", "local"):
             h, cache = attn_block_decode(
                 self.attn, h, cache, pos, inv_freq, kind=self.mixer,
                 window=cfg.window_size, logit_cap=cfg.attn_logit_softcap,
@@ -318,11 +330,13 @@ class LM(nn.Module):
         self.init_buffers(dev)
 
     def init_buffers(self, device) -> None:
-        """The RoPE frequencies and the embedding scale on ``device``."""
+        """The RoPE frequencies (an MLA config's YaRN frequencies of its
+        rotary dims) and the embedding scale on ``device``."""
         cfg = self.cfg
-        self.register_buffer("inv_freq", rope_frequencies(
-            cfg.head_dim, cfg.rope_fraction, cfg.rope_theta, device=device),
-            persistent=False)
+        inv_freq = (yarn_frequencies(cfg, device=device) if cfg.attention == "mla" else
+                    rope_frequencies(cfg.head_dim, cfg.rope_fraction, cfg.rope_theta,
+                                     device=device))
+        self.register_buffer("inv_freq", inv_freq, persistent=False)
         # the reference multiplies by jnp.asarray(d_model**0.5, dtype): in
         # bf16 that is 59.75 for gemma2-9b, not 59.866
         self.register_buffer("embed_scale", torch.tensor(

@@ -46,7 +46,7 @@ __all__ = ["GreedyDecoder"]
 
 # the wrappers whose launches a replay repeats
 _WRAPPERS = (ops.flash_attention, ops.gqa_decode_attention, ops.seg_combine,
-             ops.fixture_copy)
+             ops.fixture_copy, ops.mla_decode_attention)
 
 
 def _counts() -> list[tuple[int, dict]]:

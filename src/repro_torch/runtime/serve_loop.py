@@ -14,6 +14,13 @@ Where the reference jit-compiles prefill and decode, the port runs
 CUDA kernels.  Caches are written in place.  The batched path keeps the
 token and the position on the device between steps; ``generate`` runs
 eagerly and reads each sampled token on the host, as the reference does.
+
+:meth:`Server.open_batch` opens sessions that keep their caches across
+turns (document QA over a warm prefix): each distinct prompt is prefilled
+once, alone, and its cache rows are copied into every session that shares
+it; each :meth:`BatchSession.turn` rewinds the position to the prompt's end,
+feeds a question through the replayed decode step and decodes an answer.
+The port only (the reference has no sessions).
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from repro_torch.obs import current as _obs_current
 from repro_torch.runtime.batching import AdmissionQueue, LatencyStats
 from repro_torch.runtime.decode_graph import GreedyDecoder
 
-__all__ = ["Request", "Server"]
+__all__ = ["BatchSession", "Request", "Server"]
 
 
 class _CounterView(Mapping):
@@ -244,3 +251,116 @@ class Server:
             "tok_per_s": B * new_tokens / max(decode_s, 1e-9),
             "output": output,
         }
+
+    def open_batch(self, prompts: np.ndarray, turn_tokens: int, *,
+                   cuda_graph: bool | None = None) -> "BatchSession":
+        """Open one session for each row of ``prompts`` (B, S), each to be
+        asked turns of at most ``turn_tokens`` question and answer tokens.
+
+        Each distinct prompt is prefilled once, alone (so a prefill's T is
+        one prompt's S), into caches of ``max_len``; its cache rows are then
+        copied into every session whose prompt it is.  The sessions share
+        one :class:`GreedyDecoder` over the batch's caches (``cuda_graph``:
+        as in :meth:`throughput_batch`; its graph is captured on the first
+        turn and replayed by every later one).
+
+        Spans: ``server.open`` around the call, inside it one
+        ``server.prefill`` a distinct prompt and ``server.share`` around the
+        row copies.  The registry counts ``server.prefills`` and
+        ``server.prefix_rows_shared``: cache positions the sessions got by
+        copy rather than by a prefill of their own, (B - distinct) x S."""
+        prompts = np.asarray(prompts)
+        B, S = prompts.shape
+        self._check_fits(S, turn_tokens)
+        if cuda_graph is None:
+            cuda_graph = self.device.type == "cuda"
+        uniq, inverse = np.unique(prompts, axis=0, return_inverse=True)
+        inverse = inverse.reshape(-1)
+        with span("server.open", B=B, S=S, distinct=len(uniq)):
+            caches = None
+            for u, prompt in enumerate(uniq):
+                with span("server.prefill"):
+                    _, own, _ = self.model.prefill(
+                        torch.as_tensor(prompt[None], dtype=torch.long,
+                                        device=self.device), self.max_len)
+                self.metrics.counter("server.prefills").inc()
+                with span("server.share"):
+                    rows = torch.as_tensor(np.flatnonzero(inverse == u), device=self.device)
+                    if caches is None:
+                        caches = [{k: torch.empty((B,) + t.shape[1:], dtype=t.dtype,
+                                                  device=t.device)
+                                   for k, t in layer.items()} for layer in own]
+                    for layer, part in zip(caches, own):
+                        for k, t in part.items():
+                            layer[k].index_copy_(0, rows, t.expand((len(rows),) + t.shape[1:]))
+                del own
+            self._sync()
+        self.metrics.counter("server.prefix_rows_shared").inc((B - len(uniq)) * S)
+        token = torch.zeros((B, 1), dtype=torch.long, device=self.device)
+        pos = torch.tensor(S, dtype=torch.int32, device=self.device)
+        decoder = GreedyDecoder(self.model, caches, token, pos, cuda_graph=cuda_graph)
+        return BatchSession(self, decoder, S)
+
+
+class BatchSession:
+    """The sessions :meth:`Server.open_batch` opened: their caches (held by
+    their decoder) and the prompt's length, where every turn starts."""
+
+    def __init__(self, server: Server, decoder: GreedyDecoder, prompt_len: int):
+        self.server = server
+        self.decoder = decoder
+        self.prompt_len = prompt_len
+        self.batch = decoder.token.shape[0]
+
+    def turn(self, questions, answer_tokens: int) -> dict:
+        """Ask every session its row of ``questions`` (B, q) and decode
+        ``answer_tokens`` greedy tokens of answer (B, n).
+
+        The position rewinds to the prompt's end, so each turn reads the
+        prompt and its own question only.  Each question token is written
+        into the decoder's token buffer before its step, which discards its
+        argmax but the last's, the answer's first token; then ``n - 1``
+        more steps.  ``decode_s`` covers the q + n - 1 steps (ending in a
+        synchronise, the capture left out); ``capture_s`` is this turn's
+        capture (0.0 after the first turn).
+
+        Spans: ``server.turn`` ⊃ ``server.rewind``, ``server.question``,
+        ``server.decode``.  The registry counts ``server.turns`` and, for a
+        latent-attention model, ``mla.latent_slots_read``: B x its MLA
+        layers x the sum over the turn's steps of pos + 1, the latent rows
+        the steps' attention reads (a replayed graph runs no Python, so the
+        host counts them)."""
+        srv, dec = self.server, self.decoder
+        questions = torch.as_tensor(np.asarray(questions), dtype=torch.long,
+                                    device=srv.device)
+        B, q = questions.shape
+        if B != self.batch or q < 1 or answer_tokens < 1:
+            raise ValueError(f"a turn takes ({self.batch}, q >= 1) questions and "
+                             f"answer_tokens >= 1, not {tuple(questions.shape)}, "
+                             f"{answer_tokens}")
+        srv._check_fits(self.prompt_len + q, answer_tokens)
+        steps = q + answer_tokens - 1
+        captured = dec.capture_s
+        with span("server.turn", B=B, q=q, answer_tokens=answer_tokens):
+            with span("server.rewind"):
+                dec.pos.fill_(self.prompt_len)
+            t0 = time.perf_counter()
+            with span("server.question"):
+                for j in range(q):
+                    dec.token.copy_(questions[:, j:j + 1])
+                    dec.step()
+            with span("server.decode"):
+                outs = [dec.token.clone()]
+                for _ in range(answer_tokens - 1):
+                    outs.append(dec.step().clone())
+                srv._sync()
+            capture_s = dec.capture_s - captured
+            decode_s = time.perf_counter() - t0 - capture_s
+            output = torch.cat(outs, dim=1).cpu().numpy()
+        srv.metrics.counter("server.turns").inc()
+        n_mla = sum(1 for layer in dec.model.layers if layer.mixer == "mla")
+        slots = B * n_mla * sum(self.prompt_len + j + 1 for j in range(steps))
+        if n_mla:
+            srv.metrics.counter("mla.latent_slots_read").inc(slots)
+        return {"output": output, "decode_s": decode_s, "capture_s": capture_s,
+                "steps": steps, "latent_slots_read": slots}

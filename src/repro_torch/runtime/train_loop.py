@@ -80,7 +80,7 @@ from repro_torch.launch.mesh import full_tensor, make_mesh, model_local, world
 from repro_torch.launch.steps import accumulate_grads, init_params
 from repro_torch.models import act_sharding
 from repro_torch.models import tensor_parallel as tp
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, refuse_mla
 from repro_torch.models.weights import empty
 from repro_torch.optim import AdamWConfig, adamw_update, global_norm
 
@@ -123,6 +123,7 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig):
+        refuse_mla(cfg, "the Trainer")
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(tcfg.device)

@@ -757,3 +757,57 @@ def test_decode_lse_at_a_split_span_on_the_card(cuda_device, dtype, tol, lse_tol
     # the last span sees no slot: -inf and a zero output
     assert torch.equal(lse, torch.full_like(lse, -torch.inf))
     assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,pos", [(128, 8256, 8255), (128, 8256, 0), (128, 8256, 8210),
+                                     (4, 8256, 100), (3, 40, 39), (2, 64, 200)])
+def test_mla_decode_kernel_matches_its_twin_on_the_card(cuda_device, B, S, pos):
+    # DeepSeek-V2-Lite's absorbed decode: 16 heads over latent rows of 512 +
+    # 64, values the first 512 columns; the cell's shape, pos 0, a span the
+    # split cuts unevenly, short spans and a pos past the cache; bf16
+    # rounding of the output (a few 2^-8 steps) bounds the tolerance
+    from repro_torch.kernels import mla_decode_attention
+    from repro_torch.kernels.mla_decode import mla_decode_torch
+
+    g = torch.Generator(device=cuda_device).manual_seed(B * 7 + pos)
+    q = torch.randn((B, 16, 576), generator=g, device=cuda_device).to(torch.bfloat16)
+    lat = torch.randn((B, S, 576), generator=g, device=cuda_device).to(torch.bfloat16)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+    scale = 0.11
+    before = mla_decode_attention.launches
+    got = mla_decode_attention(q, lat, p, scale=scale, v_dim=512)
+    again = mla_decode_attention(q, lat, p, scale=scale, v_dim=512)
+    torch.cuda.synchronize()
+    assert mla_decode_attention.launches == before + 2
+    assert torch.equal(got, again)                 # the merge is in split order
+    want = torch.cat([mla_decode_torch(q[i:i + 1], lat[i:i + 1], p, scale=scale, v_dim=512)
+                      for i in range(B)])
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_mla_sessions_replay_the_kernel_and_count_its_launches(cuda_device):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_decode_attention
+    from repro_torch.models import weights
+    from repro_torch.runtime.serve_loop import Server
+
+    cfg = get_config("deepseek-v2-lite").smoke().replace(dtype="bfloat16")
+    model = weights.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                         device=cuda_device)
+    rng = np.random.default_rng(3)
+    docs = rng.integers(0, cfg.vocab_size, (3, 40))[[0, 1, 2, 0]]
+    questions = [rng.integers(0, cfg.vocab_size, (4, 5)) for _ in range(3)]
+    outs = {}
+    for graph in (True, False):
+        server = Server(cfg, model, max_len=56, device=cuda_device)
+        session = server.open_batch(docs, 16, cuda_graph=graph)
+        before = mla_decode_attention.launches
+        outs[graph] = [session.turn(q, 8)["output"] for q in questions]
+        torch.cuda.synchronize()
+        steps = 3 * (5 + 8 - 1)
+        assert mla_decode_attention.launches - before == cfg.n_layers * steps
+        assert session.decoder.captured is graph
+    for a, b in zip(outs[True], outs[False]):
+        assert np.array_equal(a, b)
