@@ -210,9 +210,12 @@ model and dry-run held against the card's own step times:
  18. latent attention (DeepSeek-V2-Lite): ``mla_decode_attention`` against
      its plain version at the doc-qa cell's step (B 128, 16 heads, latent
      rows of 576 in caches of 8,256, values the first 512 columns) at pos
-     8,255, 8,192, 8,210 and 0 (bf16 2e-2; two calls equal bit for bit),
-     timed back to back beside its bound (the live rows x 1,152 B plus q
-     and the output at 3.35 TB/s); the bf16 flash kernel at MLA's prefill
+     8,255, 8,192, 8,210 and 0, at a small batch (B 4: a CTA's run a few
+     tiles, up to 33 segments a row) and at 10 heads over rows of 520
+     (heads masked, a D off the 64-column boxes), each also at pos 31, 32
+     and past the cache's end (bf16 2e-2; two calls equal bit for bit),
+     each timed back to back beside its bound (the live rows x 2 D bytes
+     plus q and the output at 3.35 TB/s); the bf16 flash kernel at MLA's prefill
      (q/k (1, 16, 8,192, 192), v 128 zero-padded to 192, causal) against
      its plain version, the padded columns exactly 0; then sessions at
      smoke width through ``Server.open_batch`` and ``BatchSession.turn``
@@ -3727,6 +3730,13 @@ def _phase17_tensor_parallel(timings, flash, decode, torch, np) -> dict:
 # phase 18: DeepSeek-V2-Lite's latent attention at the doc-qa cell's shapes
 MLA_DECODE = (128, 16, 8256, 576, 512)   # B, H, S, D, v_dim: one decode step
 MLA_POSITIONS = (8255, 8192, 8210, 0)    # the last step, the first, one inside, none seen
+# (label, shape, positions): the cell's step; a small batch, where a CTA's
+# run is a few tiles and a row has up to 33 segments; fewer heads (masked)
+# and a D that is not a multiple of 16 (the last k-step and TMA box reach
+# past D), each at ragged and full tiles and past the cache's end
+MLA_SHAPES = (("step", MLA_DECODE, MLA_POSITIONS),
+              ("small_batch", (4, 16, 8256, 576, 512), (8255, 0, 31, 32, 9000)),
+              ("few_heads", (6, 10, 2000, 520, 512), (1999, 0, 31, 32, 2500)))
 MLA_FLASH = (1, 16, 8192, 192, 128)      # B, H, T, q/k hd, v hd: one document's prefill
 MLA_DOCS = (3, 40)                       # distinct documents x tokens (smoke width)
 MLA_SHARED = [0, 1, 2, 0]                # the session's document: rows 0 and 3 share
@@ -3735,14 +3745,16 @@ MLA_TURNS = (3, 5, 8)                    # turns x question tokens x answer toke
 
 def _phase18_mla(timings, flash, torch, np) -> tuple[dict, dict]:
     """Phase 18: latent attention (DeepSeek-V2-Lite).  The absorbed decode
-    kernel against its plain version at the doc-qa cell's step (B 128, S
-    8,256) at ``MLA_POSITIONS``, timed back to back beside its bound (the
-    live latent rows, q and the output at HBM bandwidth); the bf16 flash
-    kernel at MLA's prefill geometry (q/k hd 192, v 128 zero-padded to
-    192) against its plain version; then sessions at smoke width through
-    ``Server.open_batch`` and ``BatchSession.turn``, graphed and eager, each
-    path's counts zeroed just before ``open_batch`` and read after its last
-    turn.  Returns the readings and the kernel's record."""
+    kernel against its plain version at ``MLA_SHAPES`` (the doc-qa cell's
+    step, B 128 and S 8,256, at ``MLA_POSITIONS``; a small batch; fewer
+    heads), two calls bit-equal, each shape timed back to back at its first
+    position beside its bound (the live latent rows, q and the output at
+    HBM bandwidth); the bf16 flash kernel at MLA's prefill geometry (q/k hd
+    192, v 128 zero-padded to 192) against its plain version; then sessions
+    at smoke width through ``Server.open_batch`` and ``BatchSession.turn``,
+    graphed and eager, each path's counts zeroed just before ``open_batch``
+    and read after its last turn.  Returns the readings and the kernel's
+    record."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -3761,41 +3773,48 @@ def _phase18_mla(timings, flash, torch, np) -> tuple[dict, dict]:
     with _phase("18_latent_attention", timings):
         torch.backends.cuda.matmul.allow_tf32 = False
         gen = torch.Generator(device=dev).manual_seed(18)
-        B, H, S, D, V = MLA_DECODE
         scale = softmax_scale(get_config("deepseek-v2-lite"))
-        q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
-        lat = torch.randn((B, S, D), generator=gen, device=dev).to(torch.bfloat16)
-        counted = mla_decode_attention.launches
-        err = 0.0
-        for pos in MLA_POSITIONS:
-            p = torch.tensor(pos, dtype=torch.int32, device=dev)
-            before = mla_decode_attention.launches
-            got = mla_decode_attention(q, lat, p, scale=scale, v_dim=V)
-            again = mla_decode_attention(q, lat, p, scale=scale, v_dim=V)
-            torch.cuda.synchronize()
-            assert mla_decode_attention.launches == before + 2, "mla_decode did not launch"
-            assert torch.equal(got, again), f"pos {pos}: two calls differ"
-            want = torch.cat([mla_decode_torch(q[i:i + 1], lat[i:i + 1], p, scale=scale,
-                                               v_dim=V) for i in range(B)])
-            assert got.dtype == want.dtype and got.shape == (B, H, V)
-            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-            err = max(err, float((got.float() - want.float()).abs().max()))
-        p = torch.tensor(MLA_POSITIONS[0], dtype=torch.int32, device=dev)
-        ms = _back_to_back_ms(lambda: mla_decode_attention(q, lat, p, scale=scale, v_dim=V))
-        n_bytes = (B * (MLA_POSITIONS[0] + 1) * D + B * H * D + B * H * V) * 2
-        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         n_layers = get_config("deepseek-v2-lite").n_layers
-        print(f"   mla_decode at B {B}, H {H}, S {S}, D {D}, v {V}, grid "
-              f"{launch_spec(B, S, D).grid}: held to the plain version at pos "
-              f"{list(MLA_POSITIONS)}, max |kernel - plain| {err:.3e} (bf16 {tol}); at pos "
-              f"{MLA_POSITIONS[0]} {ms:.4f} ms a call back to back, bound {bound_ms:.4f} ms "
-              f"({n_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): "
-              f"{100 * bound_ms / ms:.1f} % of it; x {n_layers} layers "
-              f"{n_layers * ms:.2f} ms of a step")
-        rec.update(max_abs_err=err, device_ms=ms, bound_ms=bound_ms, bound_bytes=n_bytes,
-                   roofline_pct=100 * bound_ms / ms, shape=list(MLA_DECODE))
-        mla_decode_attention.launches = counted        # the check's and the timing's
-        del q, lat, got, again, want
+        counted = mla_decode_attention.launches
+        for label, (B, H, S, D, V), positions in MLA_SHAPES:
+            q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+            lat = torch.randn((B, S, D), generator=gen, device=dev).to(torch.bfloat16)
+            err = 0.0
+            for pos in positions:
+                p = torch.tensor(pos, dtype=torch.int32, device=dev)
+                before = mla_decode_attention.launches
+                got = mla_decode_attention(q, lat, p, scale=scale, v_dim=V)
+                again = mla_decode_attention(q, lat, p, scale=scale, v_dim=V)
+                torch.cuda.synchronize()
+                assert mla_decode_attention.launches == before + 2, "mla_decode did not launch"
+                assert torch.equal(got, again), f"{label}, pos {pos}: two calls differ"
+                want = torch.cat([mla_decode_torch(q[i:i + 1], lat[i:i + 1], p, scale=scale,
+                                                   v_dim=V) for i in range(B)])
+                assert got.dtype == want.dtype and got.shape == (B, H, V)
+                torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+                err = max(err, float((got.float() - want.float()).abs().max()))
+            p = torch.tensor(positions[0], dtype=torch.int32, device=dev)
+            ms = _back_to_back_ms(lambda: mla_decode_attention(q, lat, p, scale=scale, v_dim=V))
+            live = max(min(positions[0], S - 1) + 1, 0)
+            n_bytes = (B * live * D + B * H * D + B * H * V) * 2
+            bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            print(f"   mla_decode {label} at B {B}, H {H}, S {S}, D {D}, v {V}, grid "
+                  f"{launch_spec(B, S, D).grid}: held to the plain version at pos "
+                  f"{list(positions)}, max |kernel - plain| {err:.3e} (bf16 {tol}); at pos "
+                  f"{positions[0]} {ms:.4f} ms a call back to back, bound {bound_ms:.4f} ms "
+                  f"({n_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): "
+                  f"{100 * bound_ms / ms:.1f} % of it"
+                  + (f"; x {n_layers} layers {n_layers * ms:.2f} ms of a step"
+                     if label == "step" else ""))
+            out.setdefault("shapes", {})[label] = dict(
+                shape=[B, H, S, D, V], positions=list(positions), max_abs_err=err,
+                device_ms=ms, bound_ms=bound_ms, roofline_pct=100 * bound_ms / ms)
+            if label == "step":
+                rec.update(max_abs_err=err, device_ms=ms, bound_ms=bound_ms,
+                           bound_bytes=n_bytes, roofline_pct=100 * bound_ms / ms,
+                           shape=[B, H, S, D, V])
+            del q, lat, got, again, want
+        mla_decode_attention.launches = counted        # the checks' and the timings'
 
         # the prefill's flash call: V zero-padded to the q/k head dim
         Bf, Hf, T, hd, dv = MLA_FLASH

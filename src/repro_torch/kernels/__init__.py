@@ -15,9 +15,11 @@
                      known-bad launch fixture, ``csrc/fixture_copy.cu``;
   mla_decode       — absorbed multi-head latent attention for one decode
                      token: 16 heads over one latent cache row of 576,
-                     values its first 512 columns, in one launch,
-                     ``csrc/mla_decode.cu`` (no TPU counterpart: the
-                     reference has no latent attention).
+                     values its first 512 columns, in one launch: a
+                     persistent CTA a SM over an equal share of the
+                     (batch row, tile) work, a producer warp keeping TMA
+                     copies in flight, ``csrc/mla_decode.cu`` (no TPU
+                     counterpart: the reference has no latent attention).
 
 Each is CUDA C++ for sm_90a, built by :mod:`._build` and bound with ctypes,
 and, but for ``mla_decode``, replaces the reference's Pallas kernel of the

@@ -13,39 +13,52 @@
 //
 // What bounds it: bytes.  Each live latent row (1,152 bytes at D 576) is
 // read once for all 16 heads, so the kernel does 16 x (2 D + 2 V) FLOP a
-// row: ~70 FLOP a byte, below the card's ~295, so memory bound.  At
-// DeepSeek-V2-Lite's serving step (B 128, S 8,256, pos ~8,220) one call
-// reads 1.21 GB of rows: 362 us at 3.35 TB/s.  What the design does about
-// it, beside decode_attention.cu's bf16 path, whose shape it keeps:
-//   * one launch a call.  A CTA takes one batch row and a run of the live
-//     slots, and writes one (m, l, acc) partial per head; a counter per
-//     batch row counts the CTAs that are done, and the last merges the
-//     partials in split order (so the result does not depend on which CTA
-//     came last) and sets the counter back to 0 for the next call and the
-//     next replay of a CUDA graph;
-//   * one copy of each row in shared memory.  Tiles of 32 latent rows go
-//     through shared memory with cp.async (16 bytes a thread, neighbours on
-//     neighbouring addresses) into a ring of 2 stages, so the next tile's
-//     loads are in flight while this one is reduced; each staged row is
-//     padded by 16 bytes, so the 8 rows an ldmatrix reads fall in distinct
-//     banks.  The scores read all D columns of the staged rows, P V their
-//     first V: the values cost no second read;
-//   * both products on the tensor cores (mma.sync m16n8k16, fp32 sums): the
-//     H <= 16 heads are the 16 rows of A; warp w scores tile rows 8w ..
-//     8w + 7 over D / 16 k-steps; the softmax runs a lane a row, warp w
-//     taking heads 4w .. 4w + 3; P goes to shared memory as two bf16 parts
-//     (hi + lo: 16 bits of mantissa), each multiplied by the rows' first V
-//     columns, warp w taking every 4th 8 of them;
-//   * a split over the live span, decided on the device from pos; the grid
-//     is sized on the host for the worst case (all S slots live), two CTAs
-//     a SM at D 576 (99 KB of shared memory each), and the CTAs share
-//     whatever span this step has.
-// kernels/mla_decode.py::split_plan is the Python copy of the split.
+// row: ~30 FLOP a byte (~44 counting P's two parts), below the card's ~295.
+// At DeepSeek-V2-Lite's serving step (B 128, S 8,256, pos ~8,220) one call
+// reads 1.21 GB of rows: 362 us at 3.35 TB/s.  To come near that, each SM
+// must keep well over 100 KB of reads in flight while it reduces what has
+// landed, and the reduction must never hold the loads.  The design:
+//   * one persistent CTA a SM, its work balanced.  The live rows of every
+//     batch row are cut into tiles of 32; the B x T tiles, flattened in
+//     (batch row, tile) order, are split into equal runs (+-1 tile), one a
+//     CTA, on the device from pos (a CUDA graph replays the launch with pos
+//     changing).  A CTA's run crosses batch rows: each piece of it in one
+//     row is a segment, with one (m, l, acc) partial per head;
+//   * a producer warp and a ring.  One warp walks the run and, for each
+//     tile, waits for its stage's "empty" mbarrier and issues TMA copies
+//     (cp.async.bulk.tensor) of boxes of 64 columns x 32 rows, 128-byte
+//     swizzled so that the 8 rows an ldmatrix reads fall in distinct banks,
+//     marked to leave L2 first; completion is counted in bytes on the
+//     stage's "full" mbarrier.  At D 576 a stage is 9 boxes (36 KB) and the
+//     ring 6 stages: five tiles, 184 KB, stay in flight while the consumers
+//     reduce the sixth.  A batch row's last, ragged tile is copied on a
+//     side barrier; the producer writes its rows past the span as zeros
+//     before it hands the stage over;
+//   * one consumer warpgroup that never holds the producer.  It waits on
+//     the stage's full barrier and syncs only among its 4 warps (named
+//     barrier 1, twice a tile): scores, each warp over a quarter of the D
+//     columns for all 32 rows (q's fragments held in registers for the
+//     segment, the next k-step's loads in flight), summed across warps in
+//     shared memory in a fixed order; the fp32 online softmax, 8 threads a
+//     head and 4 rows a thread; P as two bf16 parts (hi + lo: 16 bits of
+//     mantissa) times the rows' first V columns on mma.sync (fp32 sums),
+//     warp w taking every 4th 8 columns, the products of 8 of them
+//     interleaved.  Each warp releases the stage on its empty barrier as
+//     soon as both products have read it;
+//   * the merge.  A counter per batch row counts its segments as they end;
+//     the CTA that ends the last merges the row's partials in segment order
+//     (so the result does not depend on which CTA came last: two calls are
+//     bit-equal) and sets the counter back to 0 for the next call and the
+//     next replay.  Partials are indexed by batch row + CTA, unique and in
+//     segment order along each row.
+// kernels/mla_decode.py::split_plan and merge_plan are the Python copy of
+// the split.
 //
 // Plain C interface for ctypes: the function launches on the given stream,
 // does not synchronise and returns cudaGetLastError() (or
 // cudaErrorInvalidValue on arguments the kernel does not take).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,71 +69,106 @@ namespace {
 
 using T = __nv_bfloat16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 32;        // latent rows per stage: one per lane
-constexpr int kStages = 2;
+constexpr int kConsumerWarps = 4;                      // one warpgroup
+constexpr int kConsumers = kConsumerWarps * 32;
+constexpr int kThreads = kConsumers + 32;              // and the producer warp
+constexpr int kTile = 32;        // latent rows a stage
+constexpr int kBox = 64;         // columns a TMA box: 128 bytes, one swizzle span
+constexpr int kBoxBytes = kTile * kBox * 2;            // 4 KB: 32 rows of 128 bytes
+constexpr int kMinStages = 3;
+constexpr int kMaxStages = 8;
 constexpr int kMaxH = 16;        // query heads: an mma tile's rows
 constexpr int kMaxD = 576;       // a latent row's width
 constexpr int kMaxV = 512;       // value columns
-constexpr int kKSteps = kMaxD / 16;            // score k-steps at most
-constexpr int kNTiles = kMaxV / 8 / kWarps;    // n8 tiles of V a warp at most
-constexpr int kMaxSplits = 32;
-constexpr int kMergeChunk = 16;  // splits the merge loads in one round trip
+constexpr int kKsWarp = (kMaxD / 16 + kConsumerWarps - 1) / kConsumerWarps;  // 9
+constexpr int kNTiles = kMaxV / 8 / kConsumerWarps;   // n8 tiles of V a warp at most
+constexpr int kPvGroup = 8;      // n8 tiles whose P V products interleave
+constexpr int kMaxSplits = 32;   // CTAs a batch row at most: the grid is <= 32 B
+constexpr int kMaxSegs = kMaxSplits + 1;               // segments a batch row
+constexpr int kMergeItems = kMaxH * kMaxV / 4 / kConsumers;  // float4s a thread
 constexpr int kMaxDevices = 64;
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPld = 40;  // bf16 a row of probabilities: 80 bytes, no conflicts
-constexpr int kScratchBytes = 16 * kTile * 4 + 2 * 16 * kPld * 2 + 16 * 4;
+// Shared memory past the ring: the warps' partial scores (4 x 16 x 32 fp32,
+// columns XOR-swizzled; the merge's m, l, weights and sums reuse it), the
+// probabilities as two bf16 parts (2 x 16 x kPld), rescale factors (16),
+// full and empty mbarriers a stage and one for a ragged tile's copy, a flag.
+constexpr int kPartBytes = kConsumerWarps * kMaxH * 32 * 4;
+constexpr int kFixedBytes =
+    kPartBytes + 2 * kMaxH * kPld * 2 + kMaxH * 4 + (2 * kMaxStages + 1) * 8 + 8;
+static_assert((2 * kMaxSegs + 1) * kMaxH * 4 <= kPartBytes, "the merge's m, l and sums fit");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, bypassing L1; bytes 0 fills the 16 with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+// Wait until the barrier's phase with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+// one box (kBox columns x 32 rows of batch row c2) global -> shared, 128-byte
+// swizzled, zeros past the tensor's bounds, counted on bar's transactions;
+// policy marks the lines first to go from L2 (each row is read once)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "l"(policy)
+      : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_u32(p)));
+// The byte offset, inside a stage, of the 16 bytes at (tile row r, columns
+// 8 c8 .. 8 c8 + 7): box c8 / 8, row r's 128 bytes, chunk c8 % 8 swizzled
+// by the row (TMA's 128-byte swizzle over a 1024-byte aligned box), so the
+// 8 rows one ldmatrix reads fall in distinct banks.
+__device__ __forceinline__ uint32_t swz(int r, int c8) {
+  return (uint32_t)((c8 >> 3) * kBoxBytes + r * 128 + (((c8 & 7) ^ (r & 7)) << 4));
 }
 
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_u32(p)));
+// the consumer warpgroup's own barrier: the producer never waits on it
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // c += a b: A 16 x 16 bf16 (row), B 16 x 8 bf16 (col), C 16 x 8 fp32
@@ -133,6 +181,24 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// max and sum over the 8 lanes of a softmax group (lanes 8i .. 8i + 7)
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(T lo, T hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
 struct Args {
   const T* q;
   const T* lat;
@@ -142,260 +208,399 @@ struct Args {
   float* part_acc;
   int32_t* counters;
   T* out;
-  int B, H, S, D, V, n_splits;
+  int B, H, S, D, V, smem_bytes;
   float scale;
 };
 
-// a staged row: D elements and one 16-byte chunk of zeros
-__host__ __device__ constexpr int row_ld(int D) { return D + 8; }
-
-// Shared memory of a CTA: kStages stages of 32 latent rows, 16 rows of q
-// (zeros past H), then the tile's scratch: scores (16 x 32 fp32),
-// probabilities as two bf16 parts (2 x 16 x kPld) and rescale factors (16).
-int smem_need(int D) {
-  return (kStages * kTile + kMaxH) * row_ld(D) * (int)sizeof(T) + kScratchBytes;
+// a stage: the boxes of 32 rows that cover D columns (zeros past D)
+__host__ __device__ constexpr int stage_bytes(int D) {
+  return (D + kBox - 1) / kBox * kBoxBytes;
 }
 
-__global__ void __launch_bounds__(kThreads) mla_decode_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int is_last;
+// the CTA whose run holds flattened tile f, when G CTAs split W tiles
+__device__ __forceinline__ int cta_of(int64_t f, int G, int64_t W) {
+  return static_cast<int>(((f + 1) * G - 1) / W);
+}
 
-  const int n_splits = gridDim.x, split = blockIdx.x, b = blockIdx.y;
+__global__ void __launch_bounds__(kThreads, 1)
+    mla_decode_kernel(const __grid_constant__ CUtensorMap tm, const Args a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+
   const int H = a.H, S = a.S, D = a.D, V = a.V;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int ld = row_ld(D);
-  const int C = D / 8;  // 16-byte chunks of a row
-  const int n_ks = (D + 15) / 16, n_nt = V / 8;
-
-  T* ls = reinterpret_cast<T*>(smem);
-  T* q_smem = ls + kStages * kTile * ld;
-  float* s_s = reinterpret_cast<float*>(q_smem + kMaxH * ld);  // 16 x 32
-  T* s_p = reinterpret_cast<T*>(s_s + 16 * kTile);             // 2 x 16 x kPld
-  float* s_corr = reinterpret_cast<float*>(s_p + 2 * 16 * kPld);  // 16
 
   const int pos = *a.pos;
   const int n = max(min(pos, S - 1) + 1, 0);  // live slots 0 .. n - 1
-  const int n_tiles = (n + kTile - 1) / kTile;
-  const int t_beg = split * n_tiles / n_splits;
-  const int t_end = (split + 1) * n_tiles / n_splits;
-  const T* lb = a.lat + (int64_t)b * S * D;
+  const int n_tiles = (n + kTile - 1) / kTile;  // tiles a batch row
+  const int64_t W = (int64_t)a.B * n_tiles;      // tiles in all
+  if (W == 0) {  // no slot seen: every output is 0, as the merge would give
+    const int64_t total = (int64_t)a.B * H * V;
+    for (int64_t i = (int64_t)blockIdx.x * kThreads + tid; i < total;
+         i += (int64_t)gridDim.x * kThreads)
+      a.out[i] = __float2bfloat16(0.f);
+    return;
+  }
+  // fewer tiles than CTAs: only the first W CTAs work, one tile each, so
+  // every working CTA's run is non-empty and a row's CTAs are consecutive
+  const int G = (int)min((int64_t)gridDim.x, W), cta = blockIdx.x;
+  if (cta >= G) return;
+  const int64_t f_beg = cta * W / G, f_end = (cta + 1) * W / G;
 
-  // Tile t holds slots 32 t .. 32 t + 31; rows past the span are zeros.
-  auto load_tile = [=](int tile, int stage) {
-    const int j0 = tile * kTile;
-    const int rows = min(kTile, n - j0);
-    T* dst = ls + stage * kTile * ld;
-    for (int i = tid; i < kTile * C; i += kThreads) {
-      const int r = i / C;
-      const int c = i - r * C;
-      const int64_t off = r < rows ? (int64_t)(j0 + r) * D + c * 8 : 0;
-      cp_async16(dst + r * ld + c * 8, lb + off, r < rows ? 16 : 0);
+  // The ring starts at the first 1024-byte boundary (the swizzle's period);
+  // as many stages as fit the rest beside the fixed part.
+  const uint32_t base = smem_u32(smem);
+  const uint32_t pad = ((base + 1023u) & ~1023u) - base;
+  const int n_boxes = (D + kBox - 1) / kBox, st_bytes = stage_bytes(D);
+  const int NS = min(kMaxStages, (a.smem_bytes - kFixedBytes - (int)pad) / st_bytes);
+  const uint32_t ring = base + pad;
+  unsigned char* fixed = smem + pad + NS * st_bytes;
+  float* s_part = reinterpret_cast<float*>(fixed);              // 4 x 16 x 32
+  T* s_p = reinterpret_cast<T*>(fixed + kPartBytes);            // 2 x 16 x kPld
+  float* s_corr = reinterpret_cast<float*>(s_p + 2 * kMaxH * kPld);  // 16
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_corr + kMaxH);
+  int* s_last = reinterpret_cast<int*>(bars + 2 * kMaxStages + 1);
+  // the merge reuses s_part: kMaxSegs x 16 m's (then weights), as many l's,
+  // 16 sums
+  float* s_w = s_part;
+  float* s_l = s_part + kMaxSegs * kMaxH;
+  float* s_sum = s_l + kMaxSegs * kMaxH;
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kMaxStages;
+  const uint32_t ragged_bar = empty0 + 8 * kMaxStages;
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);                 // the producer's arrival
+      mbar_init(empty0 + 8 * s, kConsumerWarps);   // one arrival a consumer warp
     }
-  };
-  // the rows' padding chunks stay zero (the last k-step of 16 columns
-  // reaches into it where D is not a multiple of 16)
-  for (int r = tid; r < kStages * kTile; r += kThreads)
-    *reinterpret_cast<uint4*>(ls + r * ld + D) = make_uint4(0u, 0u, 0u, 0u);
-
-#pragma unroll
-  for (int k = 0; k < kStages - 1; ++k) {
-    if (t_beg + k < t_end) load_tile(t_beg + k, k);
-    cp_async_commit();
+    mbar_init(ragged_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // q's loads wait while the first tiles' are in flight
-  const T* qb = a.q + (int64_t)b * H * D;
-  for (int i = tid; i < kMaxH * (ld / 8); i += kThreads) {
-    const int r = i / (ld / 8), c = i - r * (ld / 8);
-    *reinterpret_cast<uint4*>(q_smem + r * ld + c * 8) =
-        r < H && c < C ? __ldg(reinterpret_cast<const uint4*>(qb + r * D + c * 8))
-                       : make_uint4(0u, 0u, 0u, 0u);
-  }
-  float o[kNTiles][4];  // O's fragments: heads grp, grp + 8; the warp's n8 tiles
-#pragma unroll
-  for (int j = 0; j < kNTiles; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[4], lsum[4];  // the softmax warp's 4 heads
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    lsum[i] = 0.f;
-  }
-  // ldmatrix addresses: A rows (lanes 0-15 rows 0-15 at column 0, lanes
-  // 16-31 at column 8); B rows of the scores (tile rows 8w .. 8w + 7,
-  // lanes 8-15 the next 8 columns); the P V k-steps' rows
-  const T* qrow = q_smem + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
-  const int brow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  __syncthreads();
 
-  for (int t = t_beg; t < t_end; ++t) {
-    const int k = t - t_beg;
-    const int stage = k % kStages;
-    if (t + kStages - 1 < t_end) load_tile(t + kStages - 1, (k + kStages - 1) % kStages);
-    cp_async_commit();
-    // this tile's group is done; the next kStages - 1 stay in flight
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-    const T* kt = ls + stage * kTile * ld;
-
-    // S = Q R^T for tile rows 8w .. 8w + 7 over all D columns
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    const T* krow = kt + (8 * warp + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
-#pragma unroll 4
-    for (int ks = 0; ks < kKSteps; ++ks) {
-      if (ks < n_ks) {
-        uint32_t qa[4], b0, b1;
-        ldsm_x4(qa, qrow + ks * 16);
-        ldsm_x2(b0, b1, krow + ks * 16);
-        mma_bf16(c, qa, b0, b1);
+  if (warp == kConsumerWarps) {
+    // ------------------------------------------------------------ producer
+    int b = (int)(f_beg / n_tiles), t = (int)(f_beg - (int64_t)b * n_tiles);
+    int s = 0, round = 0, ragged_phase = 0;
+    uint64_t evict_first;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(evict_first));
+    for (int64_t f = f_beg; f < f_end; ++f) {
+      if (round > 0) mbar_wait(empty0 + 8 * s, (round - 1) & 1);
+      const int rows = min(kTile, n - t * kTile);
+      const uint32_t dst = ring + s * st_bytes, full = full0 + 8 * s;
+      if (rows == kTile) {
+        if (lane == 0) {
+          mbar_expect_tx(full, st_bytes);
+          for (int k = 0; k < n_boxes; ++k)
+            tma_load_3d(dst + k * kBoxBytes, &tm, full, k * kBox, t * kTile, b, evict_first);
+        }
+      } else {
+        // A batch row's last, ragged tile: its rows past the span hold
+        // whatever the cache holds there (or TMA's zeros past S), so the
+        // producer waits for the copy and writes them as zeros before it
+        // hands the stage over: P V, whose probabilities there are 0, must
+        // not meet a NaN.
+        if (lane == 0) {
+          mbar_expect_tx(ragged_bar, st_bytes);
+          for (int k = 0; k < n_boxes; ++k)
+            tma_load_3d(dst + k * kBoxBytes, &tm, ragged_bar, k * kBox, t * kTile, b,
+                        evict_first);
+        }
+        mbar_wait(ragged_bar, ragged_phase);
+        ragged_phase ^= 1;
+        if (lane >= rows)
+          for (int k = 0; k < n_boxes; ++k)
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(
+                               dst + k * kBoxBytes + lane * 128 + c * 16),
+                           "r"(0u)
+                           : "memory");
+        // the zeros are generic writes that later copies overwrite
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full);
+      }
+      if (++t == n_tiles) {
+        t = 0;
+        ++b;
+      }
+      if (++s == NS) {
+        s = 0;
+        ++round;
       }
     }
-    const int col = 8 * warp + 2 * tig;
-    s_s[grp * kTile + col] = c[0];
-    s_s[grp * kTile + col + 1] = c[1];
-    s_s[(grp + 8) * kTile + col] = c[2];
-    s_s[(grp + 8) * kTile + col + 1] = c[3];
-    __syncthreads();
+    return;
+  }
 
-    // softmax of heads 4w .. 4w + 3 over the tile, a lane a row; a head with
-    // no live slot in the tile keeps m and gets p = 0, corr = 1
-    const bool ok = t * kTile + lane < n;
+  // -------------------------------------------------------------- consumers
+  const int grp = lane >> 2, tig = lane & 3;
+  const int n_ks = (D + 15) / 16;
+  const int ks0 = warp * n_ks / kConsumerWarps, ks1 = (warp + 1) * n_ks / kConsumerWarps;
+  const int n_nt = V / 8;
+  const int hh = tid >> 3, r4 = (tid & 7) * 4;  // softmax: head hh, rows r4 .. r4 + 3
+  // ldmatrix rows: the scores' B (tile rows 0-15, lanes 8-15 and 24-31 the
+  // next 8 columns); P's A (heads 0-15, lanes 16-31 the next 8 columns)
+  const int krow = (lane >> 4) * 8 + (lane & 7), khalf = (lane >> 3) & 1;
+  const uint32_t pa0 = smem_u32(s_p) +
+                       (((lane & 7) + ((lane >> 3) & 1) * 8) * kPld + (lane >> 4) * 8) * 2;
+  // the partial scores of head h, column c sit at h * 32 + (c ^ 8 (h & 3)):
+  // a warp's float2 stores and a quarter-warp's float4 loads hit 32 banks
+  float* sp_mine = s_part + warp * kMaxH * 32;
+
+  int s = 0, round = 0;
+  int64_t f = f_beg;
+  while (f < f_end) {
+    const int b = (int)(f / n_tiles);
+    const int64_t seg_end = min(f_end, (int64_t)(b + 1) * n_tiles);
+
+    // q's fragments for this warp's k-steps (zeros past H and D)
+    uint32_t qf[kKsWarp][4];
+    const T* qb = a.q + (int64_t)b * H * D;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int g = 4 * warp + i;
-      float p = 0.f, corr = 1.f;
-      if (g < H) {  // the same for the whole warp
-        const float s = s_s[g * kTile + lane] * a.scale;
-        const float mx = warp_max(ok ? s : kNeg);
-        if (mx > kNeg) {
-          const float m_new = fmaxf(m[i], mx);
-          corr = expf(m[i] - m_new);
-          p = ok ? expf(s - m_new) : 0.f;
-          lsum[i] = lsum[i] * corr + p;
-          m[i] = m_new;
-        }
+    for (int i = 0; i < kKsWarp; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int h = grp + 8 * (r & 1), col = (ks0 + i) * 16 + 2 * tig + 8 * (r >> 1);
+        qf[i][r] = ks0 + i < ks1 && h < H && col < D
+                       ? __ldg(reinterpret_cast<const unsigned int*>(qb + h * D + col))
+                       : 0u;
+      }
+    float o[kNTiles][4];  // O's fragments: heads grp, grp + 8; the warp's n8 tiles
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    float m = kNeg, lsum = 0.f;  // head hh, over this thread's rows
+
+    for (; f < seg_end; ++f) {
+      mbar_wait(full0 + 8 * s, round & 1);
+      const uint32_t kt = ring + s * st_bytes;
+      const int j0 = (int)(f - (int64_t)b * n_tiles) * kTile;
+
+      // this warp's share of S = Q R^T: its k-steps, all 32 tile rows.  No
+      // branch, so that the loads run a k-step ahead of the products: a
+      // k-step past the warp's share has q's fragments 0 and reads a column
+      // inside the stage
+      float c[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+      uint32_t kb[2][8];  // B fragments of two k-steps: rows 0-15, 16-31
+      auto load_k = [&](uint32_t* r, int i) {
+        const int c8 = 2 * min(ks0 + i, n_ks - 1) + khalf;
+        ldsm_x4(r, kt + swz(krow, c8));
+        ldsm_x4(r + 4, kt + swz(krow + 16, c8));
+      };
+      load_k(kb[0], 0);
+#pragma unroll
+      for (int i = 0; i < kKsWarp; ++i) {
+        if (i + 1 < kKsWarp) load_k(kb[(i + 1) & 1], i + 1);
+        const uint32_t* r = kb[i & 1];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(c[nt], qf[i], r[2 * nt], r[2 * nt + 1]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = (8 * nt + 2 * tig) ^ (8 * (grp & 3));
+        *reinterpret_cast<float2*>(sp_mine + grp * 32 + col) = make_float2(c[nt][0], c[nt][1]);
+        *reinterpret_cast<float2*>(sp_mine + (grp + 8) * 32 + col) =
+            make_float2(c[nt][2], c[nt][3]);
+      }
+      consumers_sync();
+
+      // softmax of head hh over rows r4 .. r4 + 3: the warps' parts summed in
+      // warp order; a head with no live slot in the tile (or past H) keeps
+      // m and gets p = 0, corr = 1
+      const int my_col = r4 ^ (8 * (hh & 3));
+      float sc[4];
+      {
+        const float4 v = *reinterpret_cast<const float4*>(s_part + hh * 32 + my_col);
+        sc[0] = v.x, sc[1] = v.y, sc[2] = v.z, sc[3] = v.w;
+      }
+#pragma unroll
+      for (int w = 1; w < kConsumerWarps; ++w) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(s_part + (w * kMaxH + hh) * 32 + my_col);
+        sc[0] += v.x, sc[1] += v.y, sc[2] += v.z, sc[3] += v.w;
+      }
+      bool ok[4];
+      float mx = kNeg;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ok[i] = hh < H && j0 + r4 + i < n;
+        sc[i] *= a.scale;
+        mx = fmaxf(mx, ok[i] ? sc[i] : kNeg);
+      }
+      mx = group_max(mx);
+      float p[4] = {0.f, 0.f, 0.f, 0.f}, corr = 1.f;
+      if (mx > kNeg) {  // the same for the 8 lanes of the head
+        const float m_new = fmaxf(m, mx);
+        corr = expf(m - m_new);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[i] = ok[i] ? expf(sc[i] - m_new) : 0.f;
+        lsum = lsum * corr + ((p[0] + p[1]) + (p[2] + p[3]));
+        m = m_new;
       }
       // p = hi + lo in two bf16 parts (to 2^-16 of p)
-      const T hi = __float2bfloat16(p);
-      s_p[g * kPld + lane] = hi;
-      s_p[(16 + g) * kPld + lane] = __float2bfloat16(p - __bfloat162float(hi));
-      if (lane == 0) s_corr[g] = corr;
-    }
-    __syncthreads();
+      T hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hi[i] = __float2bfloat16(p[i]);
+        lo[i] = __float2bfloat16(p[i] - __bfloat162float(hi[i]));
+      }
+      *reinterpret_cast<uint2*>(s_p + hh * kPld + r4) =
+          make_uint2(pack_bf16(hi[0], hi[1]), pack_bf16(hi[2], hi[3]));
+      *reinterpret_cast<uint2*>(s_p + (kMaxH + hh) * kPld + r4) =
+          make_uint2(pack_bf16(lo[0], lo[1]), pack_bf16(lo[2], lo[3]));
+      if (r4 == 0) s_corr[hh] = corr;
+      consumers_sync();
 
-    // O = O corr + (P_hi + P_lo) R[:, :V] over the tile's 32 rows
-    uint32_t pa[2][2][4];  // [part][k-step]
+      // O = O corr + (P_hi + P_lo) R[:, :V] over the tile's 32 rows
+      uint32_t pa[2][2][4];  // [part][k-step]
 #pragma unroll
-    for (int part = 0; part < 2; ++part)
+      for (int part = 0; part < 2; ++part)
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-        ldsm_x4(pa[part][kk], s_p + (16 * part + brow) * kPld + kk * 16 + (lane >> 4) * 8);
-    const float c_lo = s_corr[grp], c_hi = s_corr[grp + 8];
-    const T* vrow = kt + brow * ld;
+        for (int kk = 0; kk < 2; ++kk)
+          ldsm_x4(pa[part][kk], pa0 + (part * kMaxH * kPld + kk * 16) * 2);
+      const float c_lo = s_corr[grp], c_hi = s_corr[grp + 8];
+      // the warp's n8 tiles in groups, each product of a group issued for
+      // every tile of it before the next, so the chains on O interleave; a
+      // tile past V repeats the last (its O is never written).  ldmatrix.trans
+      // rows: tile rows 0-31, a lane each.
+#pragma unroll
+      for (int g = 0; g < kNTiles; g += kPvGroup) {
+        uint32_t vb[kPvGroup][4];  // k-step 0: rows 0-15; k-step 1: rows 16-31
+#pragma unroll
+        for (int jj = 0; jj < kPvGroup; ++jj)
+          ldsm_x4_trans(vb[jj],
+                        kt + swz(lane, min(warp + kConsumerWarps * (g + jj), n_nt - 1)));
+#pragma unroll
+        for (int jj = 0; jj < kPvGroup; ++jj) {
+          o[g + jj][0] *= c_lo;
+          o[g + jj][1] *= c_lo;
+          o[g + jj][2] *= c_hi;
+          o[g + jj][3] *= c_hi;
+        }
+#pragma unroll
+        for (int step = 0; step < 4; ++step)  // (k-step, part): hi then lo
+#pragma unroll
+          for (int jj = 0; jj < kPvGroup; ++jj)
+            mma_bf16(o[g + jj], pa[step & 1][step >> 1], vb[jj][2 * (step >> 1)],
+                     vb[jj][2 * (step >> 1) + 1]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is read
+      if (++s == NS) {
+        s = 0;
+        ++round;
+      }
+    }
+
+    // this segment's partial for each head, at slot b + cta
+    const int64_t row0 = ((int64_t)b + cta) * H;
+    const float l = group_sum(lsum);
+    if (hh < H && r4 == 0) {
+      a.part_m[row0 + hh] = m;
+      a.part_l[row0 + hh] = l;
+    }
 #pragma unroll
     for (int j = 0; j < kNTiles; ++j) {
-      const int nt = warp + kWarps * j;
+      const int nt = warp + kConsumerWarps * j;
       if (nt < n_nt) {
-        o[j][0] *= c_lo;
-        o[j][1] *= c_lo;
-        o[j][2] *= c_hi;
-        o[j][3] *= c_hi;
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          uint32_t b0, b1;
-          ldsm_x2_trans(b0, b1, vrow + kk * 16 * ld + nt * 8);
-          mma_bf16(o[j], pa[0][kk], b0, b1);
-          mma_bf16(o[j], pa[1][kk], b0, b1);
-        }
+        const int d = nt * 8 + 2 * tig;
+        if (grp < H)
+          *reinterpret_cast<float2*>(a.part_acc + (row0 + grp) * V + d) =
+              make_float2(o[j][0], o[j][1]);
+        if (grp + 8 < H)
+          *reinterpret_cast<float2*>(a.part_acc + (row0 + grp + 8) * V + d) =
+              make_float2(o[j][2], o[j][3]);
       }
     }
-    __syncthreads();  // the stage and the scratch are read
-  }
+    __threadfence();
+    consumers_sync();
+    // the row's segments: CTAs c_first .. c_last, partial slots b + c
+    const int c_first = cta_of((int64_t)b * n_tiles, G, W);
+    const int n_seg = cta_of((int64_t)(b + 1) * n_tiles - 1, G, W) - c_first + 1;
+    if (tid == 0) *s_last = atomicAdd(a.counters + b, 1) == n_seg - 1;
+    consumers_sync();
+    if (!*s_last) continue;
 
-  // this CTA's partial for each head: m, l and acc (m = -1e30, l = 0 and
-  // acc = 0 where it saw no slot)
-  const int64_t row0 = (int64_t)b * H;
+    // The last CTA of this batch row merges its partials in segment order:
+    // out = sum_i acc_i e^(m_i - M) / max(sum_i l_i e^(m_i - M), 1e-30).
+    __threadfence();
+    if (tid == 0) a.counters[b] = 0;  // every segment of this call has counted
+    // The segments' m and l come to shared memory in one round trip; the
+    // weights e^(m_i - M) replace the m's there.
+    const int64_t seg0 = (int64_t)b + c_first;
+    for (int i = tid; i < n_seg * H; i += kConsumers) {
+      const int seg = i / H, g = i - seg * H;
+      s_w[seg * kMaxH + g] = __ldcg(a.part_m + seg0 * H + i);
+      s_l[seg * kMaxH + g] = __ldcg(a.part_l + seg0 * H + i);
+    }
+    consumers_sync();
+    if (tid < H) {
+      float M = kNeg;
+      for (int i = 0; i < n_seg; ++i) M = fmaxf(M, s_w[i * kMaxH + tid]);
+      float L = 0.f;
+      for (int i = 0; i < n_seg; ++i) {
+        const float cm = expf(s_w[i * kMaxH + tid] - M);
+        L += s_l[i * kMaxH + tid] * cm;
+        s_w[i * kMaxH + tid] = cm;
+      }
+      s_sum[tid] = fmaxf(L, 1e-30f);
+    }
+    consumers_sync();
+    // a thread takes kMergeItems float4s of the row's output, item k at
+    // tid + 128 k, and loads all of a segment's before it sums them (no
+    // branch: an item past H V / 4 repeats the last and is not written)
+    const int q4 = V / 4, n_items = H * q4;
+    float4 acc[kMergeItems];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int g = 4 * warp + i;
-    if (g < H) {
-      const float l = warp_sum(lsum[i]);
-      if (lane == 0) {
-        a.part_m[(row0 + g) * n_splits + split] = m[i];
-        a.part_l[(row0 + g) * n_splits + split] = l;
+    for (int k = 0; k < kMergeItems; ++k) acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = 0; i < n_seg; ++i) {
+      const float4* px = reinterpret_cast<const float4*>(a.part_acc + (seg0 + i) * H * V);
+#pragma unroll
+      for (int k = 0; k < kMergeItems; ++k) {
+        const int idx = min(tid + k * kConsumers, n_items - 1);
+        const float cm = s_w[i * kMaxH + idx / q4];
+        const float4 x = __ldcg(px + idx);
+        acc[k].x = fmaf(x.x, cm, acc[k].x);
+        acc[k].y = fmaf(x.y, cm, acc[k].y);
+        acc[k].z = fmaf(x.z, cm, acc[k].z);
+        acc[k].w = fmaf(x.w, cm, acc[k].w);
       }
     }
-  }
 #pragma unroll
-  for (int j = 0; j < kNTiles; ++j) {
-    const int nt = warp + kWarps * j;
-    if (nt < n_nt) {
-      const int d = nt * 8 + 2 * tig;
-      if (grp < H)
-        *reinterpret_cast<float2*>(a.part_acc + ((row0 + grp) * n_splits + split) * V + d) =
-            make_float2(o[j][0], o[j][1]);
-      if (grp + 8 < H)
-        *reinterpret_cast<float2*>(a.part_acc +
-                                   ((row0 + grp + 8) * n_splits + split) * V + d) =
-            make_float2(o[j][2], o[j][3]);
+    for (int k = 0; k < kMergeItems; ++k) {
+      const int idx = tid + k * kConsumers;
+      if (idx < n_items) {
+        const float L = s_sum[idx / q4];
+        uint2 u;
+        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+        h2[0] = __floats2bfloat162_rn(acc[k].x / L, acc[k].y / L);
+        h2[1] = __floats2bfloat162_rn(acc[k].z / L, acc[k].w / L);
+        *reinterpret_cast<uint2*>(a.out + (int64_t)b * H * V + (int64_t)idx * 4) = u;
+      }
     }
+    consumers_sync();  // s_w and s_sum are read before the next scores land there
   }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(a.counters + b, 1) == n_splits - 1;
-  __syncthreads();
-  if (!is_last) return;
+}
 
-  // The last CTA of this batch row merges the partials in split order:
-  // out = sum_i acc_i e^(m_i - M) / max(sum_i l_i e^(m_i - M), 1e-30).  A
-  // thread takes 4 elements of one head's output and loads the m, l and acc
-  // of up to kMergeChunk splits in one round trip before it sums them.
-  __threadfence();
-  if (tid == 0) a.counters[b] = 0;  // every CTA of this call has counted
-  const int q4 = V / 4;
-  for (int idx = tid; idx < H * q4; idx += kThreads) {
-    const int g = idx / q4;
-    const int c4 = idx - g * q4;
-    const int64_t r0 = (row0 + g) * n_splits;
-    const float* pm = a.part_m + r0;
-    const float* pl = a.part_l + r0;
-    const float4* px = reinterpret_cast<const float4*>(a.part_acc + r0 * V) + c4;
-    float mi[kMergeChunk], li[kMergeChunk];
-    float4 xi[kMergeChunk];
-    auto load = [&](int i0) {
-#pragma unroll
-      for (int i = 0; i < kMergeChunk; ++i) {
-        const bool in = i0 + i < n_splits;
-        mi[i] = in ? __ldcg(pm + i0 + i) : kNeg;
-        li[i] = in ? __ldcg(pl + i0 + i) : 0.f;
-        xi[i] = in ? __ldcg(px + (int64_t)(i0 + i) * q4) : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    };
-    load(0);
-    float M = kNeg;
-#pragma unroll
-    for (int i = 0; i < kMergeChunk; ++i) M = fmaxf(M, mi[i]);
-#pragma unroll 8
-    for (int i = kMergeChunk; i < n_splits; ++i) M = fmaxf(M, __ldcg(pm + i));
-    float L = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int i0 = 0; i0 < n_splits; i0 += kMergeChunk) {
-      if (i0 > 0) load(i0);
-#pragma unroll
-      for (int i = 0; i < kMergeChunk; ++i) {
-        if (i0 + i >= n_splits) break;
-        const float cm = expf(mi[i] - M);
-        L += li[i] * cm;
-        acc[0] = fmaf(xi[i].x, cm, acc[0]);
-        acc[1] = fmaf(xi[i].y, cm, acc[1]);
-        acc[2] = fmaf(xi[i].z, cm, acc[2]);
-        acc[3] = fmaf(xi[i].w, cm, acc[3]);
-      }
-    }
-    L = fmaxf(L, 1e-30f);
-    uint2 u;
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
-    h2[0] = __floats2bfloat162_rn(acc[0] / L, acc[1] / L);
-    h2[1] = __floats2bfloat162_rn(acc[2] / L, acc[3] / L);
-    *reinterpret_cast<uint2*>(a.out + (row0 + g) * V + c4 * 4) = u;
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                     12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -403,20 +608,36 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 }  // namespace
 
 // q (B, H, D), lat (B, S, D) and out (B, H, V) bf16; pos a 0-dim int32 on
-// the device.  part_m and part_l hold B*H*n_splits floats, part_acc that
-// times V, counters B int32 that are 0 before the call and 0 after it:
-// scratch the caller owns.
+// the device.  n_splits is the grid: CTAs, at most 32 a batch row.
+// part_m and part_l hold (B + n_splits) * H floats, part_acc that times V,
+// counters B int32 that are 0 before the call and 0 after it: scratch the
+// caller owns.  smem_bytes sizes the ring: as many stages (up to 8) as fit
+// beside the fixed part, at least 3 wherever the block's shared memory
+// starts.
 extern "C" int mla_decode_bf16(const void* q, const void* lat, const void* pos,
                                void* part_m, void* part_l, void* part_acc,
                                void* counters, void* out, int B, int H, int S, int D,
                                int V, float scale, int n_splits, int smem_bytes,
                                void* stream) {
   if (H < 1 || H > kMaxH || D <= 0 || D % 8 != 0 || D > kMaxD || V <= 0 || V % 8 != 0 ||
-      V > kMaxV || V > D || n_splits < 1 || n_splits > kMaxSplits ||
-      smem_bytes < smem_need(D) || !aligned16(q) || !aligned16(lat) || !aligned16(out) ||
-      !aligned16(part_acc))
+      V > kMaxV || V > D || n_splits < 1 || (int64_t)n_splits > (int64_t)kMaxSplits * B ||
+      (smem_bytes - kFixedBytes - 1008) / stage_bytes(D) < kMinStages || !aligned16(q) ||
+      !aligned16(lat) || !aligned16(out) || !aligned16(part_acc))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return (int)cudaGetLastError();
+  // the latent cache as (D, S, B), boxes of 64 columns x 32 rows of one
+  // batch row, 128-byte swizzle, zeros past D and S
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInvalidValue;
+  CUtensorMap tm;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {kBox, kTile, 1}, unit[3] = {1, 1, 1};
+  if (encode(&tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(lat), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
   // The dynamic shared-memory limit is set once per device, and again only
   // when a launch needs more than was set, never while a CUDA graph is being
   // captured after a first call.
@@ -439,8 +660,8 @@ extern "C" int mla_decode_bf16(const void* q, const void* lat, const void* pos,
                static_cast<const int32_t*>(pos), static_cast<float*>(part_m),
                static_cast<float*>(part_l), static_cast<float*>(part_acc),
                static_cast<int32_t*>(counters), static_cast<T*>(out), B, H, S, D, V,
-               n_splits, scale};
-  const dim3 grid((unsigned)n_splits, (unsigned)B);
-  mla_decode_kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
+               smem_bytes, scale};
+  mla_decode_kernel<<<n_splits, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      tm, a);
   return (int)cudaGetLastError();
 }

@@ -10,13 +10,16 @@ DeepSeek-V2-Lite), scores taken over all D columns and values the first
 ``v_dim`` = R columns of the same rows.  q (B, H, D) and the latent cache
 (B, S, D) in bf16; slots 0 .. ``pos`` are seen (a full cache; ``pos`` a
 0-dim int32 on the device); fp32 softmax; the output (B, H, v_dim) is rounded
-once.  It is one launch a call: CTAs share the live span, and the last CTA
-of a batch row merges their partials (the source says why).
+once.  It is one launch a call: one persistent CTA a SM walks an equal run
+of the flattened (batch row, 32-slot tile) work, a producer warp keeping a
+ring of TMA copies in flight, and the last CTA of a batch row merges its
+segments' partials (the source says why).
 
-:func:`launch_spec` sizes the split; :func:`split_plan` is the Python copy
-of the slots each CTA reads, so the CPU tests can hold it to the mask.
-:func:`mla_decode_torch` is the plain PyTorch version: what the CPU path
-runs and what the kernel is held to on the card.
+:func:`launch_spec` sizes the grid and the ring; :func:`split_plan` and
+:func:`merge_plan` are the Python copy of the tiles each CTA reads and of
+the partials each batch row merges, so the CPU tests can hold them to the
+mask.  :func:`mla_decode_torch` is the plain PyTorch version: what the CPU
+path runs and what the kernel is held to on the card.
 """
 
 from __future__ import annotations
@@ -26,23 +29,26 @@ import functools
 
 import torch
 
-from ._build import LaunchSpec, check, launch, load
+from ._build import MAX_SMEM_BYTES, LaunchSpec, check, launch, load
 
-__all__ = ["launch_spec", "mla_decode_cuda", "mla_decode_torch", "split_plan"]
+__all__ = ["launch_spec", "merge_plan", "mla_decode_cuda", "mla_decode_torch",
+           "split_plan"]
 
-WARPS = 4
-TILE = 32           # latent rows per shared-memory stage
-STAGES = 2
+CONSUMER_WARPS = 4  # one warpgroup reduces; one more warp issues the copies
+TILE = 32           # latent rows a ring stage
+BOX = 64            # columns a TMA box (128 bytes, the swizzle's span)
+MIN_STAGES = 3
+MAX_STAGES = 8
 MAX_H = 16          # query heads: the rows of the mma tile
 MAX_D = 576         # the latent row's width the kernel takes at most
 MAX_V = 512         # the value columns at most
-MAX_SPLITS = 32
+MAX_SPLITS = 32     # CTAs a batch row at most (so at most 33 segments a row)
 SMS = 132
-SM_SMEM = 233_472
-BLOCK_RESERVED = 1024
-#: scores (16 x 32 fp32), probabilities in two bf16 parts (2 x 16 x 40) and
-#: rescale factors (16 fp32)
-SCRATCH_BYTES = 16 * TILE * 4 + 2 * 16 * 40 * 2 + 16 * 4
+#: past the ring: partial scores (4 warps x 16 x 32 fp32), probabilities in
+#: two bf16 parts (2 x 16 x 40), rescale factors (16 fp32), 2 x 8 + 1
+#: mbarriers and a flag
+FIXED_BYTES = (CONSUMER_WARPS * MAX_H * 32 * 4 + 2 * MAX_H * 40 * 2 + MAX_H * 4
+               + (2 * MAX_STAGES + 1) * 8 + 8)
 _NEG = -1e30
 
 _ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
@@ -50,48 +56,89 @@ _ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
 _SIGNATURES = {"mla_decode_bf16": _ARGS}
 
 
-def _smem_bytes(D: int) -> int:
-    """The stages of 32 latent rows and 16 rows of q (zeros past H), each
-    padded by one 16-byte chunk, and the tile's scratch (``smem_need`` in
-    the source)."""
-    return (STAGES * TILE + MAX_H) * (D + 8) * 2 + SCRATCH_BYTES
+def _stage_bytes(D: int) -> int:
+    """One ring stage: the TMA boxes of 64 columns x 32 rows (4 KB each)
+    that cover a latent row's D columns."""
+    return -(-D // BOX) * TILE * BOX * 2
+
+
+def stages(D: int) -> int:
+    """Ring stages at width D: as many as fit a block's shared memory beside
+    the fixed part, at most 8 (6 at D 576).  The kernel counts them again
+    from where its shared memory starts: one fewer if that is not on a
+    1,024-byte boundary."""
+    return min(MAX_STAGES, (MAX_SMEM_BYTES - FIXED_BYTES) // _stage_bytes(D))
 
 
 @functools.lru_cache(maxsize=256)
 def launch_spec(B: int, S: int, D: int) -> LaunchSpec:
-    """Grid (splits, B) of 128-thread CTAs, sized for the worst case (all S
-    slots live): as many CTAs as stay resident on the card's 132 SMs at once
-    (two a SM at D 576), at most one per 32-slot tile and at most 32."""
-    smem = _smem_bytes(D)
-    resident = SMS * max(1, SM_SMEM // (smem + BLOCK_RESERVED))
+    """One 160-thread CTA a SM (its ring fills the SM's shared memory), as
+    many as the card has SMs, at most 32 a batch row and one a 32-slot tile
+    of the worst case (all S slots live).  The split itself is decided on
+    the device from ``pos`` (:func:`split_plan`)."""
     n_tiles = -(-S // TILE)
-    n_splits = max(1, min(MAX_SPLITS, n_tiles, resident // max(1, B)))
-    return LaunchSpec(grid=(n_splits, B, 1), block=(WARPS * 32, 1, 1), smem_bytes=smem)
+    ctas = max(1, min(SMS, B * min(MAX_SPLITS, n_tiles)))
+    smem = stages(D) * _stage_bytes(D) + FIXED_BYTES
+    return LaunchSpec(grid=(ctas, 1, 1), block=((CONSUMER_WARPS + 1) * 32, 1, 1),
+                      smem_bytes=smem)
 
 
-def split_plan(pos: int, S: int, n_splits: int) -> list[list[int]]:
-    """The slots each CTA of one batch row reads at ``pos``: slots 0 ..
-    min(pos, S - 1) in tiles of 32, CTA c taking tiles [c T // n, (c + 1) T
-    // n) of the T tiles."""
+def _work(pos: int, B: int, S: int, n_ctas: int) -> tuple[int, int, int, int]:
+    """(live slots n, tiles a batch row T, tiles in all W, working CTAs G)."""
     n = max(min(pos, S - 1) + 1, 0)
-    n_tiles = -(-n // TILE)
-    return [list(range(c * n_tiles // n_splits * TILE,
-                       min(n, (c + 1) * n_tiles // n_splits * TILE)))
-            for c in range(n_splits)]
+    T = -(-n // TILE)
+    W = B * T
+    return n, T, W, min(n_ctas, W)
 
 
-# (device index, B, H, v_dim, n_splits) -> (part_m, part_l, part_acc, counters)
+def split_plan(pos: int, B: int, S: int, n_ctas: int) -> list[list[tuple[int, int, int]]]:
+    """Each CTA's segments at ``pos``: (batch row, first slot, end slot).
+    Slots 0 .. min(pos, S - 1) of every batch row in tiles of 32, the B x T
+    tiles flattened row by row; of G = min(n_ctas, B T) working CTAs, CTA c
+    takes flattened tiles [c W // G, (c + 1) W // G), cut where a batch row
+    ends; CTAs from G on take none."""
+    n, T, W, G = _work(pos, B, S, n_ctas)
+    plan: list[list[tuple[int, int, int]]] = []
+    for c in range(n_ctas):
+        segs = []
+        f, end = (c * W // G, (c + 1) * W // G) if c < G else (0, 0)
+        while f < end:
+            b = f // T
+            stop = min(end, (b + 1) * T)
+            segs.append((b, (f - b * T) * TILE, min(n, (stop - b * T) * TILE)))
+            f = stop
+        plan.append(segs)
+    return plan
+
+
+def merge_plan(pos: int, B: int, S: int, n_ctas: int) -> list[range]:
+    """The partial slots each batch row merges, in segment order: CTA c's
+    segment of row b writes slot b + c, and row b's CTAs run from the one
+    holding its first tile to the one holding its last (``cta_of`` in the
+    source).  Empty where no slot is live."""
+    n, T, W, G = _work(pos, B, S, n_ctas)
+    if W == 0:
+        return [range(0) for _ in range(B)]
+
+    def cta_of(f: int) -> int:
+        return ((f + 1) * G - 1) // W
+
+    return [range(b + cta_of(b * T), b + cta_of((b + 1) * T - 1) + 1) for b in range(B)]
+
+
+# (device index, B, H, v_dim, n_ctas) -> (part_m, part_l, part_acc, counters)
 _SCRATCH: dict[tuple, tuple[torch.Tensor, ...]] = {}
 
 
-def _scratch(device: torch.device, B: int, H: int, v_dim: int, n_splits: int):
+def _scratch(device: torch.device, B: int, H: int, v_dim: int, n_ctas: int):
     """The partials and merge counters of one shape on one device, made once
-    and never freed or moved (a captured call keeps its pointers); the
-    counters start at 0 and the kernel leaves them at 0."""
-    key = (device.index, B, H, v_dim, n_splits)
+    and never freed or moved (a captured call keeps its pointers): B + n_ctas
+    partial slots (:func:`merge_plan`) of H heads; the counters start at 0
+    and the kernel leaves them at 0."""
+    key = (device.index, B, H, v_dim, n_ctas)
     bufs = _SCRATCH.get(key)
     if bufs is None:
-        rows = B * H * n_splits
+        rows = (B + n_ctas) * H
         f32 = dict(dtype=torch.float32, device=device)
         bufs = _SCRATCH.setdefault(key, (
             torch.empty(rows, **f32), torch.empty(rows, **f32),
@@ -106,13 +153,13 @@ def mla_decode_cuda(q: torch.Tensor, latent: torch.Tensor, pos: torch.Tensor, *,
     Callers go through :func:`repro_torch.kernels.mla_decode_attention`."""
     B, H, D = q.shape
     S = latent.shape[1]
-    n_splits = spec.grid[0]
+    n_ctas = spec.grid[0]
     out = torch.empty((B, H, v_dim), dtype=q.dtype, device=q.device)
-    part_m, part_l, part_acc, counters = _scratch(q.device, B, H, v_dim, n_splits)
+    part_m, part_l, part_acc, counters = _scratch(q.device, B, H, v_dim, n_ctas)
     fn = load("mla_decode", _SIGNATURES).mla_decode_bf16
     args = (q.data_ptr(), latent.data_ptr(), pos.data_ptr(), part_m.data_ptr(),
             part_l.data_ptr(), part_acc.data_ptr(), counters.data_ptr(), out.data_ptr(),
-            B, H, S, D, v_dim, scale, n_splits, spec.smem_bytes)
+            B, H, S, D, v_dim, scale, n_ctas, spec.smem_bytes)
     check(launch(fn, args, q.device), "mla_decode")
     return out
 

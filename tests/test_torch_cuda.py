@@ -787,6 +787,34 @@ def test_mla_decode_kernel_matches_its_twin_on_the_card(cuda_device, B, S, pos):
 
 
 @pytest.mark.cuda
+def test_mla_decode_call_captured_in_a_graph_replays_at_advancing_positions(cuda_device):
+    # the CTAs' runs, the ragged last tile and each row's segments follow
+    # pos, read on the device, and the merge counters are back at 0 after
+    # every replay: replays across a tile's edge (8,191 | 8,192), at the
+    # cache's end, past it and back at the start, each held to the twin
+    from repro_torch.kernels import mla_decode_attention
+    from repro_torch.kernels.mla_decode import mla_decode_torch
+
+    B, S = 128, 8256
+    g = torch.Generator(device=cuda_device).manual_seed(33)
+    q = torch.randn((B, 16, 576), generator=g, device=cuda_device).to(torch.bfloat16)
+    lat = torch.randn((B, S, 576), generator=g, device=cuda_device).to(torch.bfloat16)
+    p = torch.tensor(0, dtype=torch.int32, device=cuda_device)
+    mla_decode_attention(q, lat, p, scale=0.11, v_dim=512)       # build
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mla_decode_attention(q, lat, p, scale=0.11, v_dim=512)
+    for pos in (8191, 8192, 8223, 8255, 9000, 31, 0):
+        p.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = torch.cat([mla_decode_torch(q[i:i + 1], lat[i:i + 1], p, scale=0.11,
+                                           v_dim=512) for i in range(B)])
+        torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
 def test_mla_sessions_replay_the_kernel_and_count_its_launches(cuda_device):
     from repro_torch.configs import get_config
     from repro_torch.kernels import mla_decode_attention

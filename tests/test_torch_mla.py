@@ -18,7 +18,9 @@ import torch
 
 from repro_torch.configs import ARCHS, PORT_ARCHS, get_config
 from repro_torch.kernels import mla_decode_attention, ops
-from repro_torch.kernels.mla_decode import launch_spec, mla_decode_torch, split_plan
+from repro_torch.kernels import mla_decode as mla_kernel
+from repro_torch.kernels.mla_decode import (launch_spec, merge_plan, mla_decode_torch,
+                                          split_plan)
 from repro_torch.models import mla, weights
 from repro_torch.models.config import refuse_mla
 from repro_torch.obs import observe
@@ -131,15 +133,93 @@ def test_the_plain_twin_matches_the_non_absorbed_attention():
 @pytest.mark.parametrize("pos,S,n", [(0, 8256, 2), (8255, 8256, 2), (100, 8256, 32),
                                      (40, 33, 32)])
 def test_the_split_covers_the_live_span_once(pos, S, n):
-    plan = split_plan(pos, S, n)
-    flat = [s for part in plan for s in part]
+    # one batch row: the CTAs' segments, in CTA order, are its live slots
+    plan = split_plan(pos, 1, S, n)
+    flat = [s for segs in plan for b, first, end in segs for s in range(first, end)]
     assert flat == list(range(min(pos, S - 1) + 1))
+    assert all(b == 0 for segs in plan for b, _, _ in segs)
 
 
-def test_the_launch_fits_two_ctas_a_sm_at_the_cells_shape():
+def test_the_launch_is_one_cta_a_sm_with_its_ring_in_shared_memory():
     spec = launch_spec(128, 8256, 576)
-    assert spec.grid == (2, 128, 1) and spec.smem_bytes <= 233_472 // 2 - 1024
-    assert launch_spec(4, 8256, 576).grid[0] == 32
+    assert spec.grid == (mla_kernel.SMS, 1, 1) and spec.block == (160, 1, 1)
+    # the ring fills a block's shared memory, so a SM holds one CTA
+    assert 233_472 // 2 - 1024 < spec.smem_bytes <= 232_448
+    n_stages, stage = mla_kernel.stages(576), 9 * 32 * 64 * 2   # 9 TMA boxes a stage
+    assert n_stages == 6 and spec.smem_bytes == n_stages * stage + mla_kernel.FIXED_BYTES
+    # one stage fewer where shared memory does not start on the swizzle's
+    # 1,024-byte period, still well over the least
+    assert (spec.smem_bytes - mla_kernel.FIXED_BYTES - 1008) // stage == 5 > mla_kernel.MIN_STAGES
+    # the tiles in flight while one is reduced: at least 128 KB of rows
+    assert (n_stages - 1) * 32 * 576 * 2 >= 128 * 1024
+    assert launch_spec(4, 8256, 576).grid[0] == 128       # 32 CTAs a batch row
+    assert launch_spec(1, 40, 576).grid[0] == 2           # one a tile at most
+
+
+@pytest.mark.parametrize("pos", [0, 31, 32, 8255, 9000])
+@pytest.mark.parametrize("B", [1, 4, 128, 200])
+def test_the_balanced_split_reads_every_live_slot_once(B, pos):
+    S = 8256
+    n_ctas = launch_spec(B, S, 576).grid[0]
+    n = min(pos, S - 1) + 1
+    plan = split_plan(pos, B, S, n_ctas)
+    assert len(plan) == n_ctas
+    seen = np.zeros((B, S), dtype=np.int64)
+    tiles = []
+    for segs in plan:
+        for b, first, end in segs:
+            assert first % 32 == 0 and first < end <= n
+            seen[b, first:end] += 1
+        tiles.append(sum(-(-(end - first) // 32) for _, first, end in segs))
+    assert (seen[:, :n] == 1).all() and (seen[:, n:] == 0).all()
+    # the flattened (row, tile) work is split evenly: no CTA takes more than
+    # one tile above the mean
+    assert sum(tiles) == B * -(-n // 32)
+    assert max(tiles) <= sum(tiles) / n_ctas + 1
+    # CTA c's segment of row b writes partial slot b + c; each row merges its
+    # segments' slots in CTA order, the range merge_plan gives (cta_of in the
+    # source), at most 33 of them; no two segments share a slot
+    merges = merge_plan(pos, B, S, n_ctas)
+    slots = [[] for _ in range(B)]
+    for c, segs in enumerate(plan):
+        for b, _, _ in segs:
+            slots[b].append(b + c)
+    assert [list(r) for r in merges] == slots
+    assert max(len(r) for r in merges) <= mla_kernel.MAX_SPLITS + 1
+    every = [s for r in merges for s in r]
+    assert len(set(every)) == len(every) and max(every) < B + n_ctas
+
+
+@pytest.mark.parametrize("B,H,S,pos,n_ctas", [(3, 4, 100, 99, 7), (3, 4, 100, 40, 7),
+                                              (2, 3, 70, 500, 16), (5, 2, 64, 0, 9),
+                                              (1, 4, 96, 95, 2)])
+def test_merging_the_segments_partials_gives_the_plain_twin(B, H, S, pos, n_ctas):
+    # the kernel's arithmetic in fp32 on the CPU: each CTA's segments reduced
+    # tile by tile with an online softmax into (m, l, acc) at slot b + c,
+    # then each row's slots merged in merge_plan's order
+    D, V, scale = 24, 16, 0.3
+    g = torch.Generator().manual_seed(B * 100 + pos)
+    q, lat = torch.randn(B, H, D, generator=g), torch.randn(B, S, D, generator=g)
+    part = {}
+    for c, segs in enumerate(split_plan(pos, B, S, n_ctas)):
+        for b, first, end in segs:
+            m, l, acc = torch.full((H,), -1e30), torch.zeros(H), torch.zeros(H, V)
+            for j in range(first, end, 32):
+                rows = lat[b, j:min(end, j + 32)]
+                s = (q[b] @ rows.T) * scale
+                m_new = torch.maximum(m, s.amax(-1))
+                corr, p = torch.exp(m - m_new), torch.exp(s - m_new[:, None])
+                l, acc, m = l * corr + p.sum(-1), acc * corr[:, None] + p @ rows[:, :V], m_new
+            part[b + c] = (m, l, acc)
+    got = torch.zeros(B, H, V)
+    for b, slots in enumerate(merge_plan(pos, B, S, n_ctas)):
+        if slots:
+            M = torch.stack([part[i][0] for i in slots]).amax(0)
+            L = sum(part[i][1] * torch.exp(part[i][0] - M) for i in slots)
+            acc = sum(part[i][2] * torch.exp(part[i][0] - M)[:, None] for i in slots)
+            got[b] = acc / L[:, None]
+    want = mla_decode_torch(q, lat, torch.tensor(pos, dtype=torch.int32), scale=scale, v_dim=V)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_the_kernel_wrapper_is_replayed_by_the_decode_graph():

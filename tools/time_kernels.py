@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's ``seg_combine``, ``fixture_copy`` and fp32
-``flash_attention`` through their public wrappers, at ``chip_smoke.py``'s
-phase 1, 9 and 7 shapes, so that two checkouts of the port can be compared
-on one card.
+"""Time the port's ``seg_combine``, ``fixture_copy``, fp32
+``flash_attention`` and ``mla_decode`` through their public wrappers, at
+``chip_smoke.py``'s phase 1, 9, 7 and 18 shapes, so that two checkouts of
+the port can be compared on one card.
 
     python3 tools/time_kernels.py                  # this checkout
     python3 tools/time_kernels.py --src DIR/src    # the port under DIR/src
@@ -21,13 +21,17 @@ unsorted words (values ones); ``fixture_copy`` at (16384, 4096) in (16, 512)
 tiles, beside ``Tensor.copy_``; ``flash_attention`` in fp32 (TF32 off) at
 ``FLASH_MAIN``, ``FLASH_E2E``, ``FLASH_ENCODER`` and ``FLASH_DEEPSEEK``
 (wrapper ms, device ms back to back, and max |kernel - plain|, held at
-1e-5).  Needs a CUDA card.
+1e-5); ``mla_decode`` at ``MLA_SHAPES`` (max |kernel - plain| over each
+shape's positions, held at bf16's 2e-2, two calls bit-equal; device ms a
+call at the first position, the median of 3 back-to-back windows, beside
+the bound: live rows, q and the output at 3.35 TB/s).  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -44,9 +48,13 @@ def _run(src: str) -> dict:
     import torch
 
     import repro_torch
+    from repro_torch.configs import get_config
     from repro_torch.core.hadoop.params import HadoopParams
-    from repro_torch.kernels import fixture_copy, flash_attention, seg_combine
+    from repro_torch.kernels import (fixture_copy, flash_attention, mla_decode_attention,
+                                     seg_combine)
     from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.kernels.mla_decode import mla_decode_torch
+    from repro_torch.models.mla import softmax_scale
     from repro_torch.mapreduce import JOBS, make_input
 
     if not torch.cuda.is_available():
@@ -106,6 +114,30 @@ def _run(src: str) -> dict:
         dev_ms, ops, _ = cs._device_profile(fn, 10)
         out[label] = dict(ms=ms, device_ms=dev_ms, device_ops=ops,
                           back_to_back_ms=b2b)
+    del x, o
+    gen = torch.Generator(device=dev).manual_seed(18)
+    scale = softmax_scale(get_config("deepseek-v2-lite"))
+    for label, (B, H, S, D, V), positions in cs.MLA_SHAPES:
+        q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        lat = torch.randn((B, S, D), generator=gen, device=dev).to(torch.bfloat16)
+        err = 0.0
+        for pos in positions:
+            p = torch.tensor(pos, dtype=torch.int32, device=dev)
+            got = mla_decode_attention(q, lat, p, scale=scale, v_dim=V)
+            assert torch.equal(got, mla_decode_attention(q, lat, p, scale=scale, v_dim=V))
+            want = torch.cat([mla_decode_torch(q[i:i + 1], lat[i:i + 1], p, scale=scale,
+                                               v_dim=V) for i in range(B)])
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        assert err <= cs.ATTN_TOL["bfloat16"], (label, err)
+        p = torch.tensor(positions[0], dtype=torch.int32, device=dev)
+        ms = statistics.median(cs._back_to_back_ms(
+            lambda: mla_decode_attention(q, lat, p, scale=scale, v_dim=V)) for _ in range(3))
+        live = max(min(positions[0], S - 1) + 1, 0)
+        bound_ms = (B * live * D + B * H * D + B * H * V) * 2 / cs.HBM_BYTES_PER_S * 1e3
+        out[f"mla_decode_{label}"] = dict(device_ms=ms, bound_ms=bound_ms,
+                                          roofline_pct=100 * bound_ms / ms, max_abs_err=err)
+        del q, lat, got, want
+        torch.cuda.empty_cache()
     return out
 
 
