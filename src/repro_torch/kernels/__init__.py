@@ -25,7 +25,12 @@ Each is CUDA C++ for sm_90a, built by :mod:`._build` and bound with ctypes,
 and, but for ``mla_decode``, replaces the reference's Pallas kernel of the
 same name (``fixture_copy``: the one in ``repro/analysis/fixtures.py``).  Each has its
 launcher and plain PyTorch version (``<name>.py``) and a checked, counted
-public wrapper (``ops.py``).
+public wrapper (``ops.py``).  The PTX wrappers and host helpers that several
+sources share (``cp.async``, mbarriers, TMA, ``ldmatrix``, ``mma.sync``,
+lane reductions, the shared-memory limit, tensor-map encoding) live once, in
+``csrc/hopper.cuh``.  Every launcher makes its one C call through
+``_build.launch``, on PyTorch's current stream; the kernels that merge
+partials on the device keep them in ``_build.scratch``.
 """
 
 from .ops import (fixture_copy, flash_attention, gqa_decode_attention,

@@ -1,18 +1,22 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one source ``csrc/<name>.cu`` with a plain C interface.  It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library and loaded with
-``ctypes``, at first use, into ``build/repro_torch/`` at the root of the
-checkout.  The library's name carries a hash of the source and the flags, so
-a fresh checkout builds each kernel once, in seconds, and an edited source
-builds anew.  :func:`build` compiles several sources at once, one ``nvcc``
-process each, all started together.
+Each kernel is one source ``csrc/<name>.cu`` with a plain C interface.  The
+PTX wrappers and host helpers that several sources share live in one header,
+``csrc/hopper.cuh``.  A source is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library and loaded with ``ctypes``, at first use, into
+``build/repro_torch/`` at the root of the checkout.  The library's name
+carries a hash of the source, of every ``csrc/*.cuh`` and of the flags, so a
+fresh checkout builds each kernel once, in seconds, and an edited source or
+header builds anew.  :func:`build` compiles several sources at once, one
+``nvcc`` process each, all started together.
 
-Every launcher returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a non-zero code into an exception.  A tiled kernel's
-launch geometry is a :class:`LaunchSpec`, computed in Python from the shapes
-(so the CPU tests reach it) and checked against the card's shared-memory
-limit before the launch.
+Every C launcher is called through :func:`launch`, on PyTorch's current
+stream, and returns ``cudaGetLastError()`` after its launch; :func:`check`
+turns a non-zero code into an exception.  A tiled kernel's launch geometry is
+a :class:`LaunchSpec`, computed in Python from the shapes (so the CPU tests
+reach it) and checked against the card's shared-memory limit before the
+launch.  A kernel that merges partials on the device keeps them in
+:func:`scratch`.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["MAX_SMEM_BYTES", "LaunchSpec", "build", "check", "launch", "load"]
+__all__ = ["MAX_SMEM_BYTES", "LaunchSpec", "build", "check", "launch", "load",
+           "scratch"]
 
 #: shared memory one block may have on an H100 (227 KB of the SM's 256 KB)
 MAX_SMEM_BYTES = 232_448
@@ -38,6 +43,7 @@ _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xptxas=-v", "-cudart", "shared", "-shared", "-Xcompiler", "-fPIC"]
 _LIBS: dict[str, ctypes.CDLL] = {}
+_SCRATCH: dict[tuple, tuple] = {}
 
 
 @dataclass(frozen=True)
@@ -70,8 +76,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[Path, Path]:
+    """The source of ``name`` and its library, named for a hash of the
+    source, every header beside it and the flags."""
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(_FLAGS).encode())
     return src, _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -131,6 +142,28 @@ def launch(fn, args: tuple, device) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
     with torch.cuda.device(index):
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def scratch(device, key: tuple, rows: int, width: int, counters: int) -> tuple:
+    """The scratch of a kernel that merges per-CTA partials on the device:
+    fp32 ``m`` and ``l`` (rows,), fp32 ``acc`` (rows, width) and ``counters``
+    int32 zeros, which the kernel leaves at 0 after every call.
+
+    The buffers are made once per (device, ``key``) and are never freed or
+    moved, so that a CUDA graph that captured a launch keeps valid pointers.
+    One stream at a time: two calls of one key in flight on two streams
+    would share them."""
+    import torch
+
+    k = (device.index, *key)
+    bufs = _SCRATCH.get(k)
+    if bufs is None:
+        f32 = dict(dtype=torch.float32, device=device)
+        bufs = _SCRATCH.setdefault(k, (
+            torch.empty(rows, **f32), torch.empty(rows, **f32),
+            torch.empty((rows, width), **f32),
+            torch.zeros(counters, dtype=torch.int32, device=device)))
+    return bufs
 
 
 def check(err: int, what: str) -> None:

@@ -62,12 +62,9 @@
 // not synchronise and return cudaGetLastError() (or cudaErrorInvalidValue on
 // arguments the kernel does not take).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
 
-#include <mutex>
+#include "hopper.cuh"
 
 namespace {
 
@@ -78,9 +75,7 @@ constexpr int kStages = 2;
 constexpr int kMaxG = 16;         // heads of a kv group: an mma tile's rows
 constexpr int kMaxSplits = 32;
 constexpr int kMergeChunk = 16;  // splits the merge loads in one round trip
-constexpr int kMaxDevices = 64;
 constexpr float kNeg = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
 
 // the cache layout a call declares (decode_attention.py::LAYOUTS)
 constexpr int kAnyLayout = 0;    // no layout: split over all S slots
@@ -125,42 +120,10 @@ struct Elt<float> {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; bytes 0 fills the 16 with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)),
                "l"(src)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
 }
 
 __device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
@@ -173,22 +136,6 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const 
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r0), "=r"(r1)
                : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a b: A 16 x 16 bf16 (row), B 16 x 8 bf16 (col), C 16 x 8 fp32
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One step of the transposing butterfly over a lane's 2W row sums: keep the
@@ -355,7 +302,7 @@ struct SimtHeads {
       }
       butterflies<kTile>(part, lane);
       const float s = in.score(part[0]);
-      const float mx = warp_max(ok ? s : kNeg);
+      const float mx = xor_reduce<32>(ok ? s : kNeg, Max{});
       if (mx <= kNeg) continue;  // no live slot in the tile
       const float m_new = fmaxf(m[h], mx);
       const float corr = expf(m[h] - m_new);
@@ -397,7 +344,7 @@ struct SimtHeads {
     for (int h = 0; h < HPW; ++h) {
       const int g = warp + kWarps * h;
       if (g >= G) break;
-      const float l = warp_sum(lsum[h]);
+      const float l = xor_reduce<32>(lsum[h], Sum{});
       const int64_t row = (row_base + g) * n_splits + split;
       if (lane == 0) {
         a.part_m[row] = m[h];
@@ -478,7 +425,7 @@ struct MmaHeads {
     for (int ks = 0; ks < 16; ++ks) {
       if (ks < n_ks) {
         uint32_t qa[4], b0, b1;
-        ldsm_x4(qa, qrow + ks * 16);
+        ldsm_x4(qa, smem_u32(qrow + ks * 16));
         ldsm_x2(b0, b1, krow + ks * 16);
         mma_bf16(c, qa, b0, b1);
       }
@@ -498,7 +445,7 @@ struct MmaHeads {
       float p = 0.f, corr = 1.f;
       if (g < G) {  // the same for the whole warp
         const float s = in.score(s_s[g * kTile + lane]);
-        const float mx = warp_max(ok ? s : kNeg);
+        const float mx = xor_reduce<32>(ok ? s : kNeg, Max{});
         if (mx > kNeg) {
           const float m_new = fmaxf(m[i], mx);
           corr = expf(m[i] - m_new);
@@ -521,8 +468,9 @@ struct MmaHeads {
     for (int part = 0; part < 2; ++part)
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
-        ldsm_x4(pa[part][kk], s_p + (16 * part + (lane & 7) + ((lane >> 3) & 1) * 8) * kPld +
-                                  kk * 16 + (lane >> 4) * 8);
+        ldsm_x4(pa[part][kk],
+                smem_u32(s_p + (16 * part + (lane & 7) + ((lane >> 3) & 1) * 8) * kPld +
+                         kk * 16 + (lane >> 4) * 8));
     const float c_lo = s_corr[grp], c_hi = s_corr[grp + 8];
     const T* vrow = vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld;
 #pragma unroll
@@ -551,7 +499,7 @@ struct MmaHeads {
     for (int i = 0; i < 4; ++i) {
       const int g = 4 * warp + i;
       if (g < G) {  // the same for the whole warp
-        const float l = warp_sum(lsum[i]);
+        const float l = xor_reduce<32>(lsum[i], Sum{});
         if (lane == 0) {
           a.part_m[(row_base + g) * n_splits + split] = m[i];
           a.part_l[(row_base + g) * n_splits + split] = l;
@@ -738,24 +686,8 @@ int smem_need(int hd, int G) {
 template <typename T, typename Heads>
 int launch(const Args& a, int smem_bytes, cudaStream_t stream) {
   auto kern = decode_attention_kernel<T, Heads>;
-  // The dynamic shared-memory limit is set once per device and instance, and
-  // again only when a launch needs more than was set, never while a CUDA
-  // graph is being captured after a first call.
-  static std::mutex smem_mutex;
-  static int smem_set[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  {
-    std::lock_guard<std::mutex> lock(smem_mutex);
-    if (smem_set[device] < smem_bytes) {
-      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem_bytes);
-      if (err != cudaSuccess) return (int)err;
-      smem_set[device] = smem_bytes;
-    }
-  }
+  const int err = set_smem_limit((const void*)kern, smem_bytes);
+  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)a.n_splits, (unsigned)a.KV, (unsigned)a.B);
   kern<<<grid, kThreads, smem_bytes, stream>>>(a);
   return (int)cudaGetLastError();
@@ -768,8 +700,6 @@ int simt_by_heads(const Args& a, int smem_bytes, cudaStream_t stream) {
     return launch<float, SimtHeads<float, NCH, 2>>(a, smem_bytes, stream);
   return launch<float, SimtHeads<float, NCH, 4>>(a, smem_bytes, stream);
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename T>
 int dispatch(const Args& a, int smem_bytes, void* stream) {

@@ -89,14 +89,12 @@
 // cudaErrorInvalidValue for arguments the kernel does not take (too few
 // shared-memory bytes, a head dim it does not take, misaligned inputs).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
 
 // The CTA for head dims up to HD: 8 warps; kSplit warps share 16 rows, each
 // taking 1 / kSplit of a tile's keys in S and of the head dims in P V.
@@ -131,25 +129,6 @@ __host__ __device__ constexpr int smem_bytes_for(int hd) {
   return (T::kRows * ld_qk(hd) + 2 * T::kKeys * (ld_qk(hd) + ld_v<HD>()) +
           exchange_floats<HD>()) * (int)sizeof(float);
 }
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; bytes 0 fills the 16 with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // x = big + small to ~2^-22 of x, both TF32 rounded to nearest, ties away
 // (cvt.rna.tf32.f32's rounding): big adds half a TF32 ulp to the magnitude
@@ -168,16 +147,6 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, ui
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
-  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(kFull, v, 1);
-  return v + __shfl_xor_sync(kFull, v, 2);
 }
 
 struct Args {
@@ -394,7 +363,7 @@ flash_attention_kernel(const Args a) {
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) mx[r] = quad_max(mx[r]);
+      for (int r = 0; r < 2; ++r) mx[r] = xor_reduce<4, true>(mx[r], Max{});
       if (kSplit > 1) {  // the row max over the group's warps
         if (t == 0) {
           stat[part * 16 + g] = mx[0];
@@ -498,7 +467,7 @@ flash_attention_kernel(const Args a) {
 
   float inv[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+  for (int r = 0; r < 2; ++r) l[r] = xor_reduce<4, true>(l[r], Sum{});
   if (kSplit > 1) {  // each warp summed its own keys
     if (t == 0) {
       stat[part * 16 + g] = l[0];
@@ -533,9 +502,8 @@ template <int HD>
 int launch(const Args& a, int B, int smem_bytes, cudaStream_t stream) {
   if (smem_bytes < smem_bytes_for<HD>(a.hd)) return (int)cudaErrorInvalidValue;
   auto kern = flash_attention_kernel<HD>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (e != cudaSuccess) return (int)e;
+  const int err = set_smem_limit((const void*)kern, smem_bytes);
+  if (err != cudaSuccess) return err;
   const int rows = a.Sq * (a.H / a.KV);
   dim3 grid((unsigned)((rows + Tile<HD>::kRows - 1) / Tile<HD>::kRows), (unsigned)a.KV,
             (unsigned)B);
@@ -551,8 +519,8 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    int Sk, int hd, float scale, int causal,
                                    int window, float cap, int q_offset,
                                    int k_len, int smem_bytes, void* stream) {
-  if (hd <= 0 || hd % 8 != 0 || hd > 256 || KV <= 0 || H % KV != 0 ||
-      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15))
+  if (hd <= 0 || hd % 8 != 0 || hd > 256 || KV <= 0 || H % KV != 0 || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v))
     return (int)cudaErrorInvalidValue;
   if (Sq == 0 || B == 0) return (int)cudaGetLastError();
   const Args a{(const float*)q, (const float*)k, (const float*)v, (float*)out,

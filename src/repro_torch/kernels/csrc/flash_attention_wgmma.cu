@@ -59,12 +59,7 @@
 // does not synchronise and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <mutex>
+#include "hopper.cuh"
 
 namespace {
 
@@ -73,47 +68,11 @@ constexpr int kRowsWG = 64;               // rows per consumer warpgroup
 constexpr int kConsumers = 2;             // consumer warpgroups per CTA
 constexpr int kThreads = (kConsumers + 1) * 128;
 constexpr int kMaxStages = 4;
-constexpr int kMaxDevices = 64;           // cards whose shared-memory limit is tracked
 constexpr int kBox = 64;                  // head dims per TMA box: 128 bytes
 constexpr int kBoxBytes = 64 * 128;       // one box of 64 rows (or keys)
 constexpr float kNeg = -1e30f;
 
 static_assert(kBlockN * 128 == kBoxBytes, "K/V boxes are 64 keys");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase with the given parity has completed.  (No
-// __trap() on a timeout here: a trap path makes ptxas drop the consumers'
-// setmaxnreg budget, and the kernel then spills at hd 256.)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1, int c2,
@@ -123,15 +82,6 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -166,11 +116,6 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // D (64 x 64, fp32) (+)= A (64 x 16, smem, K-major) * B (16 x 64, smem, K-major)
@@ -307,8 +252,7 @@ __device__ __forceinline__ void softmax_tile(float* s, float* o, float* m, float
     float mx = kNeg;
 #pragma unroll
     for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = xor_reduce<4, true>(mx, Max{});
     const float m_new = fmaxf(m[r], mx);
     corr[r] = exp2f(m[r] - m_new);
     m[r] = m_new;
@@ -330,7 +274,8 @@ __device__ __forceinline__ void softmax_tile(float* s, float* o, float* m, float
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int x = 0; x < 4; ++x) pf[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+    for (int x = 0; x < 4; ++x)
+      pf[kk][x] = pack_bf16_rn(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
 }
 
 template <int HDP>
@@ -476,10 +421,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // Epilogue: the full row sums, then out = O / l (0 for a row with no
     // visible key), the first hd columns of the rows that exist.
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    }
+    for (int r = 0; r < 2; ++r) l[r] = xor_reduce<4, true>(l[r], Sum{});
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (qrow[r] >= Sq) continue;
@@ -494,26 +436,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   }
-}
-
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                                     12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A bf16 tensor map with 128-byte swizzle and zero fill out of bounds.
@@ -549,23 +471,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
       !make_map(&tm_v, v, 3, kv_dims, kv_strides, kv_box))
     return (int)cudaErrorInvalidValue;
   auto kern = flash_attention_wgmma_kernel<HDP>;
-  // The dynamic shared-memory limit is set once per device and instance, and
-  // again only when a launch needs more than was set.
-  static std::mutex smem_mutex;
-  static int smem_set[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  {
-    std::lock_guard<std::mutex> lock(smem_mutex);
-    if (smem_set[device] < smem_bytes) {
-      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem_bytes);
-      if (err != cudaSuccess) return (int)err;
-      smem_set[device] = smem_bytes;
-    }
-  }
+  const int err = set_smem_limit((const void*)kern, smem_bytes);
+  if (err != cudaSuccess) return err;
   constexpr float kLog2e = 1.4426950408889634f;
   const float score_mul = cap > 0.f ? scale / cap : scale * kLog2e;
   const float cap_mul = cap > 0.f ? cap * kLog2e : 0.f;
@@ -574,8 +481,6 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
       cap_mul, causal, window, q_offset, k_len);
   return (int)cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 

@@ -58,12 +58,7 @@
 // does not synchronise and returns cudaGetLastError() (or
 // cudaErrorInvalidValue on arguments the kernel does not take).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <mutex>
+#include "hopper.cuh"
 
 namespace {
 
@@ -86,9 +81,7 @@ constexpr int kPvGroup = 8;      // n8 tiles whose P V products interleave
 constexpr int kMaxSplits = 32;   // CTAs a batch row at most: the grid is <= 32 B
 constexpr int kMaxSegs = kMaxSplits + 1;               // segments a batch row
 constexpr int kMergeItems = kMaxH * kMaxV / 4 / kConsumers;  // float4s a thread
-constexpr int kMaxDevices = 64;
 constexpr float kNeg = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPld = 40;  // bf16 a row of probabilities: 80 bytes, no conflicts
 // Shared memory past the ring: the warps' partial scores (4 x 16 x 32 fp32,
 // columns XOR-swizzled; the merge's m, l, weights and sums reuse it), the
@@ -98,53 +91,6 @@ constexpr int kPartBytes = kConsumerWarps * kMaxH * 32 * 4;
 constexpr int kFixedBytes =
     kPartBytes + 2 * kMaxH * kPld * 2 + kMaxH * 4 + (2 * kMaxStages + 1) * 8 + 8;
 static_assert((2 * kMaxSegs + 1) * kMaxH * 4 <= kPartBytes, "the merge's m, l and sums fit");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase with the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box (kBox columns x 32 rows of batch row c2) global -> shared, 128-byte
-// swizzled, zeros past the tensor's bounds, counted on bar's transactions;
-// policy marks the lines first to go from L2 (each row is read once)
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2,
-                                            uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "l"(policy)
-      : "memory");
-}
 
 // The byte offset, inside a stage, of the 16 bytes at (tile row r, columns
 // 8 c8 .. 8 c8 + 7): box c8 / 8, row r's 128 bytes, chunk c8 % 8 swizzled
@@ -159,44 +105,10 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-// c += a b: A 16 x 16 bf16 (row), B 16 x 8 bf16 (col), C 16 x 8 fp32
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// max and sum over the 8 lanes of a softmax group (lanes 8i .. 8i + 7)
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(T lo, T hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
 struct Args {
@@ -281,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ------------------------------------------------------------ producer
     int b = (int)(f_beg / n_tiles), t = (int)(f_beg - (int64_t)b * n_tiles);
     int s = 0, round = 0, ragged_phase = 0;
-    uint64_t evict_first;
+    uint64_t evict_first;  // each row is read once: its lines go first from L2
     asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(evict_first));
     for (int64_t f = f_beg; f < f_end; ++f) {
       if (round > 0) mbar_wait(empty0 + 8 * s, (round - 1) & 1);
@@ -291,7 +203,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lane == 0) {
           mbar_expect_tx(full, st_bytes);
           for (int k = 0; k < n_boxes; ++k)
-            tma_load_3d(dst + k * kBoxBytes, &tm, full, k * kBox, t * kTile, b, evict_first);
+            tma_load_3d_cache_hint(dst + k * kBoxBytes, &tm, full, k * kBox, t * kTile, b,
+                                   evict_first);
         }
       } else {
         // A batch row's last, ragged tile: its rows past the span hold
@@ -302,8 +215,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lane == 0) {
           mbar_expect_tx(ragged_bar, st_bytes);
           for (int k = 0; k < n_boxes; ++k)
-            tma_load_3d(dst + k * kBoxBytes, &tm, ragged_bar, k * kBox, t * kTile, b,
-                        evict_first);
+            tma_load_3d_cache_hint(dst + k * kBoxBytes, &tm, ragged_bar, k * kBox,
+                                   t * kTile, b, evict_first);
         }
         mbar_wait(ragged_bar, ragged_phase);
         ragged_phase ^= 1;
@@ -428,7 +341,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         sc[i] *= a.scale;
         mx = fmaxf(mx, ok[i] ? sc[i] : kNeg);
       }
-      mx = group_max(mx);
+      mx = xor_reduce<8>(mx, Max{});  // the 8 lanes of head hh
       float p[4] = {0.f, 0.f, 0.f, 0.f}, corr = 1.f;
       if (mx > kNeg) {  // the same for the 8 lanes of the head
         const float m_new = fmaxf(m, mx);
@@ -495,7 +408,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // this segment's partial for each head, at slot b + cta
     const int64_t row0 = ((int64_t)b + cta) * H;
-    const float l = group_sum(lsum);
+    const float l = xor_reduce<8>(lsum, Sum{});
     if (hh < H && r4 == 0) {
       a.part_m[row0 + hh] = m;
       a.part_l[row0 + hh] = l;
@@ -583,28 +496,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                                     12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 }  // namespace
 
 // q (B, H, D), lat (B, S, D) and out (B, H, V) bf16; pos a 0-dim int32 on
@@ -638,24 +529,8 @@ extern "C" int mla_decode_bf16(const void* q, const void* lat, const void* pos,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
-  // The dynamic shared-memory limit is set once per device, and again only
-  // when a launch needs more than was set, never while a CUDA graph is being
-  // captured after a first call.
-  static std::mutex smem_mutex;
-  static int smem_set[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  {
-    std::lock_guard<std::mutex> lock(smem_mutex);
-    if (smem_set[device] < smem_bytes) {
-      err = cudaFuncSetAttribute(mla_decode_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-      if (err != cudaSuccess) return (int)err;
-      smem_set[device] = smem_bytes;
-    }
-  }
+  const int err = set_smem_limit((const void*)mla_decode_kernel, smem_bytes);
+  if (err != cudaSuccess) return err;
   const Args a{static_cast<const T*>(q), static_cast<const T*>(lat),
                static_cast<const int32_t*>(pos), static_cast<float*>(part_m),
                static_cast<float*>(part_l), static_cast<float*>(part_acc),

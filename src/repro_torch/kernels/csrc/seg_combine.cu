@@ -76,9 +76,7 @@
 // multiple of 2,048 rows a CTA, one CTA per `rows_per_cta` rows on x; the
 // columns route 128 threads a CTA, 64 rows a CTA on x, 128 columns on y.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -90,7 +88,6 @@ constexpr int kBinsAt = kPass / 4;         // more sums a pass: to the bins
 constexpr int kColThreads = 128;           // columns route: columns a CTA
 constexpr int kDropped = -1;               // an id outside [0, P), a row past N
 constexpr int kNone = -2;                  // no neighbour: equals no id
-constexpr unsigned kFull = 0xffffffffu;
 
 enum Route { kBinsRoute = 0, kGlobal = 1, kColumns = 2 };
 

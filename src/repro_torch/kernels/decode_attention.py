@@ -26,7 +26,7 @@ import functools
 
 import torch
 
-from ._build import LaunchSpec, check, load
+from ._build import LaunchSpec, check, launch, load, scratch
 
 __all__ = ["LAYOUTS", "coverage", "decode_attention_cuda",
            "decode_attention_torch", "launch_spec", "live_span", "split_plan"]
@@ -132,29 +132,6 @@ def coverage(B: int, KV: int, G: int, S: int, n_splits: int
     return (S, KV, B), (-(-n_tiles // n_splits) * TILE, 1, 1)
 
 
-# (device index, B, KV, G, hd, n_splits) -> (part_m, part_l, part_acc, counters)
-_SCRATCH: dict[tuple, tuple[torch.Tensor, ...]] = {}
-
-
-def _scratch(device: torch.device, B: int, KV: int, G: int, hd: int,
-             n_splits: int) -> tuple[torch.Tensor, ...]:
-    """The partials and merge counters of one shape on one device.  They
-    are allocated once (the counters zeroed; the kernel leaves them at 0)
-    and never freed or moved, so a CUDA graph that captured a call keeps
-    valid pointers.  One stream at a time: two calls of one shape in flight
-    on two streams would share them."""
-    key = (device.index, B, KV, G, hd, n_splits)
-    bufs = _SCRATCH.get(key)
-    if bufs is None:
-        rows = B * KV * G * n_splits
-        f32 = dict(dtype=torch.float32, device=device)
-        bufs = _SCRATCH.setdefault(key, (
-            torch.empty(rows, **f32), torch.empty(rows, **f32),
-            torch.empty((rows, hd), **f32),
-            torch.zeros(B * KV, dtype=torch.int32, device=device)))
-    return bufs
-
-
 def decode_attention_cuda(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     slot_pos: torch.Tensor, pos: torch.Tensor, *, window: int | None,
@@ -175,7 +152,10 @@ def decode_attention_cuda(
     out = torch.empty_like(q)
     lse = (torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    part_m, part_l, part_acc, counters = _scratch(q.device, B, KV, G, hd, n_splits)
+    # a partial a head and split, a counter a (batch row, kv head)
+    part_m, part_l, part_acc, counters = scratch(
+        q.device, ("decode_attention", B, KV, G, hd, n_splits),
+        B * KV * G * n_splits, hd, B * KV)
     lib = load("decode_attention", _SIGNATURES)
     fn = (lib.decode_attention_f32 if q.dtype == torch.float32
           else lib.decode_attention_bf16)
@@ -185,12 +165,7 @@ def decode_attention_cuda(
             out.data_ptr(), lse.data_ptr() if return_lse else None,
             B, KV, G, S, hd, n_splits, LAYOUTS[layout],
             hd ** -0.5, window or 0, logit_cap or 0.0, spec.smem_bytes)
-    if q.device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(q.device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    check(err, "decode_attention")
+    check(launch(fn, args, q.device), "decode_attention")
     return (out, lse) if return_lse else out
 
 

@@ -39,10 +39,10 @@ card it is the yardstick both kernels are held to.
 :func:`chunked_forward` is the same function over chunks of keys with an
 online softmax: the ``"torch"`` attention impl's forward.
 :func:`chunked_backward` is its gradient in blocks of query rows, each over
-only the keys its rows see, with no forward recomputed: the one backward
-both differentiable forms use (the kernel's under
-:func:`repro_torch.kernels.flash_attention`, and
-:func:`repro_torch.models.attention.flash_attention_chunked`).
+only the keys its rows see, with no forward recomputed.
+:class:`FlashAttentionFunction` puts it behind either forward: the kernel's
+under :func:`repro_torch.kernels.flash_attention`, and the chunked one under
+:func:`repro_torch.models.attention.flash_attention_chunked`.
 """
 
 from __future__ import annotations
@@ -55,10 +55,10 @@ import torch
 
 from repro_torch.obs import current as _obs_current
 
-from ._build import MAX_SMEM_BYTES, LaunchSpec, check, load
+from ._build import MAX_SMEM_BYTES, LaunchSpec, check, launch, load
 
-__all__ = ["BWD_MAX_ROWS", "BWD_TILE_BYTES", "VARIANTS", "CtaPlan", "MTilePlan",
-           "bwd_block_rows", "chunked_backward",
+__all__ = ["BWD_MAX_ROWS", "BWD_TILE_BYTES", "VARIANTS", "CtaPlan",
+           "FlashAttentionFunction", "MTilePlan", "bwd_block_rows", "chunked_backward",
            "chunked_forward", "coverage", "f32_row_strides", "f32_tile",
            "flash_attention_cuda",
            "flash_attention_torch", "heads_per_tile", "key_bounds", "launch_spec",
@@ -276,10 +276,8 @@ def flash_attention_cuda(
             logit_cap or 0.0, q_offset, k_len]
     if q.dtype == torch.bfloat16:
         args += [*spec.grid, heads_per_tile(H, KV), wgmma_stages(hd)]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, spec.smem_bytes, stream)
-    check(err, f"flash_attention ({VARIANTS[q.dtype]})")
+    check(launch(fn, (*args, spec.smem_bytes), q.device),
+          f"flash_attention ({VARIANTS[q.dtype]})")
     return out
 
 
@@ -494,3 +492,22 @@ def chunked_backward(q, k, v, dout, *, causal: bool = True,
             B * H * Sq * Sk - computed)
     return (dq.reshape(B, H, Sq, hd).to(q.dtype), dk.reshape(B, KV, Sk, hd).to(k.dtype),
             dv.reshape(B, KV, Sk, hd).to(v.dtype))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``apply(forward, q, k, v, kw)``: ``forward(q, k, v, **kw)``, saving
+    only q, k and v; the backward is :func:`chunked_backward`, in fp32, with
+    no kernel launch, under the ``flash_attention.backward`` profiler range
+    (the reference's ``_flash_bwd`` and ``_flashx_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, forward, q, k, v, kw):
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v)
+        return forward(q, k, v, **kw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.profiler.record_function("flash_attention.backward"):
+            grads = chunked_backward(*ctx.saved_tensors, dout, **ctx.kw)
+        return (None, *grads, None)

@@ -29,7 +29,7 @@ import functools
 
 import torch
 
-from ._build import MAX_SMEM_BYTES, LaunchSpec, check, launch, load
+from ._build import MAX_SMEM_BYTES, LaunchSpec, check, launch, load, scratch
 
 __all__ = ["launch_spec", "merge_plan", "mla_decode_cuda", "mla_decode_torch",
            "split_plan"]
@@ -126,27 +126,6 @@ def merge_plan(pos: int, B: int, S: int, n_ctas: int) -> list[range]:
     return [range(b + cta_of(b * T), b + cta_of((b + 1) * T - 1) + 1) for b in range(B)]
 
 
-# (device index, B, H, v_dim, n_ctas) -> (part_m, part_l, part_acc, counters)
-_SCRATCH: dict[tuple, tuple[torch.Tensor, ...]] = {}
-
-
-def _scratch(device: torch.device, B: int, H: int, v_dim: int, n_ctas: int):
-    """The partials and merge counters of one shape on one device, made once
-    and never freed or moved (a captured call keeps its pointers): B + n_ctas
-    partial slots (:func:`merge_plan`) of H heads; the counters start at 0
-    and the kernel leaves them at 0."""
-    key = (device.index, B, H, v_dim, n_ctas)
-    bufs = _SCRATCH.get(key)
-    if bufs is None:
-        rows = (B + n_ctas) * H
-        f32 = dict(dtype=torch.float32, device=device)
-        bufs = _SCRATCH.setdefault(key, (
-            torch.empty(rows, **f32), torch.empty(rows, **f32),
-            torch.empty((rows, v_dim), **f32),
-            torch.zeros(B, dtype=torch.int32, device=device)))
-    return bufs
-
-
 def mla_decode_cuda(q: torch.Tensor, latent: torch.Tensor, pos: torch.Tensor, *,
                     scale: float, v_dim: int, spec: LaunchSpec) -> torch.Tensor:
     """Launch the kernel on the current stream; no checks, no synchronise.
@@ -155,7 +134,10 @@ def mla_decode_cuda(q: torch.Tensor, latent: torch.Tensor, pos: torch.Tensor, *,
     S = latent.shape[1]
     n_ctas = spec.grid[0]
     out = torch.empty((B, H, v_dim), dtype=q.dtype, device=q.device)
-    part_m, part_l, part_acc, counters = _scratch(q.device, B, H, v_dim, n_ctas)
+    # B + n_ctas partial slots (:func:`merge_plan`) of H heads, a counter a
+    # batch row
+    part_m, part_l, part_acc, counters = scratch(
+        q.device, ("mla_decode", B, H, v_dim, n_ctas), (B + n_ctas) * H, v_dim, B)
     fn = load("mla_decode", _SIGNATURES).mla_decode_bf16
     args = (q.data_ptr(), latent.data_ptr(), pos.data_ptr(), part_m.data_ptr(),
             part_l.data_ptr(), part_acc.data_ptr(), counters.data_ptr(), out.data_ptr(),

@@ -49,8 +49,8 @@ from . import flash_attention as _fa
 from . import mla_decode as _mla
 from . import seg_combine as _sc
 
-__all__ = ["fixture_copy", "flash_attention", "gqa_decode_attention",
-           "mla_decode_attention", "seg_combine"]
+__all__ = ["COUNTED_WRAPPERS", "fixture_copy", "flash_attention",
+           "gqa_decode_attention", "mla_decode_attention", "seg_combine"]
 
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -117,32 +117,15 @@ def flash_attention(
     ``mma.sync`` kernel; both load through 16-byte copies (TMA,
     ``cp.async``), so every input must start at a 16-byte-aligned address.
     When q, k or v requires a gradient, the call records
-    :class:`_FlashAttention` (its backward is plain PyTorch).
+    :class:`~repro_torch.kernels.flash_attention.FlashAttentionFunction`
+    over this forward (its backward is plain PyTorch).
     """
     kw = dict(causal=causal, window=window, logit_cap=logit_cap,
               q_offset=q_offset, k_len=k_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, kw)
+        return _fa.FlashAttentionFunction.apply(_flash_forward, q, k, v, kw)
     return _flash_forward(q, k, v, **kw)
-
-
-class _FlashAttention(torch.autograd.Function):
-    """The kernel forward, saving only q, k and v; the backward is
-    :func:`~repro_torch.kernels.flash_attention.chunked_backward`, the plain
-    version's gradients in fp32, with no kernel launch."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, kw):
-        ctx.kw = kw
-        ctx.save_for_backward(q, k, v)
-        return _flash_forward(q, k, v, **kw)
-
-    @staticmethod
-    def backward(ctx, dout):
-        with torch.profiler.record_function("flash_attention.backward"):
-            grads = _fa.chunked_backward(*ctx.saved_tensors, dout, **ctx.kw)
-        return (*grads, None)
 
 
 def _flash_forward(q, k, v, *, causal, window, logit_cap, q_offset, k_len):
@@ -426,3 +409,8 @@ def fixture_copy(
 fixture_copy.launches = 0
 fixture_copy.launches_by_variant = dict.fromkeys(_fc.PATHS, 0)
 fixture_copy.geometries = set()
+
+#: every wrapper that counts its launches (``launches``, and where it has
+#: variants ``launches_by_variant``): what a CUDA graph's replay repeats
+COUNTED_WRAPPERS = (flash_attention, gqa_decode_attention, seg_combine,
+                    fixture_copy, mla_decode_attention)

@@ -66,7 +66,7 @@ import torch
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import gqa_decode_attention as _decode_kernel
 from repro_torch.kernels.decode_attention import decode_attention_torch
-from repro_torch.kernels.flash_attention import chunked_backward, chunked_forward
+from repro_torch.kernels.flash_attention import FlashAttentionFunction, chunked_forward
 
 from . import tensor_parallel as tp
 from .layers import apply_rope
@@ -198,22 +198,6 @@ def chunked_attention(
                            chunk=chunk).to(q.dtype)
 
 
-class _FlashChunked(torch.autograd.Function):
-    """:func:`chunked_attention` forward, saving only q, k and v; the
-    backward is :func:`~repro_torch.kernels.flash_attention.chunked_backward`
-    (the reference's ``_flashx_fwd`` / ``_flashx_bwd``), in fp32."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, kw):
-        ctx.kw = kw
-        ctx.save_for_backward(q, k, v)
-        return chunked_forward(q, k, v, **kw).to(q.dtype)
-
-    @staticmethod
-    def backward(ctx, dout):
-        return (*chunked_backward(*ctx.saved_tensors, dout, **ctx.kw), None)
-
-
 def flash_attention_chunked(
     q: torch.Tensor,            # (B, H, Sq, hd)
     k: torch.Tensor,            # (B, KV, Sk, hd)
@@ -230,10 +214,11 @@ def flash_attention_chunked(
     probabilities; this saves (q, k, v) and computes each block's scores
     again over only the keys its rows see, with
     :func:`~repro_torch.kernels.flash_attention.chunked_backward`, the
-    backward of the kernel's forward too."""
-    return _FlashChunked.apply(q, k, v, dict(causal=causal, window=window,
-                                             logit_cap=logit_cap,
-                                             q_offset=q_offset))
+    backward of the kernel's forward too
+    (:class:`~repro_torch.kernels.flash_attention.FlashAttentionFunction`)."""
+    return FlashAttentionFunction.apply(
+        chunked_attention, q, k, v,
+        dict(causal=causal, window=window, logit_cap=logit_cap, q_offset=q_offset))
 
 
 def decode_attention(

@@ -44,18 +44,13 @@ from repro_torch.obs import span
 
 __all__ = ["GreedyDecoder"]
 
-# the wrappers whose launches a replay repeats
-_WRAPPERS = (ops.flash_attention, ops.gqa_decode_attention, ops.seg_combine,
-             ops.fixture_copy, ops.mla_decode_attention)
-
-
 def _counts() -> list[tuple[int, dict]]:
     return [(w.launches, dict(getattr(w, "launches_by_variant", {})))
-            for w in _WRAPPERS]
+            for w in ops.COUNTED_WRAPPERS]
 
 
 def _add(deltas: list[tuple[int, dict]], sign: int) -> None:
-    for w, (n, by) in zip(_WRAPPERS, deltas):
+    for w, (n, by) in zip(ops.COUNTED_WRAPPERS, deltas):
         w.launches += sign * n
         for k, v in by.items():
             w.launches_by_variant[k] += sign * v

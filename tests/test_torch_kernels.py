@@ -1,6 +1,9 @@
 """The port's ``seg_combine`` against the JAX package's, on the CPU, and the
 CPU side of ``fixture_copy`` (the kernel of the analyzer's known-bad launch
 fixture; ``tests/test_torch_analysis.py`` holds it to the Pallas kernel).
+The last tests hold the kernels' build and launch path: the shared header
+``csrc/hopper.cuh``, the build's hash of it, and the launchers' one route
+to the card through ``_build.launch``.
 
 On the CPU the port's wrapper takes the kernel's plain PyTorch version; the
 JAX side runs its Pallas kernel in interpret mode, as ``tests/test_kernels.py``
@@ -11,6 +14,10 @@ different orders (the CUDA kernel's fp32 atomics land in an order that
 changes from run to run).  Sums of ones (pair counts) are exact.
 """
 
+import importlib
+import re
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +26,7 @@ import torch
 from repro.kernels import seg_combine as j_seg_combine
 from repro.kernels.ref import seg_combine_ref as j_seg_combine_ref
 from repro_torch.analysis.checkers.launch_geometry import validate_launch
-from repro_torch.kernels import fixture_copy, seg_combine
+from repro_torch.kernels import _build, fixture_copy, seg_combine
 from repro_torch.kernels.fixture_copy import coverage as fixture_coverage
 from repro_torch.kernels.fixture_copy import launch_spec as fixture_launch_spec
 from repro_torch.kernels.fixture_copy import route as fixture_route
@@ -34,6 +41,11 @@ from repro_torch.kernels.seg_combine import (
 )
 from repro_torch.mapreduce import JOBS, make_input
 from repro_torch.mapreduce.engine import _hash_partition
+
+# the modules (the package exports functions of the same names)
+_da = importlib.import_module("repro_torch.kernels.decode_attention")
+_fa = importlib.import_module("repro_torch.kernels.flash_attention")
+_mla = importlib.import_module("repro_torch.kernels.mla_decode")
 
 SHAPES = [(1024, 256, 16), (777, 130, 7), (64, 8, 3)]
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -321,3 +333,131 @@ def test_fixture_copy_rejects_what_the_kernel_does_not_take(case):
 ])
 def test_fixture_copy_route(shape, tile, ptrs, path):
     assert fixture_route(*shape, tile, *ptrs) == path
+
+
+# ------------------------------------------------------------ build and launch
+
+def test_a_header_edit_builds_every_kernel_anew(tmp_path, monkeypatch):
+    """The library's name hashes every ``csrc/*.cuh`` beside the source: an
+    edit to a header that a source includes must not load the old build."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "hopper.cuh"\n')
+    (csrc / "hopper.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path / "build")
+    src, before = _build._target("k")
+    assert src == csrc / "k.cu" and before.parent == tmp_path / "build"
+    assert _build._target("k")[1] == before
+    (csrc / "hopper.cuh").write_text("// two\n")
+    after = _build._target("k")[1]
+    assert after != before and after.name.startswith("k_")
+    (csrc / "other.cuh").write_text("// three\n")
+    assert _build._target("k")[1] not in (before, after)
+
+
+_CSRC = _build._CSRC
+_ATTENTION_SOURCES = ("decode_attention", "flash_attention", "flash_attention_wgmma",
+                      "mla_decode")
+
+
+def _defined(text: str) -> set[str]:
+    """The names a CUDA source defines at namespace scope (its column-0
+    lines): functions, constants, structs and type aliases."""
+    names = set()
+    for line in text.splitlines():
+        if not line or line[0] in " #/}" or line.startswith(("namespace", "template")):
+            continue
+        m = (re.match(r"constexpr\b[^=(]*?\b(\w+)\s*=", line)
+             or re.match(r"(?:struct|using)\s+(\w+)", line)
+             or re.match(r"(?:[\w:<>*&]+\s+)*?(\w+)\s*\(", line))
+        if m:
+            names.add(m.group(1))
+    return names
+
+
+def test_no_source_redefines_what_hopper_cuh_defines():
+    """The PTX wrappers and host helpers live once, in ``hopper.cuh``: no
+    source defines one of them again, the four attention sources include
+    it, and no source sets a shared-memory limit but through its
+    ``set_smem_limit``."""
+    shared = _defined((_CSRC / "hopper.cuh").read_text())
+    assert {"smem_u32", "cp_async16", "cp_async_commit", "cp_async_wait", "mbar_init",
+            "mbar_expect_tx", "mbar_arrive", "mbar_wait", "tma_load_3d",
+            "tma_load_3d_cache_hint", "ldsm_x4", "mma_bf16", "pack_bf16",
+            "pack_bf16_rn", "xor_reduce", "aligned16", "set_smem_limit",
+            "encode_tiled", "kFull", "kMaxDevices"} <= shared
+    sources = sorted(_CSRC.glob("*.cu"))
+    assert {p.stem for p in sources} >= set(_ATTENTION_SOURCES)
+    for path in sources:
+        text = path.read_text()
+        assert not _defined(text) & shared, (path.name, _defined(text) & shared)
+        assert "cudaFuncSetAttribute" not in text, path.name
+        if path.stem in _ATTENTION_SOURCES:
+            assert '#include "hopper.cuh"' in text, path.name
+
+
+def _fake_load(source, signatures):
+    """A stand-in for a loaded library: each C function only carries its
+    ``argtypes``."""
+    return SimpleNamespace(**{fn: SimpleNamespace(argtypes=argtypes)
+                              for fn, argtypes in signatures.items()})
+
+
+def _launchers():
+    g = torch.Generator().manual_seed(0)
+
+    def flash(dtype):
+        q = torch.randn((1, 4, 24, 64), generator=g).to(dtype)
+        k = torch.randn((1, 2, 24, 64), generator=g).to(dtype)
+        spec = _fa.launch_spec(1, 4, 2, 24, 64, dtype)
+        return q.device, lambda: _fa.flash_attention_cuda(
+            q, k, k, causal=True, window=None, logit_cap=None, q_offset=0, k_len=24,
+            spec=spec)
+
+    def decode(dtype):
+        q = torch.randn((2, 2, 3, 64), generator=g).to(dtype)
+        kc = torch.randn((2, 2, 40, 64), generator=g).to(dtype)
+        slot_pos = torch.arange(40, dtype=torch.int32)
+        pos = torch.tensor(17, dtype=torch.int32)
+        spec = _da.launch_spec(2, 2, 3, 40, 64, dtype)
+        return q.device, lambda: _da.decode_attention_cuda(
+            q, kc, kc, slot_pos, pos, window=None, logit_cap=None, layout="full",
+            spec=spec, return_lse=True)
+
+    def mla():
+        q = torch.randn((2, 16, 576), generator=g).bfloat16()
+        lat = torch.randn((2, 70, 576), generator=g).bfloat16()
+        pos = torch.tensor(69, dtype=torch.int32)
+        spec = _mla.launch_spec(2, 70, 576)
+        return q.device, lambda: _mla.mla_decode_cuda(q, lat, pos, scale=0.1, v_dim=512,
+                                                      spec=spec)
+
+    return {"flash-f32": (_fa, lambda: flash(torch.float32)),
+            "flash-bf16": (_fa, lambda: flash(torch.bfloat16)),
+            "decode-f32": (_da, lambda: decode(torch.float32)),
+            "decode-bf16": (_da, lambda: decode(torch.bfloat16)),
+            "mla": (_mla, mla)}
+
+
+@pytest.mark.parametrize("name", list(_launchers()))
+def test_every_attention_launcher_goes_through_build_launch(name, monkeypatch):
+    """Each attention launcher makes its one C call through
+    ``_build.launch`` (PyTorch's current stream, on the inputs' device),
+    with as many arguments as the C function takes, the stream last."""
+    module, make = _launchers()[name]
+    calls = []
+
+    def fake_launch(fn, args, device):
+        calls.append((fn, args, device))
+        return 0
+
+    monkeypatch.setattr(module, "load", _fake_load)
+    monkeypatch.setattr(module, "launch", fake_launch)
+    monkeypatch.setattr(_build, "_SCRATCH", {})
+    device, run = make()
+    run()
+    assert len(calls) == 1
+    fn, args, dev = calls[0]
+    assert dev == device and isinstance(args, tuple)
+    assert len(args) + 1 == len(fn.argtypes)    # the stream comes last

@@ -223,9 +223,9 @@ def test_merging_the_segments_partials_gives_the_plain_twin(B, H, S, pos, n_ctas
 
 
 def test_the_kernel_wrapper_is_replayed_by_the_decode_graph():
-    assert ops.mla_decode_attention in decode_graph._WRAPPERS
+    assert ops.mla_decode_attention in ops.COUNTED_WRAPPERS
     before = mla_decode_attention.launches
-    n = len(decode_graph._WRAPPERS)
+    n = len(ops.COUNTED_WRAPPERS)
     deltas = [(0, {})] * (n - 1) + [(27, {})]
     decode_graph._add(deltas, +1)
     decode_graph._add(deltas, +1)

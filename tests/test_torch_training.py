@@ -280,11 +280,15 @@ def test_flash_backward_counts_the_scores_it_computes(causal, window, block, sha
 @pytest.mark.parametrize(
     "causal,window,cap,off",
     [(True, None, None, 0), (True, 64, 50.0, 0), (False, None, None, 0),
-     (True, None, 30.0, 128)],
+     (True, None, 30.0, 128), (True, 32, None, 64)],
 )
 def test_flash_bwd_matches_autodiff(causal, window, cap, off):
     """The twin of tests/test_opt_equivalence.py:59, held to the port's
-    autodiff through chunked_attention and to the reference's custom VJP."""
+    autodiff through chunked_attention and to the reference's custom VJP.
+    Its backward runs under the kernel path's ``flash_attention.backward``
+    range, once a call."""
+    from torch.profiler import ProfilerActivity, profile
+
     rng = np.random.default_rng(2)
     q, k, v = (rng.standard_normal(s).astype(np.float32)
                for s in ((1, 4, 128, 32), (1, 2, 192, 32), (1, 2, 192, 32)))
@@ -296,7 +300,9 @@ def test_flash_bwd_matches_autodiff(causal, window, cap, off):
         return val, torch.autograd.grad(val, (tq, tk, tv))
 
     ref_val, ref_g = t_loss(attention.chunked_attention, chunk=64)
-    new_val, new_g = t_loss(attention.flash_attention_chunked)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        new_val, new_g = t_loss(attention.flash_attention_chunked)
+    assert [e.name for e in prof.events()].count("flash_attention.backward") == 1
     np.testing.assert_allclose(float(new_val), float(ref_val), rtol=1e-5)
     for a, b in zip(new_g, ref_g):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
